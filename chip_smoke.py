@@ -10,15 +10,19 @@ Phases, one line each, every one fatal on failure:
   3. flash_decode_paged against its plain version at the serve shapes and
      at a small shape (G=1, Dh=32, ps=2, window>0), atol=rtol=2e-3 (fp32
      output from bf16 K/V, sums in another order);
-  4. probe_topk_fused against its plain version at the serve shapes and at
-     a small shape: equal ids and scores within rtol=1e-4 on tie-free data;
+  4. probe_topk_fused and ivf_topk against their plain versions at the
+     serve shapes and at a small shape: equal ids (and the same admitted
+     clusters) and scores within rtol=1e-4 on tie-free data;
   5. timing: each kernel over many launches (CUDA events, after warm-up)
      beside its bound and its plain version; flash_decode_paged also at a
      long context (4k-8k tokens), where the K/V stream and not the launch
      sets its time;
-  6. serving: repro_torch.launch.serve at the full Llama-3-8B width over a
-     1M x 768 datastore; both kernels' launch counts must rise and at
-     least one round must hit the device.
+  6. serving: repro_torch.launch.serve's TeleRAGServer at the full
+     Llama-3-8B width over a 1M x 768 datastore, built once and served
+     twice: with fused retrieval (flash_decode_paged and probe_topk_fused
+     must launch) and with unfused retrieval (ivf_topk must launch,
+     probe_topk_fused must not); each serve's doc ids must match an exact
+     host search and at least one round must hit the device.
 The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
@@ -32,16 +36,22 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 
+# the serve phase's pool: 4096 prefetch pages + 342 pages' worth of the
+# batch-4, 128-token KV lease (67,108,864 bytes / 196,608)
+POOL_PAGES = 4438
+
 # kernel 1's long-context timing case (B=4, KVH=8, G=4, Dh=128, ps=16)
 LONG_LENGTHS = [8192, 6144, 5000, 4096]
 
-# serving configuration driven in phase 6 (full Llama-3-8B width)
+# serving configuration driven in phase 6 (full Llama-3-8B width; built
+# once, served with fused and then with unfused retrieval)
 SERVE_ARGS = ["--arch", "llama3-8b", "--pipeline", "irg", "--requests", "8",
               "--batch", "4", "--vectors", "1048576", "--dim", "768",
               "--clusters", "1024", "--train-sample", "131072",
@@ -169,11 +179,13 @@ def retrieval_work(ref, case, nprobe, k):
 
 
 def check_retrieval(pt, ref, case, nprobe, k, label):
-    out_s, out_i = pt.probe_topk_fused(*case, nprobe=nprobe, k=k)
-    want_s, want_i = ref.probe_and_topk_ref(*case, nprobe, k)
+    out_s, out_i, out_adm = pt.probe_topk_fused(*case, nprobe=nprobe, k=k)
+    want_s, want_i, want_adm = ref.probe_and_topk_ref(*case, nprobe, k)
     torch.cuda.synchronize()
     if not torch.equal(out_i, want_i):
         fail(f"probe_topk_fused {label}: ids differ\n{out_i}\n{want_i}")
+    if not torch.equal(out_adm, want_adm):
+        fail(f"probe_topk_fused {label}: admitted clusters differ")
     try:
         torch.testing.assert_close(out_s, want_s, rtol=1e-4, atol=1e-6)
     except AssertionError as e:
@@ -183,9 +195,130 @@ def check_retrieval(pt, ref, case, nprobe, k, label):
     q, cent, _, pages, _, _ = case
     phase("check", f"probe_topk_fused {label}: B={q.shape[0]} d={q.shape[1]} "
           f"Nc={cent.shape[0]} P={pages.shape[0]} ps={pages.shape[1]} "
-          f"nprobe={nprobe} k={k}: ids equal, max_abs_err={err:.3e} "
+          f"nprobe={nprobe} k={k}: ids and admitted clusters equal, "
+          f"max_abs_err={err:.3e} (rtol=1e-4)")
+    return err
+
+
+# -- kernel 3: ivf_topk ---------------------------------------------------------
+
+
+def ivf_case(B, d, P, ps, seed, admit=0.2, empty_row=False):
+    """Tie-free unfused-retrieval inputs on the card: gaussian queries and
+    bf16 pages, unique ids with one padded page tail, and a per-query
+    page mask admitting about ``admit`` of the pages (none for query 0
+    when ``empty_row``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, d), generator=g, device="cuda")
+    pages = torch.randn((P, ps, d), generator=g, device="cuda").to(torch.bfloat16)
+    pids = torch.randperm(P * ps, generator=g, device="cuda").to(torch.int32)
+    pids = pids.reshape(P, ps)
+    pids[0, ps // 2:] = -1
+    mask = torch.rand((B, P), generator=g, device="cuda") < admit
+    if empty_row:
+        mask[0] = False
+    return pages, pids, mask, q
+
+
+def ivf_work(case, k):
+    """(bytes, flops, pages read) this input needs: queries and the mask,
+    and the ids and vectors of every page some query admits, read once;
+    the [B, k] outputs written once; each admitted (query, page) pair's
+    dots."""
+    pages, pids, mask, q = case
+    B, d = q.shape
+    P, ps = pids.shape
+    pages_any = mask.any(0).sum().item()
+    nbytes = (q.numel() * 4 + mask.numel()
+              + pages_any * ps * (d * pages.element_size() + 4) + B * k * 8)
+    return nbytes, 2 * mask.sum().item() * ps * d, pages_any
+
+
+def check_ivf(it, ref, case, k, label):
+    out_s, out_i = it.ivf_topk(*case, k)
+    want_s, want_i = ref.ivf_topk_ref(*case, k)
+    torch.cuda.synchronize()
+    if not torch.equal(out_i, want_i):
+        fail(f"ivf_topk {label}: ids differ\n{out_i}\n{want_i}")
+    try:
+        torch.testing.assert_close(out_s, want_s, rtol=1e-4, atol=1e-6)
+    except AssertionError as e:
+        fail(f"ivf_topk {label}: {e}")
+    fin = torch.isfinite(want_s)
+    err = (out_s[fin] - want_s[fin]).abs().max().item() if fin.any() else 0.0
+    pages, _, mask, q = case
+    empty = int((~mask.any(1)).sum().item())
+    phase("check", f"ivf_topk {label}: B={q.shape[0]} d={q.shape[1]} "
+          f"P={pages.shape[0]} ps={pages.shape[1]} k={k}, "
+          f"{mask.float().mean().item():.1%} of pages admitted, {empty} "
+          f"query(ies) with none: ids equal, max_abs_err={err:.3e} "
           "(rtol=1e-4)")
     return err
+
+
+# -- one retrieval round, fused against unfused -------------------------------
+
+
+def retrieval_ab(serve, setup, reps=20):
+    """Host-clock ms of one ``hybrid_retrieve`` call, fused against
+    unfused, alternating which goes first, over one buffer state of the
+    serve phase's pool in which every probed cluster of ``--batch``
+    queries is resident (no host search runs).  Both must return the
+    same doc ids and partition.  Returns the two lists of ms, the
+    resident cluster count, and each path's kernel alone on that state
+    (device ms, CUDA events) with the pages its mask admits."""
+    from repro_torch.core.hybrid_search import hybrid_retrieve
+    from repro_torch.core.ivf import probe
+    from repro_torch.core.prefetch_buffer import PrefetchBuffer
+    from repro_torch.kernels.ivf_topk import ivf_topk
+    from repro_torch.kernels.probe_topk import probe_topk_fused
+
+    args, index = setup.args, setup.index
+    q = serve.make_queries(setup.store, args.batch, args.seed + 7)
+    probed = probe(q, index, args.nprobe)
+    buf = PrefetchBuffer(index.paged, POOL_PAGES, device=setup.device)
+    buf.load_clusters(sorted(set(probed.ravel().tolist())))
+    calls = {"fused": dict(fused=True, centroids=index.device_centroids),
+             "unfused": dict(fused=False)}
+    ms = {m: [] for m in calls}
+    results = {}
+    for rep in range(reps + 2):                   # 2 warm-up pairs
+        for mode in (("fused", "unfused") if rep % 2 else ("unfused", "fused")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = hybrid_retrieve(buf, q, probed, k=args.top_k, **calls[mode])
+            dt = (time.perf_counter() - t0) * 1e3
+            if rep >= 2:
+                ms[mode].append(dt)
+            results[mode] = res
+    a, b = results["fused"], results["unfused"]
+    if not (np.array_equal(a.doc_ids, b.doc_ids)
+            and a.hit_clusters == b.hit_clusters
+            and a.missed_clusters == b.missed_clusters):
+        fail("fused and unfused retrieval disagree over one buffer state")
+    if any(a.missed_clusters):
+        fail("retrieval A/B: a probed cluster is not resident")
+
+    # each path's device search alone on this state
+    dev, cents = setup.device, index.device_centroids
+    qd = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    pages, page_ids, page_cluster = buf.device_view()
+    valid = torch.ones((cents.shape[0],), dtype=torch.bool, device=dev)
+    luts = np.zeros((len(q), cents.shape[0]), bool)
+    for b, row in enumerate(probed):
+        luts[b, row] = True
+    pc = buf.slot_cluster
+    mask = np.zeros((len(q), buf.num_pages), bool)
+    mask[:, pc >= 0] = luts[:, pc[pc >= 0]]
+    mask_d = torch.from_numpy(mask).to(dev)
+    alone = {
+        "probe_topk_fused": time_ms(lambda: probe_topk_fused(
+            qd, cents, valid, pages, page_ids, page_cluster,
+            nprobe=args.nprobe, k=args.top_k), iters=50),
+        "ivf_topk": time_ms(lambda: ivf_topk(pages, page_ids, mask_d, qd,
+                                             args.top_k), iters=50),
+        "pages_read": int(mask.any(0).sum())}
+    return ms["fused"], ms["unfused"], sum(map(len, a.hit_clusters)), alone
 
 
 # -- the decode step as a whole -----------------------------------------------
@@ -232,6 +365,7 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ivf_topk as it
     from repro_torch.kernels import probe_topk as pt
     from repro_torch.launch import serve
     from repro_torch.models import transformer as ttf
@@ -250,13 +384,14 @@ def main() -> None:
 
     # 2) build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    logs = _build.build_all(["flash_decode_paged", "probe_topk"], verbose=True,
-                            force=True)
+    sources = ["flash_decode_paged", "probe_topk", "ivf_topk"]
+    logs = _build.build_all(sources, verbose=True, force=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 phase("build", f"{name}: {line.strip()}")
-    phase("build", f"both kernels built for sm_90a in {time.perf_counter() - t0:.1f} s")
+    phase("build", f"{len(sources)} kernels built for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 3) kernel 1 against its plain version
     serve_dec = decode_case(4, 8, 4, 128, 16, 8, [128, 97, 40, 7], seed=1)
@@ -269,12 +404,16 @@ def main() -> None:
     err_dec = max(err_dec, check_decode(fd, ref, long_dec, 0, "long context"))
 
     # 4) kernel 2 against its plain version
-    # the serve phase's pool: 4096 prefetch pages + 342 pages' worth of
-    # the batch-4, 128-token KV lease (67,108,864 bytes / 196,608)
-    serve_ret = retrieval_case(4, 768, 1024, 4438, 128, seed=4)
+    serve_ret = retrieval_case(4, 768, 1024, POOL_PAGES, 128, seed=4)
     small_ret = retrieval_case(3, 60, 24, 18, 8, seed=5)
     err_ret = max(check_retrieval(pt, ref, serve_ret, 64, 3, "serve shapes"),
                   check_retrieval(pt, ref, small_ret, 7, 5, "small shape"))
+
+    # kernel 3 against its plain version, at the same pool
+    serve_ivf = ivf_case(4, 768, POOL_PAGES, 128, seed=8)
+    small_ivf = ivf_case(3, 60, 18, 8, seed=9, admit=0.5, empty_row=True)
+    err_ivf = max(check_ivf(it, ref, serve_ivf, 3, "serve shapes"),
+                  check_ivf(it, ref, small_ivf, 5, "small shape"))
 
     check_model(ttf, get_arch)
 
@@ -300,38 +439,73 @@ def main() -> None:
     phase("time", f"probe_topk_fused: {ret_ms:.4f} ms, plain {ret_plain:.4f} ms, "
           f"bound {ret_bound:.5f} ms ({ret_by}; {pages_any} of "
           f"{serve_ret[3].shape[0]} pages admitted) on {smi}")
-    del serve_ret
+    ivf_ms = time_ms(lambda: it.ivf_topk(*serve_ivf, 3), 50)
+    ivf_plain = time_ms(lambda: ref.ivf_topk_ref(*serve_ivf, 3), 10)
+    nbytes, flops, ivf_pages = ivf_work(serve_ivf, 3)
+    ivf_bound, ivf_by = bound(nbytes, flops)
+    phase("time", f"ivf_topk: {ivf_ms:.4f} ms, plain {ivf_plain:.4f} ms, "
+          f"bound {ivf_bound:.5f} ms ({ivf_by}; {ivf_pages} of "
+          f"{serve_ivf[0].shape[0]} pages admitted) on {smi}")
+    del serve_ret, serve_ivf
     torch.cuda.empty_cache()
 
-    # 6) serving through the port's entry point
-    fd.flash_decode_paged.launches = 0
-    pt.probe_topk_fused.launches = 0
-    summary = serve.main(SERVE_ARGS)
-    launches = {"flash_decode_paged": fd.flash_decode_paged.launches,
-                "probe_topk_fused": pt.probe_topk_fused.launches}
-    phase("serve", json.dumps({k: summary[k] for k in (
-        "device", "arch", "layers", "requests", "hits", "misses",
-        "rounds_with_hits", "decode_tokens", "decode_steps", "decode_s",
-        "tokens_per_s", "rounds", "copy_ms", "copy_bytes", "wall_s",
-        "index_s", "bytes_h2d", "retrieval_gap")}))
-    for rid, rows in summary["doc_ids"].items():
-        if not rows or any(len(row) != 3 or min(row) < 0 for row in rows):
-            fail(f"request {rid}: doc ids per round {rows}, want 3 each")
-    if not summary["retrieval_gap"] < 1e-2:
-        fail(f"retrieval disagrees with the exact host search: score gap "
-             f"{summary['retrieval_gap']} (bf16 pages allow < 1e-2)")
-    if summary["rounds_with_hits"] < 1:
-        fail("no round had device hits")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the path never launched: {launches}")
-    phase("kernels", json.dumps(launches))
+    # 6) serving through the port's entry point: one build, two serves,
+    #    each path's launch counts set to 0 just before it and read after
+    setup = serve.build(serve.parse_args(SERVE_ARGS))
+    counted = {"flash_decode_paged": fd.flash_decode_paged,
+               "probe_topk_fused": pt.probe_topk_fused, "ivf_topk": it.ivf_topk}
+    launches = {}
+    for path, engine in (("fused", {}), ("unfused", {"fused_retrieval": False})):
+        for fn in counted.values():
+            fn.launches = 0
+        summary = serve.serve(setup, **engine)
+        launches[path] = {n: fn.launches for n, fn in counted.items()}
+        phase("serve", json.dumps({"path": path, **{k: summary[k] for k in (
+            "device", "arch", "layers", "retrieval", "continuous", "requests",
+            "hits", "misses", "rounds_with_hits", "decode_tokens",
+            "decode_steps", "decode_s", "tokens_per_s", "lookahead",
+            "decode_waves", "retrievals", "latency_s", "copy_ms",
+            "copy_bytes", "wall_s", "index_s", "bytes_h2d",
+            "retrieval_gap")}}))
+        for rid, rows in summary["doc_ids"].items():
+            if not rows or any(len(row) != 3 or min(row) < 0 for row in rows):
+                fail(f"{path} serve, request {rid}: doc ids per round {rows}, "
+                     "want 3 each")
+        if not summary["retrieval_gap"] < 1e-2:
+            fail(f"{path} serve disagrees with the exact host search: score "
+                 f"gap {summary['retrieval_gap']} (bf16 pages allow < 1e-2)")
+        if summary["rounds_with_hits"] < 1:
+            fail(f"{path} serve: no round had device hits")
+        phase("kernels", json.dumps({"path": path, **launches[path]}))
+    want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
+            "unfused": ("flash_decode_paged", "ivf_topk")}
+    for path, names in want.items():
+        if min(launches[path][n] for n in names) < 1:
+            fail(f"a kernel of the {path} path never launched: {launches[path]}")
+    if launches["unfused"]["probe_topk_fused"] != 0:
+        fail(f"the unfused path launched probe_topk_fused: {launches['unfused']}")
+    fused_ms, unfused_ms, hits, alone = retrieval_ab(serve, setup)
+    q = lambda xs, p: float(np.percentile(xs, p))
+    phase("time", f"one retrieval round, {hits} probed clusters all resident, "
+          f"{len(fused_ms)} alternating pairs: fused median {q(fused_ms, 50):.3f} "
+          f"ms (IQR {q(fused_ms, 25):.3f}-{q(fused_ms, 75):.3f}), unfused "
+          f"median {q(unfused_ms, 50):.3f} ms (IQR {q(unfused_ms, 25):.3f}-"
+          f"{q(unfused_ms, 75):.3f}); unfused faster in "
+          f"{sum(u < f for f, u in zip(fused_ms, unfused_ms))} pairs; "
+          f"same doc ids and partition; the kernels alone on that state "
+          f"({alone['pages_read']} pages read): probe_topk_fused "
+          f"{alone['probe_topk_fused']:.4f} ms, ivf_topk "
+          f"{alone['ivf_topk']:.4f} ms; on {smi}")
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "flash_decode_paged", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
          "replaces": "src/repro/kernels/flash_decode.py:201",
-         "launches": launches["flash_decode_paged"], "max_abs_err": err_dec,
+         "launches": launches["fused"]["flash_decode_paged"],
+         "launches_by_path": {p: c["flash_decode_paged"]
+                              for p, c in launches.items()},
+         "max_abs_err": err_dec,
          "ms": dec_ms, "plain_ms": dec_plain, "bound_ms": dec_bound,
          "bound_by": dec_by, "library_ms": None,
          "long_context": {"lengths": LONG_LENGTHS, "ms": long_ms,
@@ -340,9 +514,20 @@ def main() -> None:
         {"name": "probe_topk_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/probe_topk.cu",
          "replaces": "src/repro/kernels/probe_topk.py:172",
-         "launches": launches["probe_topk_fused"], "max_abs_err": err_ret,
+         "launches": launches["fused"]["probe_topk_fused"],
+         "launches_by_path": {p: c["probe_topk_fused"]
+                              for p, c in launches.items()},
+         "max_abs_err": err_ret,
          "ms": ret_ms, "plain_ms": ret_plain, "bound_ms": ret_bound,
          "bound_by": ret_by, "library_ms": None},
+        {"name": "ivf_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ivf_topk.cu",
+         "replaces": "src/repro/kernels/ivf_topk.py:110",
+         "launches": launches["unfused"]["ivf_topk"],
+         "launches_by_path": {p: c["ivf_topk"] for p, c in launches.items()},
+         "max_abs_err": err_ivf,
+         "ms": ivf_ms, "plain_ms": ivf_plain, "bound_ms": ivf_bound,
+         "bound_by": ivf_by, "library_ms": None},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,23 @@
 """Hybrid device/host IVF search + on-device merge (paper §4.1 steps 2–4).
 
-* Device side: one fused ``probe_and_topk`` launch over the pool's
-  resident pages (centroid probe, top-nprobe admission and masked top-k
-  in the kernel, reading the slab in place), after the compute stream
-  has waited on the lookahead copy's event.
+* Device side, fused (the default): one ``probe_topk_fused`` launch over
+  the pool's resident pages (centroid probe, top-nprobe admission and
+  masked top-k in the kernel, reading the slab in place).  The kernel's
+  admitted-cluster mask, read back once, splits hits from misses, so the
+  device and the host search exactly the clusters the kernel admitted;
+  the host search over the host probe's misses runs while the kernel
+  does, and is redone only where the mask disagrees.
+* Device side, unfused: a per-query page mask built on the host from the
+  resident probed clusters, then one ``ivf_topk`` launch over the slab.
+* Either way the compute stream first waits on the lookahead copy's
+  event (a device-side wait).
 * Host side: missed clusters are searched in numpy (the paper's
   multithreaded CPU path; one core here).
 * Merge: only the host candidates' *scalar* scores+ids cross the link
   ("GPU sorting", §4.3 — transferring distances, not vectors), then one
   top-k on the device.
 
-The unfused two-launch partition (host-built page mask + ``ivf_topk``)
-and the datastore-sharded search wait for their kernel's port.
+The datastore-sharded search waits for the distributed slice.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from repro_torch.core.datastore import PagedClusters
 from repro_torch.core.prefetch_buffer import PrefetchBuffer
 from repro_torch.kernels import ops
+from repro_torch.kernels import probe_topk
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +105,29 @@ class RetrievalResult:
         return h / max(h + m, 1)
 
 
+def _host_merge(buffer: PrefetchBuffer, queries: np.ndarray,
+                miss: List[List[int]], dev_s: torch.Tensor,
+                dev_i: torch.Tensor, k: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host partition over each query's ``miss`` clusters (scalar
+    scores/ids only cross the link), merged on device with the device
+    partition's candidates.  On a card the upload is pinned and
+    ``non_blocking``, so nothing here waits for the device search."""
+    host_results = [host_search(buffer.paged, miss[b], queries[b], k)
+                    for b in range(len(miss))]
+    dev = dev_s.device
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if dev.type != "cuda":
+            return t
+        return t.pin_memory().to(dev, non_blocking=True)
+
+    host_s = upload(np.stack([r[0] for r in host_results]))
+    host_i = upload(np.stack([r[1] for r in host_results]))
+    return merge_topk(dev_s, dev_i, host_s, host_i, k)
+
+
 def hybrid_retrieve(buffer: PrefetchBuffer, queries: np.ndarray,
                     probed_clusters: np.ndarray, *, k: int,
                     fused: bool = True,
@@ -108,47 +138,70 @@ def hybrid_retrieve(buffer: PrefetchBuffer, queries: np.ndarray,
     Device searches every probed cluster that is resident; the host
     searches the rest; results merge on device.
 
-    The device partition is ONE ``probe_and_topk`` launch over the pool's
-    resident pages (``centroids`` [Nc, d] fp32 on the pool's device): the
-    centroid probe, top-nprobe cluster admission and masked document
-    top-k all happen in the kernel via the device page table
-    (``page_cluster``).  The admitted cluster set equals
-    ``probed_clusters`` when the kernel's fp32 centroid scores and the
-    host probe's rank the nprobe-th cluster alike; the two sum in
-    different orders, so a near-tie there can leave a resident cluster
-    that neither side searches (ROADMAP, queue 3).
+    ``fused=True`` (requires ``centroids`` [Nc, d] fp32 on the pool's
+    device) runs the device partition as ONE ``probe_topk_fused`` launch
+    over the pool's resident pages: the centroid probe, top-nprobe
+    cluster admission and masked document top-k all happen in the
+    kernel via the device page table (``page_cluster``).  Hits and
+    misses are then the admitted clusters that are and are not
+    resident, read from the kernel's own admitted mask: the host probe
+    sums in another fp32 order, and at a near-tie of the nprobe-th
+    centroid its ``probed_clusters`` may name another cluster than the
+    kernel admitted.  On tie-free scores the two sets are equal, and the
+    lists keep ``probed_clusters``' order (any cluster admitted beyond
+    it follows, by id).  So the host search over ``probed_clusters``'
+    misses and the merge are queued while the kernel runs, and the mask
+    is read after them; only where it admits other misses is the host
+    search run again.
+
+    Otherwise the device partition is the reference's two-launch path: a
+    per-query [B, num_pages] page mask built on the host from the slot
+    table and the hit lists, uploaded, then ``ivf_topk`` over the slab.
     """
-    if not fused or centroids is None:
-        raise NotImplementedError(
-            "the unfused retrieval path (host-built page mask + ivf_topk) "
-            "waits for the ivf_topk kernel port (ROADMAP: kernel 3); use "
-            "fused=True with centroids")
     B, nprobe = probed_clusters.shape
     buffer.flush_invalidations()
     resident = buffer.resident_clusters()
-    hit: List[List[int]] = []
-    miss: List[List[int]] = []
-    for b in range(B):
-        cs = [int(c) for c in probed_clusters[b]]
-        hit.append([c for c in cs if c in resident])
-        miss.append([c for c in cs if c not in resident])
-
     dev = buffer.pool.device
     if dev.type == "cuda":
         buffer.wait_copies()                   # device-side wait, no host sync
     qd = torch.as_tensor(queries, dtype=torch.float32).to(dev)
-    # a page is searchable iff its cluster's centroid score reaches the
-    # nprobe-th largest, which is exactly the probed set
     pages, page_ids, page_cluster = buffer.device_view()
-    dev_s, dev_i = ops.probe_and_topk(qd, centroids, pages, page_ids,
-                                      page_cluster, nprobe=nprobe, k=k)
-
-    # host partition (scalar scores/ids only cross the link)
-    host_results = [host_search(buffer.paged, miss[b], queries[b], k)
-                    for b in range(B)]
-    host_s = torch.as_tensor(np.stack([r[0] for r in host_results])).to(dev)
-    host_i = torch.as_tensor(np.stack([r[1] for r in host_results])).to(dev)
-    fs, fi = merge_topk(dev_s, dev_i, host_s, host_i, k)
+    hit = [[int(c) for c in row if int(c) in resident]
+           for row in probed_clusters]
+    miss = [[int(c) for c in row if int(c) not in resident]
+            for row in probed_clusters]
+    if fused and centroids is not None:
+        Nc = centroids.shape[0]
+        valid = torch.ones((Nc,), dtype=torch.bool, device=dev)
+        dev_s, dev_i, admit = probe_topk.probe_topk_fused(
+            qd, centroids, valid, pages, page_ids, page_cluster,
+            nprobe=max(1, min(nprobe, Nc)), k=k)
+        fs, fi = _host_merge(buffer, queries, miss, dev_s, dev_i, k)
+        admitted = admit.cpu().numpy()         # [B, Nc], the one host read
+        probed_miss, hit, miss = miss, [], []
+        for b in range(B):
+            ranked = [int(c) for c in probed_clusters[b]]
+            extra = sorted(set(np.flatnonzero(admitted[b]).tolist())
+                           - set(ranked))
+            cs = [c for c in ranked if admitted[b, c]] + extra
+            hit.append([c for c in cs if c in resident])
+            miss.append([c for c in cs if c not in resident])
+        if miss != probed_miss:                # a near-tie moved a miss
+            fs, fi = _host_merge(buffer, queries, miss, dev_s, dev_i, k)
+    else:
+        # per-query page mask from the host mirror of the slot table
+        # (exact per-query IVF nprobe semantics; page-level, so the
+        # upload is num_pages bytes per query)
+        luts = np.zeros((B, buffer.paged.num_clusters), bool)
+        for b in range(B):
+            luts[b, hit[b]] = True
+        pc = buffer.slot_cluster
+        page_mask = np.zeros((B, buffer.num_pages), bool)
+        valid_slots = pc >= 0
+        page_mask[:, valid_slots] = luts[:, pc[valid_slots]]
+        dev_s, dev_i = ops.ivf_topk(pages, page_ids,
+                                    torch.from_numpy(page_mask).to(dev), qd, k)
+        fs, fi = _host_merge(buffer, queries, miss, dev_s, dev_i, k)
     return RetrievalResult(doc_ids=fi.cpu().numpy(), scores=fs.cpu().numpy(),
                            hit_clusters=hit, missed_clusters=miss,
                            nprobe=nprobe)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``) and
 is compiled on first use into ``build/lib<name>-<hash>.so`` beside this
-file (the directory is git-ignored; the hash of the source names the
-library, so an edited source is never served by a stale build).  No
-PyTorch headers are included, which keeps one build to seconds instead
-of the minutes ``torch.utils.cpp_extension`` takes.  Only sources in
+file (the directory is git-ignored; the hash of the source and of the
+shared headers ``csrc/*.cuh`` names the library, so an edited source or
+header is never served by a stale build).  No PyTorch headers are
+included, which keeps one build to seconds instead of the minutes
+``torch.utils.cpp_extension`` takes.  Only sources in
 this package are built, and a failed build raises.
 
     from repro_torch.kernels import _build
@@ -56,8 +57,12 @@ def _source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes (keyed by content)."""
-    digest = hashlib.sha256(_source(name).read_bytes()).hexdigest()[:12]
+    """Where the build of ``csrc/<name>.cu`` goes (keyed by the content
+    of the source and of every header it may include)."""
+    h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

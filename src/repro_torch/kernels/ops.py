@@ -4,7 +4,8 @@
 There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
 hand-written kernels or raise.  Launch counts live on the wrappers:
-``flash_decode_paged.launches`` and ``probe_topk_fused.launches``.
+``flash_decode_paged.launches``, ``probe_topk_fused.launches`` and
+``ivf_topk.launches``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,16 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_decode as _flash
+from repro_torch.kernels import ivf_topk as _ivf
 from repro_torch.kernels import probe_topk as _probe
+
+
+def ivf_topk(pages: torch.Tensor, page_ids: torch.Tensor,
+             page_mask: torch.Tensor, queries: torch.Tensor, k: int,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Search the pool's pages in place. pages [P,ps,d]; page_mask [P]
+    or per-query [B,P]; queries [B,d] -> (scores [B,k], ids [B,k])."""
+    return _ivf.ivf_topk(pages, page_ids, page_mask, queries, k)
 
 
 def probe_and_topk(queries: torch.Tensor, centroids: torch.Tensor,
@@ -30,8 +40,10 @@ def probe_and_topk(queries: torch.Tensor, centroids: torch.Tensor,
     nprobe = max(1, min(nprobe, Nc))
     if valid is None:
         valid = torch.ones((Nc,), dtype=torch.bool, device=centroids.device)
-    return _probe.probe_topk_fused(queries, centroids, valid, pages, page_ids,
-                                   page_cluster, nprobe=nprobe, k=k)
+    s, i, _ = _probe.probe_topk_fused(queries, centroids, valid, pages,
+                                      page_ids, page_cluster, nprobe=nprobe,
+                                      k=k)
+    return s, i
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

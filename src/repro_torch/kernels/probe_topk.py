@@ -4,8 +4,11 @@ and its plain version.
 ``probe_topk_fused`` dispatches by the tensor's device alone: a CPU
 tensor runs ``probe_and_topk_ref``; a CUDA tensor launches
 ``csrc/probe_topk.cu`` (three kernels: probe + threshold, page search,
-merge) on the current stream or raises.  ``probe_topk_fused.launches``
-counts wrapper launches (one per call, whatever the kernel count).
+merge) on the current stream or raises.  Both return the [B, Nc] mask of
+the clusters they admitted beside the top-k, so a caller can split hits
+from misses by the very admission that decided the device search.
+``probe_topk_fused.launches`` counts wrapper launches (one per call,
+whatever the kernel count).
 """
 
 from __future__ import annotations
@@ -56,13 +59,15 @@ def _check(queries, centroids, valid, pages, page_ids, page_cluster) -> None:
 def probe_topk_fused(queries: torch.Tensor, centroids: torch.Tensor,
                      valid: torch.Tensor, pages: torch.Tensor,
                      page_ids: torch.Tensor, page_cluster: torch.Tensor, *,
-                     nprobe: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     nprobe: int, k: int,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """queries [B, d] fp32; centroids [Nc, d] fp32; valid [Nc] bool;
     pages [P, ps, d] bf16 / page_ids [P, ps] int32 / page_cluster [P]
     int32, the pool's ``device_view`` read in place.  Returns (scores
-    [B, k] fp32, doc ids [B, k] int32): top-k over every page whose
-    cluster is among the query's top-``nprobe`` valid centroids (the
-    kernel admits every cluster tied at the nprobe-th score)."""
+    [B, k] fp32, doc ids [B, k] int32, admitted [B, Nc] bool): top-k
+    over every page whose cluster is among the query's top-``nprobe``
+    valid centroids, and that admitted cluster set (the kernel admits
+    every cluster tied at the nprobe-th score)."""
     _check(queries, centroids, valid, pages, page_ids, page_cluster)
     if queries.device.type == "cpu":
         return probe_and_topk_ref(queries, centroids, valid, pages, page_ids,
@@ -101,7 +106,7 @@ def probe_topk_fused(queries: torch.Tensor, centroids: torch.Tensor,
         raise RuntimeError(f"probe_topk_fused kernel launch failed: "
                            f"cudaError {err}")
     probe_topk_fused.launches += 1
-    return out_s, out_i
+    return out_s, out_i, admit.view(torch.bool)
 
 
 probe_topk_fused.launches = 0

@@ -49,15 +49,17 @@ def centroid_probe_ref(centroids: torch.Tensor, queries: torch.Tensor,
 def probe_and_topk_ref(queries: torch.Tensor, centroids: torch.Tensor,
                        valid: torch.Tensor, pages: torch.Tensor,
                        page_ids: torch.Tensor, page_cluster: torch.Tensor,
-                       nprobe: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                       nprobe: int, k: int,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused-retrieval plain version: centroid probe -> top-nprobe cluster
     set -> per-query page mask over the pool slab -> masked top-k.
 
     queries [B, d]; centroids [Nc, d]; valid [Nc] bool; pages [P, ps, d];
     page_ids [P, ps]; page_cluster [P] (-1 = unsearchable slot).
-    Returns (scores [B, k] fp32, doc ids [B, k] int32).  Ties at the
-    nprobe-th centroid score are broken by ``torch.topk`` (the kernel
-    admits every tied cluster): compare the two on tie-free inputs.
+    Returns (scores [B, k] fp32, doc ids [B, k] int32, admitted [B, Nc]
+    bool, the cluster set ``torch.topk`` chose).  Ties at the nprobe-th
+    centroid score are broken by ``torch.topk`` (the kernel admits every
+    tied cluster): compare the two on tie-free inputs.
     """
     B = queries.shape[0]
     Nc = centroids.shape[0]
@@ -67,7 +69,7 @@ def probe_and_topk_ref(queries: torch.Tensor, centroids: torch.Tensor,
     lut.scatter_(1, top_i, torch.isfinite(top_s))
     pc = page_cluster.long()
     page_mask = (pc >= 0)[None, :] & lut[:, pc.clamp(min=0)]   # [B, P]
-    return ivf_topk_ref(pages, page_ids, page_mask, queries, k)
+    return (*ivf_topk_ref(pages, page_ids, page_mask, queries, k), lut)
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,24 +1,27 @@
-"""The engine decode plumbing: one reusable decode hook for serve drivers,
-tests and benchmarks.
+"""The engine decode plumbing behind ``on_generate``: one reusable decode
+hook for serve drivers, tests and benchmarks.
 
-``DecodeRunner`` runs a wave's real decode steps while its lookahead copy
-is in flight: it leases a block table over a shared KV page slab
-(``acquire_paged``), runs ``transformer.serve_step_paged`` per step —
-which writes the new K/V through the block table and attends with the
-``flash_decode_paged`` kernel — advances the lease (``append_paged``,
-the ``kv.append`` trace edge), and returns one ``DecodeEvent`` per
-member.  The lease is released in ``finally`` so a raising step cannot
-leak slab pages or pool bytes.  Decode starts from token 0 with no
-prefill, greedily.
+``DecodeRunner`` is the real-decode hook the serving front-end wires as
+each runtime's ``on_generate``: at every round frontier it runs a wave's
+real decode steps while its lookahead copy is in flight.  It leases a
+block table over a shared KV page slab (``acquire_paged``), runs
+``transformer.serve_step_paged`` per step — which writes the new K/V
+through the block table and attends with the ``flash_decode_paged``
+kernel — advances the lease (``append_paged``, the ``kv.append`` trace
+edge), and returns one ``DecodeEvent`` per member, whose measured
+seconds drive the event clock.  The lease is released in ``finally`` so
+a raising step cannot leak slab pages or pool bytes.  ``PoolExhausted``
+from ``acquire_paged`` propagates: the ``RetrievalRuntime`` sheds and
+parks on it.  Decode starts from token 0 with no prefill, greedily.
 
-Only the paged path is ported.  ``attach`` takes the engines and a
-clock (the reference takes a server): the clock brackets the steps, so
-a driver injects ``SystemClock`` for real measurement.
+``attach(server)`` adopts the server's wall clock (launch drivers inject
+``SystemClock``; the library default is the deterministic event clock)
+and builds one KV manager per replica engine.  Only the paged path is
+ported: an engine with ``paged_decode=False`` is refused at ``attach``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -26,23 +29,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
 from repro_torch.serving.kv_cache import KVCacheManager
+from repro_torch.serving.runtime import DecodeEvent
 from repro_torch.serving.sampler import sample
-
-
-@dataclass(frozen=True)
-class DecodeEvent:
-    """What the decode hook observed for one request in one round:
-    ``tokens`` real steps run in ``seconds`` of measured wall clock."""
-
-    request_id: int
-    tokens: int
-    seconds: float
-
-    def window(self, gen_tokens: int) -> float:
-        """Seconds for a ``gen_tokens``-step window at the observed rate."""
-        if self.tokens <= 0:
-            return 0.0
-        return float(self.seconds) * (gen_tokens / self.tokens)
 
 
 def supports_paged_decode(cfg: ArchConfig) -> bool:
@@ -59,9 +47,10 @@ class DecodeRunner:
     """Reusable ``decode_hook(replica, records, gen_tokens, rnd)``:
     per-wave paged KV lease + real model decode steps.
 
-    Construct with the model, then ``attach(engines, clock)`` to build
-    one pool-backed ``KVCacheManager`` per replica engine.  ``records``
-    are any objects with ``request_id`` and ``tenant``."""
+    Construct with the model, pass as the server's ``decode_hook``, then
+    ``attach(server)`` to build one pool-backed ``KVCacheManager`` per
+    replica engine.  ``records`` are any objects with ``request_id`` and
+    ``tenant``."""
 
     def __init__(self, model: tf.Transformer, *, max_len: int = 128,
                  max_steps: int = 32, page_size: int = 16,
@@ -78,16 +67,25 @@ class DecodeRunner:
         self.page_size = page_size
         self.slab_seqs = slab_seqs
         self.kv_dtype = kv_dtype
-        self.clock = None                      # attach() sets it
+        self.clock = None                      # attach() adopts server.wall
         self._kv: Dict[int, KVCacheManager] = {}
         # per-request generated tokens, per round
         self.generated: Dict[int, List[Tuple[int, ...]]] = {}
         self.stats = {"paged_waves": 0, "paged_appends": 0}
 
-    def attach(self, engines: Sequence, clock) -> "DecodeRunner":
-        """One KV manager (with its page slab) per replica engine, each
-        charged to that engine's pool; ``clock.perf()`` times the steps."""
-        self.clock = clock
+    def attach(self, server) -> "DecodeRunner":
+        """Bind to a constructed ``TeleRAGServer`` (or anything with its
+        ``wall`` and ``engines``): one KV manager (with its page slab)
+        per replica engine, each charged to that engine's pool, and
+        ``server.wall.perf()`` to time the steps."""
+        engines = server.engines
+        dense = [i for i, e in enumerate(engines) if not e.cfg.paged_decode]
+        if dense:
+            raise NotImplementedError(
+                f"replicas {dense} ask for dense decode (paged_decode=False); "
+                "the port decodes over paged KV only until the dense "
+                "serve_step is ported (ROADMAP queue 1)")
+        self.clock = server.wall
         blocks = -(-self.max_len // self.page_size)
         for r, eng in enumerate(engines):
             kv = KVCacheManager(self.cfg, self.kv_dtype, pool=eng.pool,
@@ -103,8 +101,7 @@ class DecodeRunner:
         tokens for the whole batch on leased KV, measured on the clock.
         Returns one ``DecodeEvent`` per member."""
         if self.clock is None:
-            raise RuntimeError("DecodeRunner.attach(engines, clock) before "
-                               "decoding")
+            raise RuntimeError("DecodeRunner.attach(server) before serving")
         n = len(records)
         steps = min(max(gen_tokens, default=0), self.max_steps)
         toks, per_step = self._run_paged(self._kv[replica], n, steps,

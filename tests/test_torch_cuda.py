@@ -7,7 +7,8 @@ the JAX package, so it runs on a card host that has neither:
 
 Tolerances: the decode kernel's fp32 output from bf16 K/V is summed in
 another order than the plain version's (atol=rtol=2e-3); the retrieval
-kernel must give equal ids and scores within rtol=1e-4 on tie-free data.
+kernels must give equal ids (and kernel 2 the same admitted clusters)
+and scores within rtol=1e-4 on tie-free data.
 """
 
 import dataclasses
@@ -19,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ivf_topk as tivf
 from repro_torch.kernels import probe_topk as tpt
 from repro_torch.kernels import ref as tref
 from repro_torch.models import transformer as ttf
@@ -95,14 +97,44 @@ def test_probe_topk_kernel_matches_plain(B, d, Nc, P, ps, nprobe, k):
         for a in _retrieval_inputs(B, d, Nc, P, ps, B * 31 + Nc))
     pages = pages.to(torch.bfloat16)
     before = tpt.probe_topk_fused.launches
-    gs, gi = tpt.probe_topk_fused(qs, cents, valid, pages, pids, pc,
-                                  nprobe=nprobe, k=k)
-    ws, wi = tref.probe_and_topk_ref(qs, cents, valid, pages, pids, pc,
-                                     nprobe, k)
+    gs, gi, gadm = tpt.probe_topk_fused(qs, cents, valid, pages, pids, pc,
+                                        nprobe=nprobe, k=k)
+    ws, wi, wadm = tref.probe_and_topk_ref(qs, cents, valid, pages, pids, pc,
+                                           nprobe, k)
     torch.cuda.synchronize()
     assert tpt.probe_topk_fused.launches == before + 1
     assert torch.equal(gi, wi)
+    assert gadm.dtype == torch.bool and torch.equal(gadm, wadm)
     torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d,P,ps,k,shared_mask", [
+    (4, 768, 1024, 128, 3, False),     # serve widths, fewer pages
+    (3, 60, 18, 8, 5, False),          # odd widths; query 0 admits nothing
+    (5, 64, 30, 16, 4, True),          # one [P] mask for every query
+    (9, 128, 40, 4, 8, False)])        # more queries than one group of 8
+def test_ivf_topk_kernel_matches_plain(B, d, P, ps, k, shared_mask):
+    dev = _card()
+    rng = np.random.default_rng(B * 7 + P)
+    pages = torch.from_numpy(rng.standard_normal((P, ps, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ids = rng.permutation(P * ps).reshape(P, ps).astype(np.int32)
+    ids[1, ps // 2:] = -1
+    mask = rng.random(P if shared_mask else (B, P)) < 0.2
+    if not shared_mask:
+        mask[0] = False
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    before = tivf.ivf_topk.launches
+    gs, gi = tivf.ivf_topk(pages, ids, mask, q, k)
+    ws, wi = tref.ivf_topk_ref(pages, ids, mask, q, k)
+    torch.cuda.synchronize()
+    assert tivf.ivf_topk.launches == before + 1
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-6)
+    if not shared_mask:
+        assert (gi[0] == -1).all() and torch.isinf(gs[0]).all()
 
 
 @pytest.mark.cuda
@@ -121,6 +153,16 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
                                kp[..., :32].contiguous(),
                                vp[..., :32].contiguous(), bt, lens)
     assert tfd.flash_decode_paged.launches == before
+    pages = torch.zeros((3, 4, 8), dtype=torch.bfloat16, device=dev)
+    ids = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    mask = torch.ones((2, 3), dtype=torch.bool, device=dev)
+    qs = torch.zeros((2, 8), device=dev)
+    before = tivf.ivf_topk.launches
+    with pytest.raises(ValueError, match="bfloat16"):    # fp32 pages
+        tivf.ivf_topk(pages.float(), ids, mask, qs, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tivf.ivf_topk(pages, ids, mask.t().contiguous().t(), qs, 1)
+    assert tivf.ivf_topk.launches == before
 
 
 @pytest.mark.cuda

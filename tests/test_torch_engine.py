@@ -1,8 +1,8 @@
 """The port's serving round loop against the JAX package's engine, on the CPU.
 
-``repro_torch.launch.serve.run_rounds`` (the driver's loop: lookahead
-dispatch, decode while the copy is in flight, rewrite, hybrid retrieval,
-end of batch) drives the reference engine + decode runner and the
+``run_rounds`` (a hand-written round loop: lookahead dispatch, decode
+while the copy is in flight, rewrite, hybrid retrieval, end of batch)
+drives the reference engine + decode runner and the
 port's, fp32 weights from the reference's ``init_params``, tiny config.
 Doc ids, hits and misses, bytes moved, ledger bytes and the flight-
 recorder stream must be equal, and the port's stream must replay clean
@@ -13,7 +13,9 @@ margin exceeds that tolerance.
 """
 
 import dataclasses
+from dataclasses import dataclass, field
 from types import SimpleNamespace
+from typing import List, Optional, Sequence
 
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from repro.serving.engine import TeleRAGEngine as JEngine
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.core import budget as tbudget
 from repro_torch.core import datastore as tds
+from repro_torch.core.embedder import synthetic_rewrite
 from repro_torch.core import ivf as tivf
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttf
@@ -42,11 +45,92 @@ import repro_torch.serving.decode as tdecode
 from repro_torch.obs.clock import EventClock as TClock
 from repro_torch.serving.engine import EngineConfig as TConfig
 from repro_torch.serving.engine import TeleRAGEngine as TEngine
+from repro_torch.serving.runtime import round_plan
+from repro_torch.serving.trace import RequestTrace, make_traces
 
 LOGIT_TOL = 1e-4
 CFG = dict(nprobe=6, top_k=3, buffer_pages=48, pool_pages=48 + 128,
            lookahead_rank=12, cache_enabled=True, chips=1)
 RUNNER = dict(max_len=32, max_steps=8, page_size=4, slab_seqs=8)
+
+
+@dataclass
+class Request:
+    """One request's state across the rounds of ``run_rounds``."""
+
+    request_id: int
+    q: np.ndarray                       # [d] prompt embedding
+    trace: RequestTrace
+    tenant: str = "shared"
+    cur_q: Optional[np.ndarray] = None  # query the next round's lookahead uses
+    doc_ids: List[np.ndarray] = field(default_factory=list)
+    hits: int = 0
+    misses: int = 0
+
+    def __post_init__(self):
+        if self.cur_q is None:
+            self.cur_q = self.q
+
+
+@dataclass
+class RoundStats:
+    """What one round of ``run_rounds`` did."""
+
+    batch: int
+    gen_steps: int
+    hits: int
+    misses: int
+    bytes_planned: int
+
+
+def run_rounds(engine, runner, requests: Sequence[Request],
+               rng: np.random.Generator, *, batch: int) -> List[RoundStats]:
+    """Serve ``requests`` in micro-batches of ``batch`` through
+    ``engine`` and the decode hook ``runner`` (duck-typed, so the same
+    loop drives the reference package's engine and the port's).
+    Fills each request's ``doc_ids``/``hits``/``misses``; returns one
+    ``RoundStats`` per round."""
+    stats: List[RoundStats] = []
+    for b0 in range(0, len(requests), batch):
+        members = list(requests[b0:b0 + batch])
+        plans = [round_plan(m.trace) for m in members]
+        for rnd in range(max(len(p) for p in plans)):
+            act = [j for j in range(len(members)) if rnd < len(plans[j])]
+            q_in = np.stack([members[j].cur_q for j in act])
+            gen = [plans[j][rnd][0] for j in act]
+            nbytes, _, _ = engine.lookahead_ex(q_in, gen)
+            evs = runner(0, [members[j] for j in act], gen, rnd)
+            rows, owners = [], []
+            for k, j in enumerate(act):
+                sigma = members[j].trace.rewrite_sigma
+                for _ in range(plans[j][rnd][1]):
+                    rows.append(synthetic_rewrite(q_in[k][None, :], sigma, rng)[0]
+                                if sigma > 0 else q_in[k])
+                    owners.append(j)
+            q_out = np.stack(rows)
+            res = engine.retrieve(q_out)
+            hits = misses = 0
+            for r, j in enumerate(owners):
+                m = members[j]
+                m.doc_ids.append(np.asarray(res.doc_ids[r]))
+                m.hits += len(res.hit_clusters[r])
+                m.misses += len(res.missed_clusters[r])
+                hits += len(res.hit_clusters[r])
+                misses += len(res.missed_clusters[r])
+            for j in act:
+                members[j].cur_q = q_out[owners.index(j)]
+            stats.append(RoundStats(
+                batch=len(act), gen_steps=max((e.tokens for e in evs), default=0),
+                hits=hits, misses=misses, bytes_planned=int(nbytes)))
+        engine.end_batch()
+    return stats
+
+
+def make_requests(store, n: int, pipeline: str, seed: int) -> List[Request]:
+    """``n`` prompt embeddings near datastore vectors, with seeded traces."""
+    q = tserve.make_queries(store, n, seed)
+    traces = make_traces(pipeline, n, seed=seed)
+    return [Request(request_id=i, q=q[i], trace=traces[i]) for i in range(n)]
 
 
 def _record_logits(monkeypatch, module, sink):
@@ -138,21 +222,19 @@ def _run_reference(w, mode):
     eng = JEngine(w.ji, JConfig(kernel_mode=mode, hw=JH100, **CFG), w.jc)
     runner = jdecode.DecodeRunner(w.params, w.jc, paged=True, **RUNNER)
     runner.attach(SimpleNamespace(wall=JClock(eng.recorder), engines=[eng]))
-    reqs = tserve.make_requests(w.store, 8, "irg", seed=2)
-    rounds = tserve.run_rounds(eng, runner, reqs, np.random.default_rng(9),
-                               batch=4, clock=JClock())
+    reqs = make_requests(w.store, 8, "irg", seed=2)
+    rounds = run_rounds(eng, runner, reqs, np.random.default_rng(9), batch=4)
     return eng, runner, reqs, rounds
 
 
 def _run_port(w, monkeypatch, logits):
     eng = TEngine(w.ti, TConfig(**CFG), w.tc)
-    runner = tdecode.DecodeRunner(w.model, **RUNNER).attach([eng],
-                                                            TClock(eng.recorder))
+    runner = tdecode.DecodeRunner(w.model, **RUNNER).attach(
+        SimpleNamespace(wall=TClock(eng.recorder), engines=[eng]))
     _record_logits(monkeypatch, tdecode, logits)
     hook, spans = _waves(runner, logits)
-    reqs = tserve.make_requests(w.store, 8, "irg", seed=2)
-    rounds = tserve.run_rounds(eng, hook, reqs, np.random.default_rng(9),
-                               batch=4, clock=TClock())
+    reqs = make_requests(w.store, 8, "irg", seed=2)
+    rounds = run_rounds(eng, hook, reqs, np.random.default_rng(9), batch=4)
     return eng, runner, reqs, rounds, spans
 
 

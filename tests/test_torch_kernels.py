@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ivf_topk as tivf
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import probe_topk as tpt
 from repro_torch.kernels import ref as tref
@@ -97,6 +98,58 @@ def test_probe_and_topk_plain_matches_jax(B, d, Nc, P, ps, nprobe, k, mode):
                                atol=1e-5)
 
 
+def _ivf_inputs(P, ps, d, B, seed, shared_mask):
+    """Tie-free gaussian pages and queries, unique ids with a padded page
+    tail, a page mask admitting about 70% of pages; query 0 admits no
+    page when the mask is per query."""
+    rng = np.random.default_rng(seed)
+    pages = rng.standard_normal((P, ps, d)).astype(np.float32)
+    ids = rng.permutation(P * ps).reshape(P, ps).astype(np.int32)
+    ids[1, ps // 2:] = -1                                # padded page tail
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    if shared_mask:
+        mask = rng.random(P) > 0.3
+    else:
+        mask = rng.random((B, P)) > 0.3
+        mask[0] = False                                  # nothing admitted
+    return pages, ids, mask, q
+
+
+_IVF_SHAPES = [(12, 64, 128, 3, 5), (4, 32, 96, 1, 3), (16, 128, 256, 8, 16),
+               (7, 16, 64, 2, 4),
+               (18, 8, 60, 3, 5)]        # odd widths: no 16-byte rows
+
+
+@pytest.mark.parametrize("P,ps,d,B,k,shared_mask", [
+    (*shape, shared) for shape in _IVF_SHAPES for shared in (False, True)
+    if not (shared and shape[3] == 1)])     # one query: 1-d is per-query
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_topk_plain_matches_jax_kernel(P, ps, d, B, k, shared_mask,
+                                           dtype):
+    """Port ``ops.ivf_topk`` on the CPU against the reference's Pallas
+    kernel in interpret mode: ids equal, scores within 1e-5 (fp32 pages)
+    or 2e-2 (bf16 pages, as tests/test_kernels.py), (-inf, -1) where a
+    query admits fewer than k vectors."""
+    pages, ids, mask, q = _ivf_inputs(P, ps, d, B, P * 1000 + B + d,
+                                      shared_mask)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ws, wi = jops.ivf_topk(jnp.asarray(pages, jdt), jnp.asarray(ids),
+                           jnp.asarray(mask), jnp.asarray(q), k,
+                           tile=max(ps * 2, 64), mode="kernel_interpret")
+    tdt = getattr(torch, dtype)
+    gs, gi = tops.ivf_topk(torch.from_numpy(pages).to(tdt),
+                           torch.from_numpy(ids), torch.from_numpy(mask),
+                           torch.from_numpy(q), k)
+    assert gs.dtype == torch.float32 and gi.dtype == torch.int32
+    assert gs.shape == gi.shape == (B, k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws),
+                               rtol=2e-2 if dtype == "bfloat16" else 1e-5,
+                               atol=1e-5)
+    if not shared_mask:
+        assert (gi[0] == -1).all() and torch.isinf(gs[0]).all()
+
+
 @pytest.mark.parametrize("B,S,KVH,G,Dh,window", [
     (2, 24, 2, 4, 32, 0), (3, 16, 1, 2, 64, 5)])
 def test_dense_flash_decode_ref_matches_jax(B, S, KVH, G, Dh, window):
@@ -116,13 +169,16 @@ def test_dense_flash_decode_ref_matches_jax(B, S, KVH, G, Dh, window):
 
 def test_cpu_tensors_run_the_plain_version_without_a_launch():
     q, kp, vp, bt, lens = _paged_inputs(2, 2, 2, 32, 4, 3, 0)
-    before = (tfd.flash_decode_paged.launches, tpt.probe_topk_fused.launches)
+    before = (tfd.flash_decode_paged.launches, tpt.probe_topk_fused.launches,
+              tivf.ivf_topk.launches)
     tops.flash_decode_paged(*map(torch.from_numpy, (q, kp, vp, bt, lens)))
     qs, cents, valid, pages, pids, pc = _retrieval_inputs(2, 16, 8, 4, 4, 0)
     tops.probe_and_topk(*map(torch.from_numpy, (qs, cents, pages, pids, pc)),
                         nprobe=3, k=2, valid=torch.from_numpy(valid))
-    assert (tfd.flash_decode_paged.launches,
-            tpt.probe_topk_fused.launches) == before
+    tops.ivf_topk(torch.from_numpy(pages), torch.from_numpy(pids),
+                  torch.ones(4, dtype=torch.bool), torch.from_numpy(qs), 2)
+    assert (tfd.flash_decode_paged.launches, tpt.probe_topk_fused.launches,
+            tivf.ivf_topk.launches) == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -142,6 +198,12 @@ def test_other_devices_raise_instead_of_falling_back():
             torch.empty((2, 4, 8), **meta),
             torch.empty((2, 4), dtype=torch.int32, **meta),
             torch.empty((2,), dtype=torch.int32, **meta), nprobe=1, k=1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tivf.ivf_topk(
+            torch.empty((2, 4, 8), **meta),
+            torch.empty((2, 4), dtype=torch.int32, **meta),
+            torch.empty((1, 2), dtype=torch.bool, **meta),
+            torch.empty((1, 8), **meta), 1)
 
 
 def test_wrappers_check_shapes():
@@ -155,6 +217,15 @@ def test_wrappers_check_shapes():
                             torch.zeros(2, 4, 8),
                             torch.zeros(2, 4, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int32), nprobe=1, k=1)
+    pages, ids, q = (torch.zeros(3, 4, 8), torch.zeros(3, 4, dtype=torch.int32),
+                     torch.zeros(2, 8))
+    for mask in (torch.ones(2, 4, dtype=torch.bool),      # P is 3, not 4
+                 torch.ones(3, 3, dtype=torch.bool),      # B is 2, not 3
+                 torch.ones(2, 3)):                       # not a mask dtype
+        with pytest.raises(ValueError):
+            tops.ivf_topk(pages, ids, mask, q, 1)
+    with pytest.raises(ValueError):
+        tops.ivf_topk(pages, ids, torch.ones(3, dtype=torch.bool), q, 0)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -167,7 +238,21 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_command_targets_sm90a_from_repo_sources():
     lib = _build.library_path("flash_decode_paged")
     assert lib.parent == _build.BUILD_DIR
+    for name in ("probe_topk", "ivf_topk"):
+        assert _build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     with pytest.raises(_build.KernelBuildError):
         _build.library_path("no_such_kernel")
 
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """A kernel source includes ``csrc/*.cuh``: editing a header must
+    name a new library, so a stale build is never loaded."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("ivf_topk")
+    header = tmp_path / "page_topk.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path("ivf_topk") != before

@@ -152,13 +152,95 @@ def test_hybrid_retrieve_fused_matches(indexes, stores, mode):
     assert got.nprobe == want.nprobe
 
 
-def test_unfused_retrieval_raises_not_implemented(indexes, stores):
+@pytest.mark.parametrize("mode", ["ref", "kernel_interpret"])
+def test_hybrid_retrieve_unfused_matches(indexes, stores, mode):
+    """The unfused path (host-built per-query page mask + ``ivf_topk``)
+    over the same buffer state as the reference's: equal doc ids, hits
+    and misses."""
+    ji, ti = indexes
+    jb, tb = JBuffer(ji.paged, 48), TBuffer(ti.paged, 48, device="cpu")
+    for buf in (jb, tb):
+        buf.load_clusters([0, 2, 3, 6, 9, 11, 14])
+        buf.evict_clusters([3])                 # a queued invalidation
+    q = _queries(stores[0], 5, 4)
+    probed = jcore.probe(q, ji, 6)
+    want = jhs.hybrid_retrieve(jb, q, probed, k=4, kernel_mode=mode,
+                               fused=False)
+    got = ths.hybrid_retrieve(tb, q, probed, k=4, fused=False)
+    np.testing.assert_array_equal(got.doc_ids, np.asarray(want.doc_ids))
+    np.testing.assert_allclose(got.scores, np.asarray(want.scores), rtol=1e-5,
+                               atol=1e-5)
+    assert got.hit_clusters == want.hit_clusters
+    assert got.missed_clusters == want.missed_clusters
+    assert sum(map(len, got.hit_clusters)) > 0
+    assert sum(map(len, got.missed_clusters)) > 0
+
+
+def _exact_over(paged, clusters, resident, q, k):
+    """Top-k over every vector of ``clusters``: resident clusters scored
+    from bf16-rounded vectors (as the device slab holds them), the rest
+    from the fp32 host pages (as the host search reads them)."""
+    scores, ids = [], []
+    for c in clusters:
+        pages = torch.from_numpy(paged.cluster_pages(c))
+        if c in resident:
+            pages = pages.to(torch.bfloat16).float()
+        flat = pages.reshape(-1, paged.dim).numpy()
+        pid = paged.cluster_page_ids(c).reshape(-1)
+        s = flat @ q
+        s[pid < 0] = -np.inf
+        scores.append(s)
+        ids.append(pid)
+    s, i = np.concatenate(scores), np.concatenate(ids)
+    order = np.argsort(-s, kind="stable")[:k]
+    return s[order], i[order]
+
+
+def test_fused_partition_follows_the_kernels_admitted_clusters(indexes,
+                                                              stores):
+    """The host probe and the device kernel sum centroid scores in other
+    fp32 orders, so at a near-tie ``probed_clusters`` may name another
+    nprobe-th cluster than the kernel admits.  Here each query's list
+    names its (nprobe+1)-th cluster Y, resident, in place of the
+    nprobe-th X, not resident.  Every admitted resident cluster must be
+    a device hit, every admitted non-resident one a host miss, and the
+    doc ids those of an exact search over the admitted set (before the
+    partition came from the kernel's mask, X was searched by neither
+    side and Y was called a hit the device never searched)."""
     _, ti = indexes
-    tb = TBuffer(ti.paged, 8, device="cpu")
-    q = _queries(stores[1], 2, 2)
-    with pytest.raises(NotImplementedError, match="ivf_topk"):
-        ths.hybrid_retrieve(tb, q, tivf.probe(q, ti, 3), k=2, fused=False,
-                            centroids=ti.device_centroids)
+    nprobe, k = 5, 4
+    q = _queries(stores[1], 40, 7)
+    ranked = torch.topk(torch.from_numpy(q) @ ti.device_centroids.T,
+                        nprobe + 1, dim=-1).indices.numpy()
+    rows, resident, absent = [], set(), set()
+    for b in range(len(q)):
+        x, y = int(ranked[b, nprobe - 1]), int(ranked[b, nprobe])
+        if x in resident or y in absent:
+            continue
+        rows.append(b)
+        resident |= {y} | {int(c) for c in ranked[b, :nprobe - 1:2]}
+        absent.add(x)
+        if len(rows) == 3:
+            break
+    resident -= absent
+    assert len(rows) == 3
+    tb = TBuffer(ti.paged, 64, device="cpu")
+    tb.load_clusters(sorted(resident))
+    q = q[rows]
+    probed = ranked[rows].copy()
+    probed[:, nprobe - 1] = probed[:, nprobe]               # X -> Y
+    probed = probed[:, :nprobe].astype(np.int32)
+    res = ths.hybrid_retrieve(tb, q, probed, k=k, fused=True,
+                              centroids=ti.device_centroids)
+    for b in range(len(rows)):
+        admitted = {int(c) for c in ranked[rows[b], :nprobe]}
+        assert set(res.hit_clusters[b]) == admitted & resident
+        assert set(res.missed_clusters[b]) == admitted - resident
+        want_s, want_i = _exact_over(ti.paged, sorted(admitted), resident,
+                                     q[b], k)
+        np.testing.assert_array_equal(res.doc_ids[b], want_i)
+        np.testing.assert_allclose(res.scores[b], want_s, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_merge_topk_matches():
