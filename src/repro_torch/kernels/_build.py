@@ -11,7 +11,7 @@ this package are built, and a failed build raises.
 
     from repro_torch.kernels import _build
     lib = _build.load("flash_decode_paged")       # builds if needed
-    logs = _build.build_all(["a", "b"], verbose=True)  # parallel nvcc
+    logs = _build.build_all(_build.SOURCES, verbose=True)  # parallel nvcc
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+# every kernel source, csrc/<name>.cu
+SOURCES = ("flash_decode_paged", "probe_topk", "ivf_topk", "flash_decode",
+           "centroid_scores")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,42 +1,139 @@
-"""Paged single-token decode attention: the CUDA kernel's wrapper and its
-plain version.
+"""Single-token decode attention, dense and paged: the CUDA kernels'
+wrappers and their plain versions.
 
-``flash_decode_paged`` dispatches by the tensor's device alone: a CPU
-tensor runs ``flash_decode_paged_ref``; a CUDA tensor launches
-``csrc/flash_decode_paged.cu`` on the current stream (built on first
-use) or raises.  ``flash_decode_paged.launches`` counts kernel launches.
+``flash_decode`` (dense [B, S, KVH, Dh] cache, per-row ``pos``) and
+``flash_decode_paged`` (block-table KV) dispatch by the tensor's device
+alone: a CPU tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref``;
+a CUDA tensor launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_paged.cu``
+on the current stream (built on first use) or raises.  Each wrapper's
+``launches`` counts grid launches on the card: one per
+``flash_decode_paged`` call, and one or two per ``flash_decode`` call
+(the split kernel, then the combine kernel when S is split over more
+than one block per (b, kv-head), as at every serve shape).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_decode_paged_ref
+from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 
-_SOURCE = "flash_decode_paged"
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
-           (torch.float32, torch.float32))      # (q, k/v) pairs the kernel takes
-_fn = None
+           (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
+_CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "flash_decode_paged": [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7
+                          + [ctypes.c_float, _P],
+    "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 8
+                    + [ctypes.c_float, _P],
+}
+_fns = {}
 
 
-def _kernel():
-    """The C entry point of the built library (built on first call)."""
-    global _fn
-    if _fn is None:
-        fn = _build.load(_SOURCE).flash_decode_paged
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, I, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.c_float, P]
-        fn.restype = I
-        _fn = fn
-    return _fn
+def _kernel(name: str):
+    """The C entry point ``name`` of ``csrc/<name>.cu`` (built on first
+    call)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+        _fns[name] = fn
+    return fn
 
 
-def _check(q, k_pages, v_pages, block_table, lengths) -> None:
+def _check_launch(q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
+                  **ints: torch.Tensor) -> None:
+    """What both CUDA kernels take: G in 1..8, Dh in (32, 64, 128), q/kv
+    bf16/bf16, fp32/bf16 or fp32/fp32, int32 index tensors, and every
+    tensor contiguous."""
+    G, Dh = q.shape[2], q.shape[3]
+    if not 1 <= G <= 8 or Dh not in (32, 64, 128):
+        raise ValueError(f"kernel takes G in 1..8 and Dh in (32, 64, 128); "
+                         f"got G={G}, Dh={Dh}")
+    if (q.dtype, kv.dtype) not in _DTYPES or v.dtype != kv.dtype:
+        raise ValueError(f"q {q.dtype}, k/v {kv.dtype}/{v.dtype}: kernel "
+                         "takes q/kv bf16/bf16, fp32/bf16 or fp32/fp32")
+    if any(t.dtype != torch.int32 for t in ints.values()):
+        raise ValueError(f"{' and '.join(ints)} must be int32")
+    for name, t in (("q", q), ("k", kv), ("v", v), *ints.items()):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _splits(rows: int, S: int, sms: int) -> Tuple[int, int]:
+    """(positions per block, blocks per (b, kv-head)) for the dense kernel:
+    enough blocks for about four per SM, each a whole number of softmax
+    chunks, together covering the S cache positions."""
+    n = max(1, min(-(-4 * sms // max(rows, 1)), -(-S // _CHUNK)))
+    per = -(-S // n)
+    split = -(-per // _CHUNK) * _CHUNK            # whole chunks
+    return split, -(-S // split)
+
+
+def _check_dense(q, k, v, pos) -> None:
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("pos", pos)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q [B,KVH,G,Dh] and k/v [B,S,KVH,Dh], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, KVH, G, Dh = q.shape
+    if k.shape[0] != B or k.shape[2:] != (KVH, Dh) or k.shape[1] < 1:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if pos.shape != (B,):
+        raise ValueError(f"pos {tuple(pos.shape)} does not match batch {B}")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Decode attention over a dense cache.
+
+    q [B, KVH, G, Dh]; k, v [B, S, KVH, Dh]; pos [B] int32, the new
+    token's position (positions > pos are masked; ``window`` > 0 keeps
+    only the last ``window``).  Returns [B, KVH, G, Dh] fp32, equal to
+    ``flash_decode_ref`` within fp32 summation-order error.  On the card
+    it runs one grid launch, or two (the splits, then their combine)
+    when ``_splits`` cuts S; ``flash_decode.launches`` counts them.
+    """
+    _check_dense(q, k, v, pos)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, pos, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
+    _check_launch(q, k, v, pos=pos)
+    B, KVH, G, Dh = q.shape
+    S = k.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split, nsplit = _splits(B * KVH, S, sms)
+    out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=q.device)
+    n = B * KVH * nsplit * G if nsplit > 1 else 0
+    part = torch.empty((n * (Dh + 2),), dtype=torch.float32, device=q.device)
+    part_m = part.data_ptr()
+    err = _kernel("flash_decode")(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+        v.data_ptr(), int(k.dtype == torch.bfloat16), pos.data_ptr(),
+        out.data_ptr(), part_m, part_m + 4 * n, part_m + 8 * n,
+        B, S, KVH, G, Dh, int(window), split, nsplit, 1.0 / math.sqrt(Dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
+    flash_decode.launches += 2 if nsplit > 1 else 1    # split (+ combine)
+    return out
+
+
+flash_decode.launches = 0
+
+
+def _check_paged(q, k_pages, v_pages, block_table, lengths) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_table", block_table), ("lengths", lengths)):
@@ -66,30 +163,19 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     (>= 1).  Returns [B, KVH, G, Dh] fp32, equal to
     ``flash_decode_paged_ref`` within fp32 summation-order error.
     """
-    _check(q, k_pages, v_pages, block_table, lengths)
+    _check_paged(q, k_pages, v_pages, block_table, lengths)
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, k_pages, v_pages, block_table,
                                       lengths, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged runs on cpu or cuda, not {q.device}")
+    _check_launch(q, k_pages, v_pages, block_table=block_table,
+                  lengths=lengths)
     B, KVH, G, Dh = q.shape
     NP, ps, _, _ = k_pages.shape
     MB = block_table.shape[1]
-    if not 1 <= G <= 8 or Dh not in (32, 64, 128):
-        raise ValueError(f"kernel takes G in 1..8 and Dh in (32, 64, 128); "
-                         f"got G={G}, Dh={Dh}")
-    if (q.dtype, k_pages.dtype) not in _DTYPES \
-            or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"q {q.dtype}, k/v {k_pages.dtype}/{v_pages.dtype}: "
-                         "kernel takes q/kv bf16/bf16, fp32/bf16 or fp32/fp32")
-    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("block_table and lengths must be int32")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_table", block_table), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=q.device)
-    err = _kernel()(
+    err = _kernel("flash_decode_paged")(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -3,9 +3,14 @@
 
 There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
-hand-written kernels or raise.  Launch counts live on the wrappers:
-``flash_decode_paged.launches``, ``probe_topk_fused.launches`` and
-``ivf_topk.launches``.
+hand-written kernels or raise.  Launch counts live on the wrappers,
+and each adds to its count only where it launches on the card:
+``flash_decode.launches`` counts grid launches (two a call when S is
+split: the splits, then their combine; else one);
+``flash_decode_paged.launches`` and ``centroid_scores.launches`` count
+calls, each one grid launch; ``probe_topk_fused.launches`` and
+``ivf_topk.launches`` count calls, each three grid launches (probe,
+page search, merge) and two (page search, merge).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import centroid_probe as _cprobe
 from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import ivf_topk as _ivf
 from repro_torch.kernels import probe_topk as _probe
@@ -25,6 +31,18 @@ def ivf_topk(pages: torch.Tensor, page_ids: torch.Tensor,
     """Search the pool's pages in place. pages [P,ps,d]; page_mask [P]
     or per-query [B,P]; queries [B,d] -> (scores [B,k], ids [B,k])."""
     return _ivf.ivf_topk(pages, page_ids, page_mask, queries, k)
+
+
+def centroid_probe(centroids: torch.Tensor, queries: torch.Tensor,
+                   nprobe: int, *, valid: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse probe -> (scores [B,nprobe], cluster ids [B,nprobe]): the
+    masked centroid scores (kernel) then ``torch.topk``, as the reference
+    is its kernel then ``lax.top_k``.  Ties at the cut are broken by
+    ``torch.topk``, not by index as ``lax.top_k`` does: compare on
+    tie-free scores, with nprobe below the valid count."""
+    s = _cprobe.centroid_scores(queries, centroids, valid)
+    return torch.topk(s, nprobe, dim=-1)
 
 
 def probe_and_topk(queries: torch.Tensor, centroids: torch.Tensor,
@@ -44,6 +62,13 @@ def probe_and_topk(queries: torch.Tensor, centroids: torch.Tensor,
                                       page_ids, page_cluster, nprobe=nprobe,
                                       k=k)
     return s, i
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Decode attention [B,KVH,G,Dh] fp32 over dense KV [B,S,KVH,Dh] with
+    per-row positions ``pos`` [B] int32 (``window`` > 0: sliding)."""
+    return _flash.flash_decode(q, k, v, pos, window=window)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

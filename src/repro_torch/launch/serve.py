@@ -1,5 +1,5 @@
 """Serving driver: ``TeleRAGServer`` with lookahead-prefetch retrieval and
-real paged decode on the card, at the full width of the arch (random
+real decode on the card, at the full width of the arch (random
 weights from a seeded ``torch.Generator``; nothing is downloaded).
 
 Set-up (``build``): a synthetic datastore and its IVF index on the
@@ -12,12 +12,15 @@ At each round frontier the runtime dispatches the wave's lookahead copy,
 the hook decodes the wave's tokens while that copy is in flight (its
 measured seconds drive the event clock), and the engine runs hybrid
 retrieval (fused by default; ``serve(setup, fused_retrieval=False)``
-takes the unfused ``ivf_topk`` path).  Per-request continuous batching
-is the default; ``--static-groups`` runs the legacy group-granular
-discipline.  ``serve`` may run several times over one ``build``.
+takes the unfused ``ivf_topk`` path).  Decode is paged by default
+(``flash_decode_paged``); ``--dense-decode`` or ``serve(setup,
+paged_decode=False)`` decodes over dense ``[B, max_len]`` buckets
+(``flash_decode``).  Per-request continuous batching is the default;
+``--static-groups`` runs the legacy group-granular discipline.
+``serve`` may run several times over one ``build``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pipeline irg \\
-        --requests 8 --batch 4 [--trace-out trace.json]
+        --requests 8 --batch 4 [--dense-decode] [--trace-out trace.json]
 """
 
 from __future__ import annotations
@@ -103,6 +106,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--static-groups", action="store_true",
                     help="legacy group-granular execution instead of "
                          "per-request continuous batching")
+    ap.add_argument("--dense-decode", action="store_true",
+                    help="decode on the dense [B, max_len] KV bucket path "
+                         "instead of the paged block-table slab "
+                         "(EngineConfig.paged_decode=False)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the run's flight-recorder stream as "
                          "Chrome/Perfetto trace-event JSON, and the "
@@ -215,8 +222,8 @@ class _PhaseLog:
 def serve(setup: Setup, **engine) -> Dict[str, object]:
     """Serve ``--requests`` requests through a fresh ``TeleRAGServer``
     over ``setup``; ``engine`` overrides ``EngineConfig`` fields (e.g.
-    ``fused_retrieval=False``).  Prints a report and returns a summary
-    dict (``chip_smoke.py`` reads it)."""
+    ``fused_retrieval=False`` or ``paged_decode=False``).  Prints a
+    report and returns a summary dict (``chip_smoke.py`` reads it)."""
     args, dev, index = setup.args, setup.device, setup.index
     say = (lambda *a: None) if args.quiet else print
     clock = SystemClock()
@@ -227,7 +234,8 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
         nprobe=args.nprobe, top_k=args.top_k, buffer_pages=args.buffer_pages,
         pool_pages=args.buffer_pages + -(-kv_bytes // page_bytes),
         lookahead_rank=min(2 * args.nprobe, args.clusters),
-        cache_enabled=True, chips=1), **engine})
+        cache_enabled=True, chips=1, paged_decode=not args.dense_decode),
+        **engine})
     runner = DecodeRunner(setup.model, max_len=args.max_len,
                           max_steps=args.max_steps,
                           page_size=args.kv_page_size,
@@ -270,8 +278,10 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
     ret_ms = [w["ms"] for w in log.retrieve] or [0.0]
     look_ms = [w["ms"] for w in log.lookahead] or [0.0]
     mode = "fused" if cfg.fused_retrieval else "unfused"
+    decode = "paged" if runner.paged else "dense"
     say(f"# {setup.card}: {len(responses)} requests, {len(log.retrieve)} "
-        f"retrievals ({mode}) in {wall:.2f} s; decode {tokens} tokens in "
+        f"retrievals ({mode}) in {wall:.2f} s; {decode} decode {tokens} "
+        f"tokens in "
         f"{decode_s:.3f} s ({tps:.1f} tok/s, "
         f"{1e3 * decode_s / max(steps, 1):.2f} ms/step, {len(log.decode)} "
         f"waves); retrieval {np.mean(ret_ms):.2f} ms/round (max "
@@ -281,7 +291,8 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
         f"stream); retrieval vs exact host search: max score gap {gap:.2e}")
     say(f"# event-clock {summarize_latency(responses)}")
     say(srv.telemetry().summary())
-    say(analyze(srv.recorder).summary())
+    report = analyze(srv.recorder)
+    say(report.summary())
     if args.trace_out:
         write_trace(srv.recorder, args.trace_out)
         jl = os.path.splitext(args.trace_out)[0] + ".jsonl"
@@ -290,7 +301,7 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
             f"{len(srv.recorder.events)} events)")
     return {
         "device": setup.card, "arch": setup.arch.name,
-        "layers": setup.arch.num_layers, "retrieval": mode,
+        "layers": setup.arch.num_layers, "retrieval": mode, "decode": decode,
         "continuous": not args.static_groups, "requests": len(responses),
         "lookahead": log.lookahead, "decode_waves": log.decode,
         "retrievals": log.retrieve,
@@ -303,7 +314,7 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
         "tokens_per_s": tps, "latency_s": [r.latency_s for r in responses],
         "copy_ms": copy_ms, "copy_bytes": copy_bytes, "wall_s": wall,
         "index_s": setup.index_s, "bytes_h2d": eng.buffer.stats.bytes_h2d,
-        "retrieval_gap": gap,
+        "retrieval_gap": gap, "pressure_stall_s": report.stall["pressure_s"],
     }
 
 

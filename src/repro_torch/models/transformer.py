@@ -3,16 +3,18 @@
 Parameters are stacked along a leading layer dim, exactly like the
 reference's pytree (``layers.attn.wq`` [L, d, H, Dh], ...), so
 ``from_jax_params`` carries a reference ``init_params`` tree across as
-is.  The serving path is ``serve_step_paged``: one decode step over
-block-table KV that writes the new token's K/V into the page slab (in
-place) and attends with the ``flash_decode_paged`` kernel.  Prefill,
-MoE, MLA, SSM and the dense ``serve_step`` are not ported yet.
+is.  Two decode steps share one per-layer body (norm, attention, MLP)
+and differ only in the attention (``models/attention.py``):
+``serve_step_paged`` writes the new token's K/V into a block-table page
+slab and attends with the ``flash_decode_paged`` kernel; ``serve_step``
+writes it into a dense ``init_cache`` cache and attends with the
+``flash_decode`` kernel.  Prefill, MoE, MLA and SSM are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +22,8 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import apply_rope, mlp_forward, rms_norm, softcap
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import mlp_forward, rms_norm, softcap
 
 # flat parameter name -> its path in the reference pytree
 _JAX_PATHS = {
@@ -151,6 +153,63 @@ def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return softcap(x @ model.unembed, model.cfg.final_logit_softcap)
 
 
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """A zeroed dense decode cache for ``batch`` sequences of ``max_len``
+    tokens: {"k", "v"} [L, B, S, KVH, Dh] in ``dtype``, as the
+    reference's ``init_cache`` lays out the GQA attention family (the
+    only family ported)."""
+    check_supported(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _decode(model: Transformer, tokens: torch.Tensor,
+            attend: Callable[[int, Dict[str, torch.Tensor], torch.Tensor],
+                             torch.Tensor]) -> torch.Tensor:
+    """The per-layer body both decode steps share: embed, then per layer
+    ``h += attend(l, layer, rms_norm(h))`` and the gated MLP, then the
+    final norm and the unembedding.  Returns logits [B, V]."""
+    cfg = model.cfg
+    h = embed_tokens(model, tokens)                      # [B, d]
+    for l in range(cfg.num_layers):
+        lp = model.layer(l)
+        h = h + attend(l, lp, rms_norm(h, lp["attn_norm"], cfg.norm_eps))
+        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+        h = h + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated)
+    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps))
+
+
+def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
+               inputs: Dict[str, torch.Tensor],
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step for the whole batch over a **dense** cache
+    (``init_cache``), on the model's device.
+
+    inputs: token [B] and pos [B] int32, each sequence's position of the
+    new token (continuous batching: rows may differ).  Each layer writes
+    the new K/V IN PLACE at ``pos`` (clipped to the cache, as the
+    reference's ``dynamic_update_slice`` clips) and attends over
+    positions <= pos with ``kernels.ops.flash_decode``.  Returns (logits
+    [B, V], cache) — the cache's tensors are the same, updated in place.
+    """
+    cfg = model.cfg
+    ck, cv = cache["k"], cache["v"]
+    B, S = ck.shape[1:3]
+    pos = inputs["pos"]
+    rows = torch.arange(B, device=pos.device)          # write index, once a step
+    at = pos.long().clamp(0, S - 1)
+
+    def attend(l, lp, a_in):
+        return attn.attn_decode(lp, a_in, cfg, ck[l], cv[l], pos, rows, at)
+
+    return _decode(model, inputs["token"], attend), cache
+
+
 def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
                      v_slab: torch.Tensor, block_table: torch.Tensor,
                      lengths: torch.Tensor, inputs: Dict[str, torch.Tensor],
@@ -170,37 +229,15 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
     tensors, updated in place.
     """
     cfg = model.cfg
-    tok = inputs["token"]
-    h = embed_tokens(model, tok)                         # [B, d]
-    B = h.shape[0]
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     ps = k_slab.shape[2]
-    positions = lengths[:, None]                         # new token's position
     lens = lengths.long()
     slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]
     off = lens % ps
     attn_len = (lengths + 1).to(torch.int32)
 
-    for l in range(cfg.num_layers):
-        lp = model.layer(l)
-        a_in = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q = (a_in @ lp["wq"].reshape(cfg.d_model, H * Dh)).reshape(B, 1, H, Dh)
-        k = (a_in @ lp["wk"].reshape(cfg.d_model, KVH * Dh)).reshape(B, 1, KVH, Dh)
-        v = (a_in @ lp["wv"].reshape(cfg.d_model, KVH * Dh)).reshape(B, KVH, Dh)
-        q = apply_rope(q, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
-        k = apply_rope(k, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
-        kl, vl = k_slab[l], v_slab[l]
-        kl[slot, off] = k[:, 0].to(kl.dtype)
-        vl[slot, off] = v.to(vl.dtype)
-        out = kernel_ops.flash_decode_paged(
-            q[:, 0].reshape(B, KVH, H // KVH, Dh).contiguous(), kl, vl,
-            block_table, attn_len)
-        out = out.reshape(B, H * Dh).to(h.dtype)
-        h = h + out @ lp["wo"].reshape(H * Dh, cfg.d_model)
-        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated)
+    def attend(l, lp, a_in):
+        return attn.attn_decode_paged(lp, a_in, cfg, k_slab[l], v_slab[l],
+                                      block_table, lengths, slot, off,
+                                      attn_len)
 
-    x = rms_norm(h, model.final_norm, cfg.norm_eps)
-    return unembed(model, x), k_slab, v_slab
+    return _decode(model, inputs["token"], attend), k_slab, v_slab

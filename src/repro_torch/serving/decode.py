@@ -3,21 +3,26 @@ hook for serve drivers, tests and benchmarks.
 
 ``DecodeRunner`` is the real-decode hook the serving front-end wires as
 each runtime's ``on_generate``: at every round frontier it runs a wave's
-real decode steps while its lookahead copy is in flight.  It leases a
-block table over a shared KV page slab (``acquire_paged``), runs
-``transformer.serve_step_paged`` per step — which writes the new K/V
-through the block table and attends with the ``flash_decode_paged``
-kernel — advances the lease (``append_paged``, the ``kv.append`` trace
-edge), and returns one ``DecodeEvent`` per member, whose measured
-seconds drive the event clock.  The lease is released in ``finally`` so
-a raising step cannot leak slab pages or pool bytes.  ``PoolExhausted``
-from ``acquire_paged`` propagates: the ``RetrievalRuntime`` sheds and
-parks on it.  Decode starts from token 0 with no prefill, greedily.
+real decode steps while its lookahead copy is in flight, and returns
+one ``DecodeEvent`` per member, whose measured seconds drive the event
+clock.  Decode starts from token 0 with no prefill, greedily.
+
+By default (``EngineConfig.paged_decode=True``) the wave's KV is a block
+table over a shared KV page slab (``acquire_paged``); each step runs
+``transformer.serve_step_paged`` — which writes the new K/V through the
+block table and attends with the ``flash_decode_paged`` kernel — and
+advances the lease (``append_paged``, the ``kv.append`` trace edge).
+``paged_decode=False`` takes the dense path: one ``[B, max_len]`` bucket
+(``acquire``), and ``transformer.serve_step`` per step, which attends
+with the ``flash_decode`` kernel.  Both paths release in ``finally``, so
+a raising step cannot leak slab pages or pool bytes, and tenant-tag the
+lease.  ``PoolExhausted`` from either acquire propagates: the
+``RetrievalRuntime`` sheds and parks on it.
 
 ``attach(server)`` adopts the server's wall clock (launch drivers inject
 ``SystemClock``; the library default is the deterministic event clock)
-and builds one KV manager per replica engine.  Only the paged path is
-ported: an engine with ``paged_decode=False`` is refused at ``attach``.
+and the first engine's ``paged_decode``, and builds one KV manager per
+replica engine.
 """
 
 from __future__ import annotations
@@ -45,21 +50,21 @@ def supports_paged_decode(cfg: ArchConfig) -> bool:
 
 class DecodeRunner:
     """Reusable ``decode_hook(replica, records, gen_tokens, rnd)``:
-    per-wave paged KV lease + real model decode steps.
+    per-wave KV lease + real model decode steps, paged by default.
 
     Construct with the model, pass as the server's ``decode_hook``, then
     ``attach(server)`` to build one pool-backed ``KVCacheManager`` per
-    replica engine.  ``records`` are any objects with ``request_id`` and
-    ``tenant``."""
+    replica engine and take the path from the engine's
+    ``paged_decode``.  ``records`` are any objects with ``request_id``
+    and ``tenant``."""
 
     def __init__(self, model: tf.Transformer, *, max_len: int = 128,
                  max_steps: int = 32, page_size: int = 16,
                  slab_seqs: int = 16, kv_dtype: torch.dtype = torch.bfloat16):
         """``slab_seqs`` sizes the paged KV slab: page slots for that many
-        concurrent ``max_len`` sequences, stored in ``kv_dtype`` (bf16,
-        as the reference's slab, whatever the weights' dtype)."""
-        if not supports_paged_decode(model.cfg):
-            raise ValueError(f"arch {model.cfg.name!r} cannot decode paged")
+        concurrent ``max_len`` sequences.  KV (slab or dense buckets) is
+        stored in ``kv_dtype`` (bf16, as the reference's, whatever the
+        weights' dtype)."""
         self.model = model
         self.cfg = model.cfg
         self.max_len = max_len
@@ -67,31 +72,31 @@ class DecodeRunner:
         self.page_size = page_size
         self.slab_seqs = slab_seqs
         self.kv_dtype = kv_dtype
+        self.paged = True                      # attach() takes the engine's
         self.clock = None                      # attach() adopts server.wall
         self._kv: Dict[int, KVCacheManager] = {}
         # per-request generated tokens, per round
         self.generated: Dict[int, List[Tuple[int, ...]]] = {}
-        self.stats = {"paged_waves": 0, "paged_appends": 0}
+        self.stats = {"paged_waves": 0, "dense_waves": 0,
+                      "paged_appends": 0, "dense_steps": 0}
 
     def attach(self, server) -> "DecodeRunner":
         """Bind to a constructed ``TeleRAGServer`` (or anything with its
-        ``wall`` and ``engines``): one KV manager (with its page slab)
-        per replica engine, each charged to that engine's pool, and
+        ``wall`` and ``engines``): the path from the first engine's
+        ``paged_decode``, one KV manager per replica engine (paged mode
+        also allocates its slab), each charged to that engine's pool, and
         ``server.wall.perf()`` to time the steps."""
-        engines = server.engines
-        dense = [i for i, e in enumerate(engines) if not e.cfg.paged_decode]
-        if dense:
-            raise NotImplementedError(
-                f"replicas {dense} ask for dense decode (paged_decode=False); "
-                "the port decodes over paged KV only until the dense "
-                "serve_step is ported (ROADMAP queue 1)")
         self.clock = server.wall
+        # every model the port builds passed check_supported, so it can
+        # decode paged: the engine's flag alone picks the path
+        self.paged = bool(server.engines[0].cfg.paged_decode)
         blocks = -(-self.max_len // self.page_size)
-        for r, eng in enumerate(engines):
+        for r, eng in enumerate(server.engines):
             kv = KVCacheManager(self.cfg, self.kv_dtype, pool=eng.pool,
                                 device=self.model.device)
-            kv.init_paged(num_pages=self.slab_seqs * blocks,
-                          page_size=self.page_size)
+            if self.paged:
+                kv.init_paged(num_pages=self.slab_seqs * blocks,
+                              page_size=self.page_size)
             self._kv[r] = kv
         return self
 
@@ -104,8 +109,8 @@ class DecodeRunner:
             raise RuntimeError("DecodeRunner.attach(server) before serving")
         n = len(records)
         steps = min(max(gen_tokens, default=0), self.max_steps)
-        toks, per_step = self._run_paged(self._kv[replica], n, steps,
-                                         records[0].tenant)
+        run = self._run_paged if self.paged else self._run_dense
+        toks, per_step = run(self._kv[replica], n, steps, records[0].tenant)
         for j, r in enumerate(records):
             self.generated.setdefault(r.request_id, []).append(
                 tuple(int(t[j]) for t in toks))
@@ -139,4 +144,30 @@ class DecodeRunner:
             per_step = (self.clock.perf() - t0) / max(steps, 1)
         finally:
             kv.release_paged(lease)
+        return toks, per_step
+
+    def _run_dense(self, kv: KVCacheManager, n: int, steps: int, tenant: str):
+        """One fresh dense [n, max_len] bucket: acquire (zeroed) ->
+        serve_step per step at position t -> release.  ``PoolExhausted``
+        from the acquire propagates.  Tokens and positions stay on the
+        device between steps, as on the paged path."""
+        self.stats["dense_waves"] += 1
+        lease = kv.acquire(n, self.max_len, fresh=True, tenant=tenant)
+        dev = self.model.device
+        try:
+            tok = torch.zeros((n,), dtype=torch.int32, device=dev)
+            pos = torch.zeros((n,), dtype=torch.int32, device=dev)
+            out: List[torch.Tensor] = []
+            t0 = self.clock.perf()
+            for _ in range(steps):
+                logits, lease.cache = tf.serve_step(
+                    self.model, lease.cache, {"token": tok, "pos": pos})
+                pos += 1
+                self.stats["dense_steps"] += 1
+                tok = sample(logits)
+                out.append(tok)
+            toks = torch.stack(out).cpu().tolist() if out else []
+            per_step = (self.clock.perf() - t0) / max(steps, 1)
+        finally:
+            kv.release(lease)
         return toks, per_step

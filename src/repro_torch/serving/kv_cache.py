@@ -1,27 +1,35 @@
-"""Paged KV cache manager for the serving engine.
+"""KV cache manager for the serving engine.
 
-Block-table leases over one shared KV page slab: a ``PagedCacheLease``
-is a [batch, max_blocks] table of slab page slots plus per-sequence
-lengths — exactly the operands ``kernels.ops.flash_decode_paged``
-gathers through in place (PagedAttention-style), so decode attention
-reads leased pages with no contiguous copy and no [B, max_len]
-over-allocation.
+Dense mode (``acquire``/``release``) allocates one decode cache per
+(batch, max_len) bucket and recycles it across requests (stale entries
+are masked by per-sequence ``pos``; ``fresh=True`` zeroes it).  A
+recycled bucket keeps its pool lease (the bytes stay resident) until
+``drop``/``drop_all``; ``acquire`` of a new bucket spills the manager's
+own recycled buckets before raising ``PoolExhausted``.  A lease is
+tenant-tagged, and a recycled bucket is re-attributed to whichever
+tenant reuses it.
+
+Paged mode (``init_paged``/``acquire_paged``) leases block tables over
+one shared KV page slab: a ``PagedCacheLease`` is a [batch, max_blocks]
+table of slab page slots plus per-sequence lengths — exactly the
+operands ``kernels.ops.flash_decode_paged`` gathers through in place
+(PagedAttention-style), so decode attention reads leased pages with no
+contiguous copy and no [B, max_len] over-allocation.
 
 When constructed over a ``DevicePagePool`` the manager is not a memory
 island: every live lease charges its exact tensor bytes to the replica's
 ``MemoryLedger`` (category ``"kv"``, tenant-tagged) and takes page slots
-out of the same pool the prefetch buffer draws from; an ``acquire_paged``
-the slab or the pool cannot fit raises ``PoolExhausted``.
+out of the same pool the prefetch buffer draws from; an acquire the
+slab or the pool cannot fit raises ``PoolExhausted``.
 
-Only the paged part of the reference manager is ported; the dense
-per-bucket caches and chunk-KV splicing come later.
+Chunk-KV splicing is not ported yet.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +37,30 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.memory.pool import DevicePagePool, PageLease, PoolExhausted
+from repro_torch.models import transformer as tf
 from repro_torch.obs.recorder import KVEvent
 
 
+@dataclass
+class CacheLease:
+    """One leased dense decode cache: the ``init_cache`` tensors plus the
+    bucket shape, exact byte footprint, (pool-backed) page lease, and the
+    tenant whose requests the decode state serves (``"shared"`` = the
+    untenanted sentinel)."""
+
+    cache: Dict[str, torch.Tensor]
+    batch: int
+    max_len: int
+    nbytes: int = 0
+    page_lease: Optional[PageLease] = None
+    tenant: str = "shared"
+
+
 class KVCacheManager:
-    """Paged decode-cache allocator whose leases are charged to the shared
-    ``DevicePagePool`` (category ``"kv"``) when a pool is given."""
+    """Decode-cache allocator, dense (one cache per (batch, max_len)
+    bucket, recycled across requests) or paged (block-table leases over
+    one slab), whose leases are charged to the shared ``DevicePagePool``
+    (category ``"kv"``) when a pool is given."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16, *,
                  pool: Optional[DevicePagePool] = None,
@@ -46,26 +72,124 @@ class KVCacheManager:
         self.dtype = dtype
         self.pool = pool
         self.device = resolve_device(device)
+        self._pool_buckets: Dict[Tuple[int, int],
+                                 Tuple[Dict[str, torch.Tensor],
+                                       Optional[PageLease]]] = {}
         self.slab: Optional["KVPageSlab"] = None   # init_paged() creates it
 
     def _record(self, kind: str, batch: int, max_len: int, nbytes: int,
                 tenant: str, *, lease_id: int = -1, pages: int = 0,
-                length: int = 0) -> None:
+                length: int = 0, recycled: bool = False) -> None:
         """Trace through the pool's recorder lane (KV state belongs to the
-        pool's replica): lease edges carry ``lease_id``/``pages`` and
-        appends the post-write ``length``, so the invariant checker can
-        conserve pages per lease and order acquire -> append -> release."""
+        pool's replica).  Paged lease edges carry ``lease_id``/``pages``
+        and appends the post-write ``length``, so the invariant checker
+        can conserve pages per lease and order acquire -> append ->
+        release; dense edges carry ``recycled`` (acquire reused a
+        released bucket), and ``kv.drop`` marks a recycled bucket's
+        bytes returning to the pool, so bucket recycling stays
+        conservation-exact too."""
         rec = self.pool.recorder if self.pool is not None else None
         if rec is not None:
             rec.emit(KVEvent(t=rec.now, kind=kind,
                              replica=self.pool.replica_id, tenant=tenant,
                              batch=batch, max_len=max_len, nbytes=nbytes,
-                             lease_id=lease_id, pages=pages, length=length))
+                             lease_id=lease_id, pages=pages, length=length,
+                             recycled=recycled))
+
+    def acquire(self, batch: int, max_len: int, *, fresh: bool = False,
+                tenant: str = "shared") -> CacheLease:
+        """Lease a dense decode cache for ``batch`` sequences of
+        ``max_len``: the recycled bucket when one is parked, else a fresh
+        pool-backed allocation (raises ``PoolExhausted`` when the pool
+        cannot fit it, after spilling this manager's recycled buckets).
+        ``fresh=True`` zeroes a recycled cache.  The bucket's pool lease
+        carries ``tenant``, so the ledger's ``tenant:<name>`` bytes include
+        KV; a recycled bucket is re-attributed to whoever reuses it."""
+        key = (batch, max_len)
+        nbytes = self.nbytes(batch, max_len)
+        cache, page_lease = self._pool_buckets.pop(key, (None, None))
+        recycled = cache is not None
+        if cache is None:
+            if self.pool is not None:
+                page_lease = self.pool.lease_bytes(nbytes, "kv", tag=key,
+                                                   tenant=tenant)
+                if page_lease is None and self._pool_buckets:
+                    # spill our own recycled buckets before giving up
+                    self.drop_all()
+                    page_lease = self.pool.lease_bytes(nbytes, "kv", tag=key,
+                                                       tenant=tenant)
+                if page_lease is None:
+                    raise PoolExhausted(
+                        f"kv cache {key} needs {nbytes} bytes; pool has "
+                        f"{self.pool.reservable_pages()} reservable pages "
+                        f"of {self.pool.page_nbytes} bytes",
+                        bytes_needed=nbytes)
+            try:
+                cache = tf.init_cache(self.cfg, batch, max_len, self.dtype,
+                                      device=self.device)
+            except BaseException:
+                # a failed allocation hands its pool pages back, or every
+                # out-of-memory here would shrink the pool for good
+                if page_lease is not None and self.pool is not None:
+                    self.pool.release(page_lease)
+                raise
+        else:
+            if (page_lease is not None and self.pool is not None
+                    and page_lease.tenant != tenant):
+                # the recycled bytes now serve another tenant
+                self.pool.reattribute(page_lease, tenant)
+            if fresh:
+                for t in cache.values():
+                    t.zero_()
+        self._record("kv.acquire", batch, max_len, nbytes, tenant,
+                     recycled=recycled)
+        return CacheLease(cache=cache, batch=batch, max_len=max_len,
+                          nbytes=nbytes, page_lease=page_lease, tenant=tenant)
+
+    def release(self, lease: CacheLease) -> None:
+        """Park the bucket for recycling (its pool lease stays live: the
+        bytes remain resident until ``drop``/``drop_all``).  When a
+        same-shaped bucket is already parked, the incoming bucket's bytes
+        go straight back to the pool (``kv.release`` then ``kv.drop``),
+        or its pool lease would leak."""
+        self._record("kv.release", lease.batch, lease.max_len, lease.nbytes,
+                     lease.tenant)
+        key = (lease.batch, lease.max_len)
+        if key in self._pool_buckets:
+            freed = lease.nbytes
+            if lease.page_lease is not None and self.pool is not None:
+                freed = lease.page_lease.nbytes
+                self.pool.release(lease.page_lease)
+            self._record("kv.drop", lease.batch, lease.max_len, freed,
+                         lease.tenant)
+            return
+        self._pool_buckets[key] = (lease.cache, lease.page_lease)
+
+    def drop(self, batch: int, max_len: int) -> int:
+        """Free one recycled bucket back to the pool (``kv.drop``);
+        returns its bytes (0 when none is parked)."""
+        cache, page_lease = self._pool_buckets.pop((batch, max_len),
+                                                   (None, None))
+        if cache is None:
+            return 0
+        freed = self.nbytes(batch, max_len)
+        tenant = "shared"
+        if page_lease is not None and self.pool is not None:
+            tenant = page_lease.tenant
+            freed = page_lease.nbytes
+            self.pool.release(page_lease)
+        self._record("kv.drop", batch, max_len, freed, tenant)
+        return freed
+
+    def drop_all(self) -> int:
+        """Free every recycled bucket (replica teardown, pressure spill)."""
+        return sum(self.drop(batch, max_len)
+                   for batch, max_len in list(self._pool_buckets))
 
     def nbytes(self, batch: int, max_len: int) -> int:
-        """Exact tensor bytes of one dense (batch, max_len) decode cache
-        (k and v [L, B, S, KVH, Dh]) — what the reference's ledger charges
-        for a dense bucket; drivers size the pool with it."""
+        """Exact tensor bytes of one dense (batch, max_len) bucket (k and v
+        [L, B, S, KVH, Dh]), the ledger's ``"kv"`` charge to the byte;
+        drivers size the pool with it."""
         cfg = self.cfg
         per = torch.tensor([], dtype=self.dtype).element_size()
         return (2 * cfg.num_layers * batch * max_len * cfg.num_kv_heads

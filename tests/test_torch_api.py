@@ -9,9 +9,10 @@ streams equal, and the port's stream must replay clean through the
 reference's invariant checker.  Cases: all six pipelines under both
 dispatch disciplines, two replicas with the cache-aware scheduler,
 open-loop arrivals with SLO deadlines and tenants, unfused retrieval,
-and the deprecated shims.  The port's ``DecodeRunner`` is checked on the
-port alone (the reference's paged decode varies from run to run on the
-CPU).
+and the deprecated shims.  The port's paged ``DecodeRunner`` is checked
+on the port alone (the reference's paged decode varies from run to run
+on the CPU); its dense path (``paged_decode=False``) against the
+reference's dense runner, and its logits against the port's paged path.
 """
 
 import dataclasses
@@ -24,10 +25,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+import jax.numpy as jnp
+
 import repro.core as jcore
+import repro.serving.decode as jdecode
 from repro.analysis import check_recorder
 from repro.configs import get_arch as jget_arch
 from repro.core.budget import H100 as JH100
+from repro.models import transformer as jtf
 from repro.core.schedulers import TeleRAGScheduler as JScheduler
 from repro.serving import api as japi
 from repro.serving import pipelines as jpipe
@@ -40,6 +46,7 @@ from repro_torch.core import ivf as tivf
 from repro_torch.core.schedulers import TeleRAGScheduler as TScheduler
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import api as tapi
+from repro_torch.serving import decode as tdecode
 from repro_torch.serving import pipelines as tpipe
 from repro_torch.serving.decode import DecodeRunner
 from repro_torch.serving.engine import EngineConfig as TConfig
@@ -285,7 +292,104 @@ def test_decode_runner_events_reach_the_runtime(world):
     assert not rep.violations, [v.render() for v in rep.violations]
 
 
-def test_decode_runner_refuses_dense_decode(world):
+def test_decode_runner_serves_dense_decode(world):
+    """Dense decode is served, not refused: with ``paged_decode=False``
+    the runner takes the dense path, allocates no page slab, and serves
+    every wave through a dense bucket that goes back to the pool."""
     srv, runner = _decode_server(world, paged_decode=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    runner.attach(srv)
+    assert not runner.paged and runner._kv[0].slab is None
+    resp = srv.serve(_requests(tapi, world, 4, pipeline="irg"))
+    assert all(r.state is RequestState.COMPLETE for r in resp)
+    assert runner.stats["dense_waves"] > 0 and runner.stats["dense_steps"] > 0
+    assert runner.stats["paged_waves"] == runner.stats["paged_appends"] == 0
+    kv = [e for e in srv.recorder.events if e.kind.startswith("kv.")]
+    assert kv and all(e.lease_id == -1 for e in kv)
+    runner._kv[0].drop_all()
+    assert not [l for l in srv.engines[0].pool.leases.values()
+                if l.owner == "kv"]
+    rep = check_recorder(srv.recorder)
+    assert not rep.violations, [v.render() for v in rep.violations]
+
+
+def _decode_servers(w, **engine):
+    """The reference's and the port's servers, each with its own
+    ``DecodeRunner`` over the same fp32 weights (the reference's
+    ``init_params``), on the deterministic event clock."""
+    jc, tc = jget_arch("llama3-8b").reduced(), tget_arch("llama3-8b").reduced()
+    params = jtf.init_params(jc, jax.random.PRNGKey(0), dtype=jnp.float32)
+    model = ttf.from_jax_params(jax.tree.map(np.asarray, params), tc,
+                                device="cpu")
+    runner = dict(max_len=32, max_steps=4, page_size=4, slab_seqs=8)
+    cfg = dict(CFG, pool_pages=40 + 64, **engine)
+    jrun = jdecode.DecodeRunner(params, jc, **runner)
+    trun = DecodeRunner(model, **runner)
+    ref = japi.TeleRAGServer(w.ji, JConfig(kernel_mode="ref", hw=JH100, **cfg),
+                             1, jc, micro_batch=2, include_tail=True,
+                             decode_hook=jrun, continuous=True)
+    port = tapi.TeleRAGServer(w.ti, TConfig(**cfg), 1, tc, micro_batch=2,
+                              include_tail=True, decode_hook=trun,
+                              continuous=True)
+    jrun.attach(ref)
+    trun.attach(port)
+    return ref, port, jrun, trun
+
+
+@pytest.mark.parametrize("pipeline", ["irg", "flare"])
+def test_dense_decode_server_matches_reference(world, pipeline):
+    """``paged_decode=False`` end to end against the reference's server:
+    the same doc ids, telemetry within 1e-6, the same recorder stream
+    (dense bucket recycling, spills and pressure parks included; a clean
+    ``check_recorder`` replay is part of ``_assert_same``) and the same
+    greedy tokens from the two dense runners.  The reference's dense
+    runner is one jitted step with nothing overlapped, and gives the
+    same tokens from run to run, so it is the yardstick itself (its
+    paged runner is not: ROADMAP queue 3)."""
+    ref, port, jrun, trun = _decode_servers(world, paged_decode=False)
+    assert not jrun.paged and not trun.paged
+    jresp = ref.serve(_requests(japi, world, 6, pipeline=pipeline))
+    tresp = port.serve(_requests(tapi, world, 6, pipeline=pipeline))
+    _assert_same(ref, port, jresp, tresp)
+    assert trun.stats == {k: jrun.stats[k] for k in trun.stats}
+    assert trun.stats["dense_waves"] > 0
+    assert trun.generated == jrun.generated
+    assert any(e.kind == "kv.acquire" and e.recycled
+               for e in port.recorder.events)
+
+
+def test_dense_decode_logits_match_paged_decode(world, monkeypatch):
+    """The port's dense and paged decode paths on the same requests give
+    the same logits step by step, within 1e-4 in fp32.  The sampler is
+    replaced by a fixed token pattern, so both paths see the same tokens
+    whatever their logits (no greedy-token equality is asked)."""
+    cfg = tget_arch("llama3-8b").reduced()
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    logits = {}
+
+    def run(paged):
+        seen = logits.setdefault(paged, [])
+
+        def fixed(lg):
+            seen.append(lg.clone())
+            return (torch.arange(lg.shape[0], dtype=torch.int32) * 7
+                    + len(seen)) % cfg.vocab_size
+        monkeypatch.setattr(tdecode, "sample", fixed)
+        runner = DecodeRunner(model, max_len=32, max_steps=4, page_size=4,
+                              slab_seqs=8, kv_dtype=torch.float32)
+        srv = tapi.TeleRAGServer(
+            world.ti, TConfig(**dict(CFG, pool_pages=40 + 512,
+                                     paged_decode=paged)), 1, cfg,
+            micro_batch=2, include_tail=True, decode_hook=runner,
+            continuous=True)
         runner.attach(srv)
+        srv.serve(_requests(tapi, world, 6, pipeline="irg"))
+        return runner
+
+    paged, dense = run(True), run(False)
+    assert paged.stats["paged_waves"] == dense.stats["dense_waves"] > 0
+    assert dense.generated == paged.generated
+    assert len(logits[True]) == len(logits[False]) > 0
+    for step, (a, b) in enumerate(zip(logits[True], logits[False])):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"decode step {step}")

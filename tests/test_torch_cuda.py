@@ -5,10 +5,12 @@ the JAX package, so it runs on a card host that has neither:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the decode kernel's fp32 output from bf16 K/V is summed in
+Tolerances: the decode kernels' fp32 output from bf16 K/V is summed in
 another order than the plain version's (atol=rtol=2e-3); the retrieval
 kernels must give equal ids (and kernel 2 the same admitted clusters)
-and scores within rtol=1e-4 on tie-free data.
+and scores within rtol=1e-4 on tie-free data; the centroid scores
+within rtol=1e-4 (fp32 dots summed in another order) and equal top-k
+ids on tie-free data.
 """
 
 import dataclasses
@@ -19,7 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch
+from repro_torch.kernels import _build
+from repro_torch.kernels import centroid_probe as tcp
 from repro_torch.kernels import flash_decode as tfd
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ivf_topk as tivf
 from repro_torch.kernels import probe_topk as tpt
 from repro_torch.kernels import ref as tref
@@ -32,6 +37,13 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _dense_grids(B, KVH, S):
+    """Grid launches of one ``flash_decode`` call on this card: the
+    splits, and their combine when S is split."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 if tfd._splits(B * KVH, S, sms)[1] > 1 else 1
 
 
 def _paged_inputs(B, KVH, G, Dh, ps, MB, seed):
@@ -81,6 +93,42 @@ def test_flash_decode_paged_kernel_matches_plain(B, KVH, G, Dh, ps, MB, window,
     want = tref.flash_decode_paged_ref(q, kp, vp, bt, lens, window)
     torch.cuda.synchronize()
     assert tfd.flash_decode_paged.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, KVH, G, Dh)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,KVH,G,Dh,pos,window,q_dtype,kv_dtype", [
+    (4, 128, 8, 4, 128, [127] * 4, 0, torch.bfloat16, torch.bfloat16),  # serve
+    (4, 128, 8, 4, 128, [127, 96, 40, 7], 0, torch.bfloat16, torch.bfloat16),
+    (4, 8192, 8, 4, 128, [8191, 6143, 4999, 4095], 0, torch.bfloat16,
+     torch.bfloat16),                                        # long context
+    (3, 100, 2, 1, 32, [99, 50, 0], 9, torch.bfloat16, torch.bfloat16),
+    (2, 300, 1, 8, 64, [299, 130], 0, torch.float32, torch.float32),  # MQA
+    (3, 77, 2, 3, 128, [76, 20, 64], 25, torch.float32, torch.bfloat16),
+    (2, 1000, 4, 2, 64, [999, 500], 700, torch.bfloat16, torch.bfloat16),
+    (3, 100, 2, 1, 32, [99, 50, 0], 9, torch.float32, torch.float32),
+    (2, 200, 1, 8, 128, [0, 199], 0, torch.bfloat16, torch.bfloat16),  # MQA
+    (4, 128, 8, 4, 128, [0] * 4, 0, torch.bfloat16, torch.bfloat16),
+])
+def test_flash_decode_kernel_matches_plain(B, S, KVH, G, Dh, pos, window,
+                                           q_dtype, kv_dtype):
+    """Dense decode: the serve and long-context shapes, ragged positions,
+    windows, G=1 (fp32 and bf16), MQA (fp32 and bf16), ``pos = 0``, and S
+    a multiple of no tile.  ``launches`` counts the grid launches: the
+    splits, and their combine when S is split."""
+    dev = _card()
+    rng = np.random.default_rng(S + B)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(dev, dt) for shape, dt in (((B, KVH, G, Dh), q_dtype),
+                                              ((B, S, KVH, Dh), kv_dtype),
+                                              ((B, S, KVH, Dh), kv_dtype)))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(q, k, v, p, window=window)
+    want = tref.flash_decode_ref(q, k, v, p, window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + _dense_grids(B, KVH, S)
     assert got.dtype == torch.float32 and got.shape == (B, KVH, G, Dh)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
 
@@ -138,7 +186,38 @@ def test_ivf_topk_kernel_matches_plain(B, d, P, ps, k, shared_mask):
 
 
 @pytest.mark.cuda
-def test_cuda_wrappers_raise_instead_of_falling_back():
+@pytest.mark.parametrize("B,d,Nc,nprobe,invalid", [
+    (4, 768, 1024, 64, 0.0),        # serve probe shape, all valid
+    (1, 64, 96, 8, 0.2),            # Nc not a multiple of 32
+    (3, 128, 128, 16, 0.2),
+    (20, 2048, 70, 10, 0.1),        # queries staged in chunks of 6
+    (900, 30, 100, 10, 0.1),        # d = 30; chunks of 409 queries
+])
+def test_centroid_scores_kernel_matches_plain(B, d, Nc, nprobe, invalid):
+    dev = _card()
+    rng = np.random.default_rng(Nc + d)
+    cents = torch.from_numpy(rng.standard_normal((Nc, d)).astype(
+        np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    valid = (torch.from_numpy(rng.random(Nc) >= invalid).to(dev)
+             if invalid else None)
+    before = tcp.centroid_scores.launches
+    got = tcp.centroid_scores(q, cents, valid)
+    want = tref.centroid_probe_ref(cents, q, valid)
+    gs, gi = tops.centroid_probe(cents, q, nprobe, valid=valid)
+    torch.cuda.synchronize()
+    assert tcp.centroid_scores.launches == before + 2
+    assert got.shape == (B, Nc) and got.dtype == torch.float32
+    if valid is not None:
+        assert torch.isinf(got[:, ~valid]).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    ws, wi = torch.topk(want, nprobe, dim=-1)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_instead_of_falling_back(monkeypatch):
     dev = _card()
     q, kp, vp, bt, lens = (torch.from_numpy(a).to(dev) for a in
                            _paged_inputs(2, 2, 2, 48, 4, 3, 0))
@@ -153,6 +232,27 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
                                kp[..., :32].contiguous(),
                                vp[..., :32].contiguous(), bt, lens)
     assert tfd.flash_decode_paged.launches == before
+    k, v = kp[:2], vp[:2]                         # a dense [B, S, KVH, Dh] cache
+    before = tfd.flash_decode.launches
+    with pytest.raises(ValueError, match="Dh"):
+        tops.flash_decode(q, k, v, lens)
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    with pytest.raises(ValueError, match="int32"):
+        tops.flash_decode(q32, k32, v32, lens.long())
+    with pytest.raises(ValueError, match="q/kv"):
+        tops.flash_decode(q32.to(torch.bfloat16), k32, v32, lens)
+    with pytest.raises(ValueError, match="q/kv"):        # fp16, no upcast
+        tops.flash_decode(q32.half(), k32.half(), v32.half(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.flash_decode(q32, k[..., :32], v32, lens)
+    # the kernel cannot load: the error surfaces, no plain version runs
+    monkeypatch.setattr(tfd, "_fns", {})
+    def no_build(name):
+        raise _build.KernelBuildError(f"cannot build {name}")
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(_build.KernelBuildError, match="flash_decode"):
+        tops.flash_decode(q32, k32, v32, lens)
+    assert tfd.flash_decode.launches == before
     pages = torch.zeros((3, 4, 8), dtype=torch.bfloat16, device=dev)
     ids = torch.zeros((3, 4), dtype=torch.int32, device=dev)
     mask = torch.ones((2, 3), dtype=torch.bool, device=dev)
@@ -163,6 +263,13 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="contiguous"):
         tivf.ivf_topk(pages, ids, mask.t().contiguous().t(), qs, 1)
     assert tivf.ivf_topk.launches == before
+    before = tcp.centroid_scores.launches
+    with pytest.raises(ValueError, match="fp32"):
+        tcp.centroid_scores(qs.to(torch.bfloat16), qs)
+    with pytest.raises(ValueError, match="d <="):
+        tcp.centroid_scores(torch.zeros((1, 20_000), device=dev),
+                            torch.zeros((4, 20_000), device=dev))
+    assert tcp.centroid_scores.launches == before
 
 
 @pytest.mark.cuda
@@ -194,4 +301,40 @@ def test_serve_step_paged_on_card_matches_cpu():
     torch.cuda.synchronize()
     assert tfd.flash_decode_paged.launches == before + cfg.num_layers
     torch.testing.assert_close(gk.cpu(), wk, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zeros", "random"])
+def test_serve_step_on_card_matches_cpu(start):
+    """A reduced Llama-3 dense decode step through kernel 4 on the card
+    agrees with the same step through the plain version on the CPU (fp32),
+    at ragged positions, from zeroed caches (as the serve's fresh buckets)
+    and from a random starting cache (stale entries past pos masked)."""
+    dev = _card()
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(), num_kv_heads=2)
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    B, S = 3, 40
+    shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if start == "zeros":
+        k0.zero_()
+        v0.zero_()
+    pos = torch.tensor([0, 17, 39], dtype=torch.int32)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, B).astype(np.int32))
+    want, wc = ttf.serve_step(model, {"k": k0.clone(), "v": v0.clone()},
+                              {"token": tok, "pos": pos})
+    model_d = ttf.Transformer(cfg, {n: p.detach().to(dev)
+                                    for n, p in model.named_parameters()})
+    before = tfd.flash_decode.launches
+    got, gc = ttf.serve_step(model_d, {"k": k0.to(dev), "v": v0.to(dev)},
+                             {"token": tok.to(dev), "pos": pos.to(dev)})
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + cfg.num_layers * \
+        _dense_grids(B, cfg.num_kv_heads, S)
+    torch.testing.assert_close(gc["k"].cpu(), wc["k"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gc["v"].cpu(), wc["v"], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)

@@ -296,8 +296,23 @@ def test_driver_runs_end_to_end_on_cpu_at_tiny_size():
                        "--buffer-pages", "64", "--requests", "4", "--batch",
                        "2", "--max-steps", "4", "--quiet"])
     assert out["requests"] == 4 and out["device"] == "cpu"
+    assert out["decode"] == "paged"
     assert out["rounds_with_hits"] >= 1
     assert out["decode_tokens"] > 0
+    assert all(rows and all(len(row) == 3 and min(row) >= 0 for row in rows)
+               for rows in out["doc_ids"].values())
+    assert out["retrieval_gap"] < 1e-2       # bf16 device pages vs fp32 host
+
+
+def test_driver_runs_dense_decode_end_to_end_on_cpu_at_tiny_size():
+    out = tserve.main(["--device", "cpu", "--reduced", "--vectors", "3000",
+                       "--dim", "32", "--clusters", "16", "--train-sample",
+                       "2000", "--page-size", "32", "--nprobe", "4",
+                       "--buffer-pages", "64", "--requests", "4", "--batch",
+                       "2", "--max-steps", "4", "--dense-decode", "--quiet"])
+    assert out["decode"] == "dense" and out["retrieval"] == "fused"
+    assert out["requests"] == 4 and out["decode_tokens"] > 0
+    assert out["rounds_with_hits"] >= 1
     assert all(rows and all(len(row) == 3 and min(row) >= 0 for row in rows)
                for rows in out["doc_ids"].values())
     assert out["retrieval_gap"] < 1e-2       # bf16 device pages vs fp32 host

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import _build
+from repro_torch.kernels import centroid_probe as tcp
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ivf_topk as tivf
 from repro_torch.kernels import ops as tops
@@ -167,18 +168,131 @@ def test_dense_flash_decode_ref_matches_jax(B, S, KVH, G, Dh, window):
                                atol=1e-5)
 
 
+_DENSE_CASES = [(2, 256, 4, 3, 64, 0, None), (2, 256, 4, 3, 64, 50, None),
+                (1, 128, 1, 8, 32, 0, None),              # MQA
+                (3, 64, 2, 1, 128, 16, None),             # G=1, window
+                (3, 100, 2, 1, 32, 9, [99, 50, 0]),       # S=100, pos 0
+                (2, 77, 2, 3, 128, 0, [0, 76])]           # S=77, pos 0
+
+
+@pytest.mark.parametrize("B,S,KVH,G,Dh,window,pos", _DENSE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_jax_kernel(B, S, KVH, G, Dh, window, pos,
+                                               dtype):
+    """Port ``ops.flash_decode`` on the CPU against the reference's Pallas
+    kernel in interpret mode, on tests/test_kernels.py's shapes and
+    tolerances: 1e-4 in fp32, 3e-2 in bf16 (inputs rounded to bf16 alike
+    on both sides; the sums run in fp32 in other orders); and at S a
+    multiple of no tile (the reference then runs one tile of S) with a
+    row at ``pos = 0``."""
+    rng = np.random.default_rng(S + window)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, KVH, G, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
+    pos = (rng.integers(1, S, B) if pos is None else np.array(pos)
+           ).astype(np.int32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = jops.flash_decode(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                             jnp.asarray(pos), window=window, tile=64,
+                             mode="kernel_interpret")
+    tdt = getattr(torch, dtype)
+    got = tops.flash_decode(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                            torch.from_numpy(pos), window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, KVH, G, Dh)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_decode_plain_matches_model_decode_attention():
+    """The port's kernel semantics == the reference's jnp decode attention
+    that its dense serve_step runs (tests/test_kernels.py's case), 1e-4."""
+    from repro.models.attention import _decode_attention
+    rng = np.random.default_rng(7)
+    B, S, KVH, G, Dh = 2, 128, 4, 2, 64
+    q = rng.standard_normal((B, 1, KVH, G, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, Dh)).astype(np.float32)
+    pos = np.array([60, 127], np.int32)
+    want = _decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             pos=jnp.asarray(pos), window=None,
+                             softcap_val=None, chunk=S)
+    got = tops.flash_decode(torch.from_numpy(q[:, 0]), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,S,sms", [(32, 128, 132), (32, 8192, 132),
+                                        (1, 100, 132), (64, 1, 132),
+                                        (3, 65, 8), (4096, 4096, 132),
+                                        (0, 128, 132)])
+def test_dense_kernel_splits_cover_the_cache(rows, S, sms):
+    """The dense kernel's split of S: whole 64-position chunks, every
+    position covered, no split wholly past S, and no more blocks than
+    about four per SM unless one split per row already exceeds that."""
+    split, nsplit = tfd._splits(rows, S, sms)
+    assert split % 64 == 0 and nsplit >= 1
+    assert (nsplit - 1) * split < S <= nsplit * split
+    assert nsplit == 1 or rows * (nsplit - 1) < 4 * sms
+
+
+@pytest.mark.parametrize("Nc,d,B,nprobe", [
+    (128, 128, 3, 16),
+    (100, 30, 4, 10),           # Nc not a multiple of 32, d of 4
+    (72, 768, 2, 5),            # the serve width
+])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_valid", "valid"])
+def test_centroid_probe_plain_matches_jax(Nc, d, B, nprobe, masked):
+    """Port ``ops.centroid_probe`` on the CPU against the reference's
+    ``ops.centroid_probe`` (its Pallas ``centroid_scores`` kernel in
+    interpret mode, then ``lax.top_k``) and its ``centroid_probe_ref``.
+    Tie-free gaussian data with nprobe below the valid count
+    (``torch.topk`` and ``lax.top_k`` order ties differently): ids equal,
+    scores within rtol=1e-5 as tests/test_kernels.py (fp32 dots summed in
+    another order)."""
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(Nc + d + masked)
+    cents = rng.standard_normal((Nc, d)).astype(np.float32)
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    valid = rng.random(Nc) > 0.2 if masked else np.ones(Nc, bool)
+    assert valid.sum() > nprobe
+    ws, wi = jops.centroid_probe(jnp.asarray(cents), jnp.asarray(q), nprobe,
+                                 valid=jnp.asarray(valid),
+                                 mode="kernel_interpret")
+    gs, gi = tops.centroid_probe(torch.from_numpy(cents), torch.from_numpy(q),
+                                 nprobe, valid=torch.from_numpy(valid)
+                                 if masked else None)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-5,
+                               atol=1e-5)
+    want = jref.centroid_probe_ref(jnp.asarray(cents), jnp.asarray(q),
+                                   jnp.asarray(valid))
+    full = tcp.centroid_scores(torch.from_numpy(q), torch.from_numpy(cents),
+                               torch.from_numpy(valid))
+    assert full.shape == (B, Nc) and full.dtype == torch.float32
+    assert torch.isinf(full[:, ~torch.from_numpy(valid)]).all()
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_cpu_tensors_run_the_plain_version_without_a_launch():
     q, kp, vp, bt, lens = _paged_inputs(2, 2, 2, 32, 4, 3, 0)
     before = (tfd.flash_decode_paged.launches, tpt.probe_topk_fused.launches,
-              tivf.ivf_topk.launches)
+              tivf.ivf_topk.launches, tfd.flash_decode.launches,
+              tcp.centroid_scores.launches)
     tops.flash_decode_paged(*map(torch.from_numpy, (q, kp, vp, bt, lens)))
+    tops.flash_decode(torch.from_numpy(q), torch.from_numpy(kp[:2]),
+                      torch.from_numpy(vp[:2]), torch.from_numpy(lens))
     qs, cents, valid, pages, pids, pc = _retrieval_inputs(2, 16, 8, 4, 4, 0)
     tops.probe_and_topk(*map(torch.from_numpy, (qs, cents, pages, pids, pc)),
                         nprobe=3, k=2, valid=torch.from_numpy(valid))
     tops.ivf_topk(torch.from_numpy(pages), torch.from_numpy(pids),
                   torch.ones(4, dtype=torch.bool), torch.from_numpy(qs), 2)
+    tops.centroid_probe(torch.from_numpy(cents), torch.from_numpy(qs), 3,
+                        valid=torch.from_numpy(valid))
     assert (tfd.flash_decode_paged.launches, tpt.probe_topk_fused.launches,
-            tivf.ivf_topk.launches) == before
+            tivf.ivf_topk.launches, tfd.flash_decode.launches,
+            tcp.centroid_scores.launches) == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -190,6 +304,11 @@ def test_other_devices_raise_instead_of_falling_back():
             torch.empty((1, 1, 1, 32), **meta), torch.empty((2, 4, 1, 32), **meta),
             torch.empty((2, 4, 1, 32), **meta),
             torch.empty((1, 2), dtype=torch.int32, **meta),
+            torch.empty((1,), dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tops.flash_decode(
+            torch.empty((1, 1, 1, 32), **meta), torch.empty((1, 8, 1, 32), **meta),
+            torch.empty((1, 8, 1, 32), **meta),
             torch.empty((1,), dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="cpu or cuda"):
         tpt.probe_topk_fused(
@@ -204,6 +323,9 @@ def test_other_devices_raise_instead_of_falling_back():
             torch.empty((2, 4), dtype=torch.int32, **meta),
             torch.empty((1, 2), dtype=torch.bool, **meta),
             torch.empty((1, 8), **meta), 1)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tops.centroid_probe(torch.empty((4, 8), **meta),
+                            torch.empty((1, 8), **meta), 2)
 
 
 def test_wrappers_check_shapes():
@@ -212,6 +334,23 @@ def test_wrappers_check_shapes():
                                 torch.zeros(3, 4, 1, 32),
                                 torch.zeros(1, 2, dtype=torch.int32),
                                 torch.ones(1, dtype=torch.int32))
+    pos = torch.zeros(2, dtype=torch.int32)
+    for k in (torch.zeros(2, 5, 3, 32),          # KVH is 2, not 3
+              torch.zeros(3, 5, 2, 32),          # B is 2, not 3
+              torch.zeros(2, 0, 2, 32)):         # an empty cache
+        with pytest.raises(ValueError):
+            tops.flash_decode(torch.zeros(2, 2, 1, 32), k, k, pos)
+    with pytest.raises(ValueError):              # pos [B] wanted
+        tops.flash_decode(torch.zeros(2, 2, 1, 32), torch.zeros(2, 5, 2, 32),
+                          torch.zeros(2, 5, 2, 32), pos[:1])
+    with pytest.raises(ValueError):                  # d differs
+        tops.centroid_probe(torch.zeros(4, 6), torch.zeros(1, 8), 2)
+    with pytest.raises(ValueError):                  # valid is [Nc]
+        tops.centroid_probe(torch.zeros(4, 8), torch.zeros(1, 8), 2,
+                            valid=torch.ones(3, dtype=torch.bool))
+    with pytest.raises(ValueError):                  # valid is a mask
+        tops.centroid_probe(torch.zeros(4, 8), torch.zeros(1, 8), 2,
+                            valid=torch.ones(4))
     with pytest.raises(ValueError):
         tops.probe_and_topk(torch.zeros(1, 8), torch.zeros(4, 6),
                             torch.zeros(2, 4, 8),
@@ -238,12 +377,13 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_command_targets_sm90a_from_repo_sources():
     lib = _build.library_path("flash_decode_paged")
     assert lib.parent == _build.BUILD_DIR
-    for name in ("probe_topk", "ivf_topk"):
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in
+                                            _build.CSRC.glob("*.cu"))
+    for name in _build.SOURCES:
         assert _build.library_path(name).name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     with pytest.raises(_build.KernelBuildError):
         _build.library_path("no_such_kernel")
-
 
 
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):

@@ -3,8 +3,10 @@
 Reduced Llama-3 parameters come from the reference's own
 ``tf.init_params(cfg, PRNGKey(0), dtype=float32)`` and are carried into
 the port with ``from_jax_params``; both then decode the same token
-stream over the same paged KV.  Logits must agree within 1e-4 over 8
-steps (fp32 products summed in another order).
+stream over the same paged KV, and over the same dense cache.  Logits
+must agree within 1e-4 over 8 steps (fp32 products summed in another
+order), and the written KV within 1e-5; a bf16 dense cache within 3e-2
+(see the test).
 """
 
 import dataclasses
@@ -107,6 +109,104 @@ def test_serve_step_paged_logits_match_over_8_steps(kv_heads, mode):
         lens = lens + 1
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-5)
+
+
+_JDENSE = jax.jit(jtf.serve_step, static_argnums=(3,))
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_serve_step_logits_match_over_8_steps(kv_heads, kv_dtype):
+    """The dense step: ragged per-row positions over a random starting
+    cache (stale entries past pos must stay masked), fp32 weights.
+
+    fp32 cache: logits within 1e-4, written KV within 1e-5.  bf16 cache:
+    the reference's jnp attention rounds the scaled q and the softmax
+    probabilities to bf16 before its two products, the port's kernel
+    keeps them in fp32; the reduced model carries that rounding to the
+    logits and to the K/V later layers write, so both must agree within
+    3e-2 of their scale (largest magnitude)."""
+    jc, tc = _cfgs(kv_heads)
+    params = jtf.init_params(jc, jax.random.PRNGKey(0), dtype=jnp.float32)
+    model = ttf.from_jax_params(_np_tree(params), tc, device="cpu")
+    rng = np.random.default_rng(2)
+    B, S = 3, 24
+    shape = (jc.num_layers, B, S, jc.num_kv_heads, jc.resolved_head_dim)
+    kv = rng.standard_normal((2,) + shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, kv_dtype), getattr(torch, kv_dtype)
+    jcache = {"k": jnp.asarray(kv[0], jdt), "v": jnp.asarray(kv[1], jdt)}
+    tcache = {"k": torch.from_numpy(kv[0].copy()).to(tdt),
+              "v": torch.from_numpy(kv[1].copy()).to(tdt)}
+    pos = np.array([0, 5, 13], np.int32)            # ragged positions
+    for step in range(8):
+        tok = rng.integers(0, jc.vocab_size, B).astype(np.int32)
+        jl, jcache = _JDENSE(params, jcache, {"token": jnp.asarray(tok),
+                                              "pos": jnp.asarray(pos)}, jc)
+        tl, tcache = ttf.serve_step(model, tcache,
+                                    {"token": torch.from_numpy(tok),
+                                     "pos": torch.from_numpy(pos)})
+        jl = np.asarray(jl)
+        tol = 1e-4 if kv_dtype == "float32" else 3e-2 * np.abs(jl).max()
+        np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-4, atol=tol,
+                                   err_msg=f"step {step}")
+        pos = pos + 1
+    for name in ("k", "v"):
+        assert tcache[name].dtype == tdt
+        want = np.asarray(jcache[name], np.float32)
+        tol = 1e-5 if kv_dtype == "float32" else 3e-2 * np.abs(want).max()
+        np.testing.assert_allclose(tcache[name].float().numpy(), want,
+                                   rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+@pytest.mark.parametrize("kv_dtype,tol", [("float32", 1e-4),
+                                          ("bfloat16", 3e-2)])
+def test_attn_decode_matches_reference(kv_heads, kv_dtype, tol):
+    """One layer's dense decode attention (``attention.attn_decode``)
+    against the reference's ``attn_decode``: output and written cache,
+    at tests/test_kernels.py's tolerances (1e-4 fp32, 3e-2 bf16)."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    jc, tc = _cfgs(kv_heads)
+    params = jtf.init_params(jc, jax.random.PRNGKey(0), dtype=jnp.float32)
+    jlp = jax.tree.map(lambda a: a[0], params["layers"]["attn"])
+    model = ttf.from_jax_params(_np_tree(params), tc, device="cpu")
+    rng = np.random.default_rng(5)
+    B, S = 3, 20
+    x = rng.standard_normal((B, 1, jc.d_model)).astype(np.float32)
+    shape = (B, S, jc.num_kv_heads, jc.resolved_head_dim)
+    kv = rng.standard_normal((2,) + shape).astype(np.float32)
+    pos = np.array([0, 7, 19], np.int32)
+    jdt, tdt = getattr(jnp, kv_dtype), getattr(torch, kv_dtype)
+    jo, jk, jv = jattn.attn_decode(jlp, jnp.asarray(x), jc,
+                                   cache_k=jnp.asarray(kv[0], jdt),
+                                   cache_v=jnp.asarray(kv[1], jdt),
+                                   pos=jnp.asarray(pos))
+    tk = torch.from_numpy(kv[0].copy()).to(tdt)
+    tv = torch.from_numpy(kv[1].copy()).to(tdt)
+    tp = torch.from_numpy(pos)
+    to = tattn.attn_decode(model.layer(0), torch.from_numpy(x[:, 0]), tc, tk,
+                           tv, tp, torch.arange(B), tp.long())
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo)[:, 0], rtol=tol,
+                               atol=tol)
+    for got, want in ((tk, jk), (tv, jv)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_init_cache_matches_reference(kv_heads):
+    jc, tc = _cfgs(kv_heads)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        want = jtf.init_cache(jc, 3, 40, jdt)
+        got = ttf.init_cache(tc, 3, 40, tdt, device="cpu")
+        assert sorted(got) == sorted(want)
+        for name, t in got.items():
+            assert tuple(t.shape) == want[name].shape
+            assert str(t.dtype).removeprefix("torch.") == want[name].dtype.name
+            assert not t.any()
 
 
 def test_from_jax_params_keeps_stacked_layout():
