@@ -1,17 +1,23 @@
 """Chip smoke test of the PyTorch/CUDA port: the quickest proof that it
 builds, is right and serves on one NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --decode-timing DIR  # time DIR/src's decode kernels
+    python3 chip_smoke.py --decode-ab PARENT   # PARENT, this, this, PARENT
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: every kernel from the sources in this checkout, one nvcc per
      source in parallel, with -Xptxas -v (registers, shared memory, spills);
-  3. flash_decode_paged against its plain version at the serve shapes and
-     at a small shape (G=1, Dh=32, ps=2, window>0), and flash_decode (the
-     dense cache) at the serve shape, ragged positions, the long context
-     and small shapes (window>0, G=1, MQA, S a multiple of no tile), all
-     atol=rtol=2e-3 (fp32 output from bf16 K/V, sums in another order);
+  3. flash_decode_paged against its plain version at the serve, mid
+     (2k) and long (4k-8k) contexts, under an 8192-position table whose
+     later splits hold no live position (and lengths of 1), with a
+     window across split boundaries, at page sizes 2, 5 and 48 (none
+     divides 64) and -1 tails; and flash_decode (the dense cache) at the
+     serve shape, ragged positions, the mid and long contexts, a long
+     cache with its later splits empty, and small shapes (window>0, G=1,
+     MQA, S a multiple of no tile); all atol=rtol=2e-3 (fp32 output from
+     bf16 K/V, sums in another order), one grid launch a call;
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes and at a small shape: equal ids (and the same admitted
      clusters) and scores within rtol=1e-4 on tie-free data; and
@@ -19,22 +25,28 @@ Phases, one line each, every one fatal on failure:
      at the serve probe shape and at an odd one (Nc and d multiples of
      neither 32 nor 4, invalid centroids): equal top-k ids, scores
      within rtol=1e-4;
-  5. timing: each kernel over many launches (CUDA events, after warm-up)
-     beside its bound and its plain version; both decode kernels also at
-     a long context (4k-8k tokens), where the K/V stream and not the
-     launch sets their time; flash_decode and centroid_scores also
-     beside the one library call that computes the same function
-     (scaled_dot_product_attention, GQA, masked; q @ c.T + masked_fill);
+  5. timing: kernels 2, 3 and 5 over many launches (CUDA events, after
+     warm-up) beside their bounds and plain versions, centroid_scores
+     also beside q @ c.T + masked_fill (the one library call that
+     computes its function);
   6. serving: repro_torch.launch.serve's TeleRAGServer at the full
      Llama-3-8B width over a 1M x 768 datastore, built once and served
      three times: fused retrieval with paged decode (flash_decode_paged
      and probe_topk_fused must launch), unfused retrieval (ivf_topk must
-     launch, probe_topk_fused must not) and dense decode (flash_decode
-     must make exactly its grid launches per call, once per layer, in
-     every step; flash_decode_paged never); each serve's doc ids must
-     match an exact host search and at least one round must hit the
-     device.  Then one observation: one retrieval round fused against
-     unfused, in alternating pairs.
+     launch, probe_topk_fused must not) and dense decode (flash_decode,
+     flash_decode_paged never); the decode kernel of each serve must
+     make exactly one grid launch per layer in every decode step; each
+     serve's doc ids must match an exact host search and at least one
+     round must hit the device.  Then one observation: one retrieval
+     round fused against unfused, in alternating pairs;
+  7. decode timing: both decode kernels at the serve, mid and long
+     contexts beside their bounds and plain versions, flash_decode also
+     beside scaled_dot_product_attention (GQA, masked), each with three
+     numbers: the event mean, the device time a call (a loop of launches
+     in a CUDA graph) and the wrapper's host microseconds a call; then
+     whether the aims for them are met.  It runs after the serves, so
+     that its CUDA graphs and 8k-position inputs cannot touch their
+     timing.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -42,6 +54,13 @@ kernel's launches by path (fused, unfused, dense) and in the checks.
 The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
+
+--decode-timing DIR runs phase 7's decode timing alone on the port
+under DIR/src (any checkout of this repository) and prints it as one
+JSON line; --decode-ab PARENT runs it four times in turn, on PARENT,
+this checkout, this checkout and PARENT, one process each, and prints
+the three numbers of each kernel and shape side by side with the aims,
+the serve-shape aim judged against PARENT's device time.
 """
 
 from __future__ import annotations
@@ -63,14 +82,21 @@ FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 # batch-4, 128-token KV lease (67,108,864 bytes / 196,608)
 POOL_PAGES = 4438
 
-# kernel 1's long-context timing case (B=4, KVH=8, G=4, Dh=128, ps=16)
+# kernel 1's mid and long-context cases (B=4, KVH=8, G=4, Dh=128, ps=16)
+MID_LENGTHS = [2048, 1536, 1024, 512]
 LONG_LENGTHS = [8192, 6144, 5000, 4096]
 
 # kernel 4's cases (B=4, KVH=8, G=4, Dh=128): the dense serve's bucket
 # (S=128) full and ragged, and the long context (S=8192)
 SERVE_POS = [127] * 4
 RAGGED_POS = [127, 96, 40, 7]
+MID_POS = [2047, 1535, 1023, 511]
 LONG_POS = [8191, 6143, 4999, 4095]
+
+# the aims for the decode kernels (at the long context unless named)
+AIM_DENSE_BOUND_SHARE = 0.40     # flash_decode: >= 40% of its byte bound
+AIM_PAGED_MS = 0.1               # flash_decode_paged: <= 0.1 ms and
+AIM_PAGED_OVER_DENSE = 2.0       # <= 2x flash_decode in the same run
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -104,6 +130,62 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed ``reps`` times between two events, so no host
+    time falls between the launches and no tracer runs in the process.
+    One call on the capture stream first makes the wrapper's per-stream
+    workspace outside the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def host_us(fn, calls: int = 200, blocks: int = 5) -> float:
+    """Host microseconds a call of ``fn``: the wrapper's checks and its
+    enqueue, timed without a synchronise inside a block of ``calls``
+    calls; the median of ``blocks`` blocks, since the host's clock
+    varies with its other load."""
+    per_call = []
+    for _ in range(blocks):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
+def three_times(fn, counted, iters: int) -> dict:
+    """The event mean (ms) with the grid launches a call that the
+    wrapper ``counted`` counts, the device time a call (ms, CUDA graph)
+    and the host microseconds a call of ``fn``."""
+    before = counted.launches
+    ms = time_ms(fn, iters, warmup=3)
+    grids = (counted.launches - before) / (iters + 3)
+    return {"ms": ms, "grids_per_call": grids, "device_ms": device_ms(fn),
+            "host_us": host_us(fn)}
 
 
 # -- kernel 1: flash_decode_paged ---------------------------------------------
@@ -146,9 +228,13 @@ def decode_work(q, kp, bt, lens, window):
 
 def check_decode(fd, ref, case, window, label):
     q, kp, vp, bt, lens = case
+    before = fd.flash_decode_paged.launches
     out = fd.flash_decode_paged(q, kp, vp, bt, lens, window=window)
     want = ref.flash_decode_paged_ref(q, kp, vp, bt, lens, window)
     torch.cuda.synchronize()
+    if fd.flash_decode_paged.launches != before + 1:
+        fail(f"flash_decode_paged {label}: "
+             f"{fd.flash_decode_paged.launches - before} grid launches, want 1")
     err = (out - want).abs().max().item()
     try:
         torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
@@ -191,9 +277,13 @@ def dense_work(case, window):
 
 
 def check_dense(fd, ref, case, window, label):
+    before = fd.flash_decode.launches
     out = fd.flash_decode(*case, window=window)
     want = ref.flash_decode_ref(*case, window)
     torch.cuda.synchronize()
+    if fd.flash_decode.launches != before + 1:
+        fail(f"flash_decode {label}: {fd.flash_decode.launches - before} grid "
+             "launches, want 1")
     err = (out - want).abs().max().item()
     try:
         torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
@@ -222,23 +312,87 @@ def sdpa(case):
                                                   enable_gqa=True)
 
 
-def time_dense(fd, ref, case, label, smi, iters):
-    """Kernel 4 on ``case`` beside its bound, its plain version and the
-    library call (device ms, CUDA events); the library's error against
-    the plain version is printed, not checked."""
-    ms = time_ms(lambda: fd.flash_decode(*case), iters)
-    plain = time_ms(lambda: ref.flash_decode_ref(*case), max(iters // 10, 5))
-    lib = sdpa(case)
-    lib_ms = time_ms(lib, iters)
-    q = case[0]
-    lib_err = (lib().float().reshape(q.shape) - ref.flash_decode_ref(*case)
-               ).abs().max().item()
-    lo, by = bound(*dense_work(case, 0))
-    phase("time", f"flash_decode {label}: {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms (bf16, max_abs_err {lib_err:.2e} vs plain), "
-          f"bound {lo:.5f} ms ({by}) on {smi}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": lo, "bound_by": by,
-            "library_ms": lib_ms}
+def decode_timing(fd, ref, smi: str) -> dict:
+    """Both decode kernels at the serve, mid and long contexts: the three
+    times of ``three_times``, the bound, the plain version's event mean
+    and, for flash_decode, the library call's
+    (SDPA; its error against the plain version is printed, not checked).
+    Returns {kernel: {shape: numbers}}, one line printed for each."""
+    t = {"flash_decode_paged": {}, "flash_decode": {}}
+    paged = {"serve": ([128, 97, 40, 7], 8, 200), "mid": (MID_LENGTHS, 128, 100),
+             "long": (LONG_LENGTHS, 512, 100)}
+    for shape, (lengths, MB, iters) in paged.items():
+        q, kp, vp, bt, lens = decode_case(4, 8, 4, 128, 16, MB, lengths, seed=1)
+        r = three_times(lambda: fd.flash_decode_paged(q, kp, vp, bt, lens),
+                        fd.flash_decode_paged, iters)
+        r["bound_ms"], r["bound_by"] = bound(*decode_work(q, kp, bt, lens, 0))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_paged_ref(
+            q, kp, vp, bt, lens), max(iters // 10, 5))
+        r["library_ms"], r["lengths"] = None, lengths
+        t["flash_decode_paged"][shape] = r
+        phase("time", f"flash_decode_paged {shape} (lengths {lengths}): "
+              + describe(r) + f" on {smi}")
+        del q, kp, vp, bt, lens
+    dense = {"serve": (128, SERVE_POS, 200), "mid": (2048, MID_POS, 100),
+             "long": (8192, LONG_POS, 100)}
+    for shape, (S, pos, iters) in dense.items():
+        case = dense_case(4, S, 8, 4, 128, pos, seed=11)
+        r = three_times(lambda: fd.flash_decode(*case), fd.flash_decode, iters)
+        r["bound_ms"], r["bound_by"] = bound(*dense_work(case, 0))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*case),
+                                max(iters // 10, 5))
+        lib = sdpa(case)
+        r["library_ms"] = time_ms(lib, iters)
+        want = ref.flash_decode_ref(*case)
+        r["library_err"] = (lib().float().reshape(want.shape) - want
+                            ).abs().max().item()
+        r["pos"] = pos
+        t["flash_decode"][shape] = r
+        phase("time", f"flash_decode {shape} (S={S}, pos {pos}): " + describe(r)
+              + f", sdpa {r['library_ms']:.4f} ms (bf16, max_abs_err "
+              f"{r['library_err']:.2e}) on {smi}")
+        del case, lib, want
+    torch.cuda.empty_cache()
+    return t
+
+
+def describe(r: dict) -> str:
+    return (f"{r['ms']:.4f} ms (events), {r['device_ms']:.4f} ms device a "
+            f"call ({r['grids_per_call']:g} grids), {r['host_us']:.1f} us "
+            f"host a call, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it)")
+
+
+def decode_json(by_shape: dict) -> dict:
+    """A decode kernel's numbers for the kernels JSON: the serve shape's
+    at the top level, the mid and long contexts' under their own keys."""
+    return {**by_shape["serve"], "mid_context": by_shape["mid"],
+            "long_context": by_shape["long"]}
+
+
+def decode_aims(t: dict, parent: dict = None) -> list:
+    """(aim, met, numbers) for the decode timings ``t``: at the long
+    context, flash_decode no slower than SDPA and at least 40% of its
+    byte bound, flash_decode_paged at most 2x flash_decode and 0.1 ms;
+    with ``parent`` (the parent tree's timings), each kernel's device
+    time a call at the serve shape no higher than the parent's."""
+    d, p = t["flash_decode"]["long"], t["flash_decode_paged"]["long"]
+    cap = d["bound_ms"] / AIM_DENSE_BOUND_SHARE
+    aims = [
+        ("flash_decode at the long context: no slower than sdpa, >= 40% of "
+         "the byte bound", d["ms"] <= d["library_ms"] and d["ms"] <= cap,
+         f"{d['ms']:.4f} ms, sdpa {d['library_ms']:.4f} ms, 40% of the bound "
+         f"is {cap:.4f} ms"),
+        ("flash_decode_paged at the long context: <= 2x flash_decode, <= "
+         f"{AIM_PAGED_MS} ms", p["ms"] <= min(AIM_PAGED_OVER_DENSE * d["ms"],
+                                              AIM_PAGED_MS),
+         f"{p['ms']:.4f} ms, flash_decode {d['ms']:.4f} ms")]
+    for name in (("flash_decode", "flash_decode_paged") if parent else ()):
+        mine, theirs = t[name]["serve"]["device_ms"], parent[name]["serve"]["device_ms"]
+        aims.append((f"{name} at the serve shape: device time a call no higher "
+                     "than the parent's", mine <= theirs,
+                     f"{mine:.4f} ms against {theirs:.4f} ms"))
+    return aims
 
 
 # -- kernel 5: centroid_scores --------------------------------------------------
@@ -481,29 +635,17 @@ def retrieval_ab(serve, setup, reps=20):
     return ms["fused"], ms["unfused"], sum(map(len, a.hit_clusters)), alone
 
 
-def check_dense_launches(fd, setup, summary, counts):
-    """The dense serve's ``flash_decode`` grid launches, exactly: one call
-    per layer in every decode step, each call the splits and, when S is
-    split, their combine.  A wave holds 1..--batch rows over a
-    ``[n, --max-len]`` bucket, so the grids per call are taken from the
-    wrapper's own split rule at each of those sizes, and the check
-    needs them to agree."""
-    arch, args = setup.arch, setup.args
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grids = {2 if fd._splits(n * arch.num_kv_heads, args.max_len, sms)[1] > 1
-             else 1 for n in range(1, args.batch + 1)}
-    steps = summary["decode_steps"]
-    if summary["decode"] != "dense" or steps < 1 or len(grids) != 1:
-        fail(f"dense serve: {summary['decode']} decode, {steps} steps, "
-             f"grids per flash_decode call by wave size {sorted(grids)}")
-    per_call = grids.pop()
-    want = steps * arch.num_layers * per_call
-    if counts["flash_decode"] != want:
-        fail(f"dense serve: flash_decode made {counts['flash_decode']} grid "
-             f"launches in {steps} steps, want {want} ({arch.num_layers} "
-             f"layers x {per_call} grids a step)")
-    phase("check", f"dense serve: flash_decode {want} grid launches = {steps} "
-          f"steps x {arch.num_layers} layers x {per_call} grids a call")
+def check_decode_launches(path, name, setup, summary, counts):
+    """The ``path`` serve's decode kernel ``name``: exactly one grid
+    launch per layer in every decode step (its splits combine inside
+    the launch)."""
+    layers, steps = setup.arch.num_layers, summary["decode_steps"]
+    want = steps * layers
+    if steps < 1 or counts[name] != want:
+        fail(f"{path} serve: {name} made {counts[name]} grid launches in "
+             f"{steps} steps, want {want} ({layers} layers x 1 grid a step)")
+    phase("check", f"{path} serve: {name} {want} grid launches = {steps} "
+          f"steps x {layers} layers x 1 grid a call")
 
 
 def check_model(ttf, get_arch):
@@ -538,11 +680,77 @@ def check_model(ttf, get_arch):
           f"logits {tuple(got.shape)} max_abs_err={err:.3e} (atol=rtol=2e-3)")
 
 
-def main() -> None:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def need_card() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; chip_smoke.py needs "
               "an NVIDIA card", flush=True)
         sys.exit(1)
+
+
+def decode_timing_main(root: Path) -> None:
+    """Phase 7's decode timing alone, on the port under ``root``/src."""
+    need_card()
+    if not (root / "src" / "repro_torch").is_dir():
+        fail(f"{root} holds no src/repro_torch")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    smi = card_line()
+    t = decode_timing(fd, ref, smi)
+    print(json.dumps({"root": str(root), "card": smi, "timing": t}))
+
+
+def decode_ab_main(parent: Path) -> None:
+    """The decode timing of ``parent``, this checkout, this checkout and
+    ``parent``, one process each, side by side, with the aims: those at
+    the long context judged on this checkout's mean, the serve-shape
+    aim against the parent's mean device time."""
+    need_card()
+    runs = []
+    for i, root in enumerate((parent, ROOT, ROOT, parent), 1):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--decode-timing", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            fail(f"decode timing of {root}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        phase("ab", f"run {i}: {root} on {runs[-1]['card']}")
+    keys = ("ms", "device_ms", "grids_per_call", "host_us", "library_ms")
+    mean = lambda rs, name, shape, key: float(np.mean(
+        [r["timing"][name][shape][key] for r in rs]))
+    sides = {"parent": [runs[0], runs[3]], "change": [runs[1], runs[2]]}
+    avg = {side: {name: {shape: {k: mean(rs, name, shape, k) for k in keys
+                                 if rs[0]["timing"][name][shape][k] is not None}
+                         for shape in ("serve", "mid", "long")}
+                  for name in ("flash_decode", "flash_decode_paged")}
+           for side, rs in sides.items()}
+    for name in ("flash_decode", "flash_decode_paged"):
+        for shape in ("serve", "mid", "long"):
+            for key in ("ms", "device_ms", "grids_per_call", "host_us"):
+                vals = " | ".join(f"{r['timing'][name][shape][key]:.4f}" for r in runs)
+                phase("ab", f"{name} {shape} {key}: runs 1-4 (parent, change, "
+                      f"change, parent) {vals}")
+    for side in ("change", "parent"):
+        t = avg[side]
+        for name in t:
+            for shape in t[name]:
+                t[name][shape]["bound_ms"] = runs[1]["timing"][name][shape]["bound_ms"]
+    for aim, met, numbers in decode_aims(avg["change"], avg["parent"]):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; means "
+              f"of runs 2-3 against runs 1 and 4; {runs[1]['card']})")
+    print(json.dumps({"decode_ab": runs}))
+
+
+def main() -> None:
+    need_card()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, ref
@@ -559,9 +767,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     # 1) card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     phase("card", f"{smi} | torch: {kind}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
@@ -585,7 +791,24 @@ def main() -> None:
     check_decode(fd, ref, decode_case(2, 2, 8, 64, 5, 4, [20, 13], seed=3,
                                       dtype=torch.float32), 0, "fp32 G=8 Dh=64")
     long_dec = decode_case(4, 8, 4, 128, 16, 512, LONG_LENGTHS, seed=7)
-    err_dec = max(err_dec, check_decode(fd, ref, long_dec, 0, "long context"))
+    err_dec = max(
+        err_dec, check_decode(fd, ref, long_dec, 0, "long context"),
+        check_decode(fd, ref, decode_case(4, 8, 4, 128, 16, 128, MID_LENGTHS,
+                                          seed=22), 0, "mid context"),
+        check_decode(fd, ref, decode_case(4, 8, 4, 128, 16, 512, [300, 64, 1000, 2],
+                                          seed=23), 0,
+                     "8192-position table, later splits empty"),
+        check_decode(fd, ref, decode_case(4, 8, 4, 128, 16, 512, [1] * 4, seed=24),
+                     0, "lengths of 1 under an 8192-position table"),
+        check_decode(fd, ref, decode_case(4, 8, 4, 128, 16, 128, MID_LENGTHS,
+                                          seed=25), 300,
+                     "window across split boundaries"),
+        check_decode(fd, ref, decode_case(3, 4, 4, 128, 48, 40, [1920, 700, 47],
+                                          seed=26), 0, "page size 48"),
+        check_decode(fd, ref, decode_case(2, 2, 8, 64, 48, 40, [1900, 130], seed=27,
+                                          dtype=torch.float32), 250,
+                     "fp32, page size 48, window"))
+    del long_dec
 
     # kernel 4 against its plain version
     serve_dense = dense_case(4, 128, 8, 4, 128, SERVE_POS, seed=11)
@@ -608,7 +831,14 @@ def main() -> None:
                                         dtype=torch.float32), 12,
                     "fp32 G=1, window, S=90"),
         check_dense(fd, ref, dense_case(4, 128, 8, 4, 128, [0] * 4, seed=19),
-                    0, "pos 0"))
+                    0, "pos 0"),
+        check_dense(fd, ref, dense_case(4, 2048, 8, 4, 128, MID_POS, seed=28),
+                    0, "mid context"),
+        check_dense(fd, ref, dense_case(4, 8192, 8, 4, 128, [0, 1, 300, 64],
+                                        seed=29), 0, "S=8192, later splits empty"),
+        check_dense(fd, ref, dense_case(4, 2048, 8, 4, 128, MID_POS, seed=30),
+                    300, "mid context, window across split boundaries"))
+    del serve_dense, ragged_dense, long_dense
 
     # 4) kernel 2 against its plain version
     serve_ret = retrieval_case(4, 768, 1024, POOL_PAGES, 128, seed=4)
@@ -631,24 +861,7 @@ def main() -> None:
 
     check_model(ttf, get_arch)
 
-    # 5) timing at the serve shapes
-    q, kp, vp, bt, lens = serve_dec
-    dec_ms = time_ms(lambda: fd.flash_decode_paged(q, kp, vp, bt, lens), 200)
-    dec_plain = time_ms(lambda: ref.flash_decode_paged_ref(q, kp, vp, bt, lens), 50)
-    dec_bound, dec_by = bound(*decode_work(q, kp, bt, lens, 0))
-    phase("time", f"flash_decode_paged: {dec_ms:.4f} ms, plain {dec_plain:.4f} ms, "
-          f"bound {dec_bound:.5f} ms ({dec_by}) on {smi}")
-    q, kp, vp, bt, lens = long_dec
-    long_ms = time_ms(lambda: fd.flash_decode_paged(q, kp, vp, bt, lens), 100)
-    long_plain = time_ms(lambda: ref.flash_decode_paged_ref(q, kp, vp, bt, lens), 10)
-    long_bound, long_by = bound(*decode_work(q, kp, bt, lens, 0))
-    phase("time", f"flash_decode_paged at lengths {LONG_LENGTHS}: {long_ms:.4f} ms, "
-          f"plain {long_plain:.4f} ms, bound {long_bound:.5f} ms ({long_by}) "
-          f"on {smi}")
-    del long_dec, q, kp, vp, bt, lens
-    dense_t = time_dense(fd, ref, serve_dense, f"at pos {SERVE_POS}", smi, 200)
-    dense_long = time_dense(fd, ref, long_dense, f"at pos {LONG_POS}", smi, 100)
-    del serve_dense, ragged_dense, long_dense
+    # 5) timing
     ret_ms = time_ms(lambda: pt.probe_topk_fused(*serve_ret, nprobe=64, k=3), 50)
     ret_plain = time_ms(lambda: ref.probe_and_topk_ref(*serve_ret, 64, 3), 10)
     nbytes, flops, pages_any = retrieval_work(ref, serve_ret, 64, 3)
@@ -698,8 +911,9 @@ def main() -> None:
                  f"gap {summary['retrieval_gap']} (bf16 pages allow < 1e-2)")
         if summary["rounds_with_hits"] < 1:
             fail(f"{path} serve: no round had device hits")
-        if path == "dense":
-            check_dense_launches(fd, setup, summary, launches[path])
+        check_decode_launches(path, "flash_decode" if path == "dense"
+                              else "flash_decode_paged", setup, summary,
+                              launches[path])
         phase("kernels", json.dumps({"path": path, **launches[path]}))
     want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
             "unfused": ("flash_decode_paged", "ivf_topk"),
@@ -725,6 +939,13 @@ def main() -> None:
           f"({alone['pages_read']} pages read): probe_topk_fused "
           f"{alone['probe_topk_fused']:.4f} ms, ivf_topk "
           f"{alone['ivf_topk']:.4f} ms; on {smi}")
+
+    # 7) the decode kernels' three times, after the serves
+    decode_t = decode_timing(fd, ref, smi)
+    for aim, met, numbers in decode_aims(decode_t):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
+    phase("aim", "each decode kernel at the serve shape: device time a call no "
+          "higher than the parent's: judged by --decode-ab PARENT")
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -734,12 +955,7 @@ def main() -> None:
          "launches": launches["fused"]["flash_decode_paged"],
          "launches_by_path": {p: c["flash_decode_paged"]
                               for p, c in launches.items()},
-         "max_abs_err": err_dec,
-         "ms": dec_ms, "plain_ms": dec_plain, "bound_ms": dec_bound,
-         "bound_by": dec_by, "library_ms": None,
-         "long_context": {"lengths": LONG_LENGTHS, "ms": long_ms,
-                          "plain_ms": long_plain, "bound_ms": long_bound,
-                          "bound_by": long_by}},
+         "max_abs_err": err_dec, **decode_json(decode_t["flash_decode_paged"])},
         {"name": "probe_topk_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/probe_topk.cu",
          "replaces": "src/repro/kernels/probe_topk.py:172",
@@ -762,8 +978,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_decode.py:88",
          "launches": launches["dense"]["flash_decode"],
          "launches_by_path": {p: c["flash_decode"] for p, c in launches.items()},
-         "max_abs_err": err_dense, **dense_t, "pos": SERVE_POS,
-         "long_context": {"pos": LONG_POS, **dense_long}},
+         "max_abs_err": err_dense, **decode_json(decode_t["flash_decode"])},
         {"name": "centroid_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/centroid_scores.cu",
          "replaces": "src/repro/kernels/centroid_probe.py:42",
@@ -779,4 +994,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--decode-timing":
+        decode_timing_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 3 and sys.argv[1] == "--decode-ab":
+        decode_ab_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        fail(f"usage: {sys.argv[0]} [--decode-timing DIR | --decode-ab PARENT]")

@@ -1,18 +1,35 @@
-// Online-softmax single-token GQA attention over one chunk of cache
-// positions, shared by the paged (flash_decode_paged.cu) and the dense
-// (flash_decode.cu) decode kernels.  The two differ only in where a
-// position's K/V row lives: through a block table into a page slab, or at
-// a fixed stride in a [B, S, KVH, Dh] cache.  The caller writes each
-// position's row offset into Smem::row and calls attend_chunk.
+// Single-token GQA decode attention for one (b, kv-head) and one split of
+// its cache positions, shared by the paged (flash_decode_paged.cu) and
+// the dense (flash_decode.cu) decode kernels.  The two differ only in
+// where a position's K/V row lives: through a block table into a page
+// slab, or at a fixed stride in a [B, S, KVH, Dh] cache.  Each kernel
+// computes its live positions [lo, hi) and hands decode_block a functor
+// from position to the element offset of that position's row.
 //
-// One block of kThreads serves one (b, kv-head) and its G query rows:
-//   * the G query rows sit in shared memory as fp32 and share every K/V
-//     row the block loads;
-//   * scores (fp32, scale applied after the dot), the online-softmax
-//     state (m, l) and the output accumulator never leave the SM;
-//   * K rows are read by one warp each, 32 lanes across Dh; V rows by the
-//     whole block, consecutive threads on consecutive head dims.
-// Takes G = 1..kMaxG and Dh = 32 * VPL with VPL in {1, 2, 4}.
+// One grid a call: blockIdx.x is the split (whole kChunk-position chunks,
+// `split` positions each), blockIdx.y the kv-head, blockIdx.z the batch
+// row.  A block of kThreads serves the G query rows of its (b, kv-head):
+//   * a split with no live position returns at once (split 0 writes the
+//     zero output of a row with none);
+//   * K/V rows are copied chunk by chunk into shared memory with 16-byte
+//     cp.async, consecutive threads on consecutive addresses, double
+//     buffered: the next chunk's copy is in flight while this one computes;
+//   * each thread keeps 16 bytes' worth of head dims of every query row
+//     in registers, so one K or V row read from shared memory serves all
+//     G rows; scores are fp32, the scale applied after the dot;
+//   * every warp folds a chunk's scores into its own copy of the softmax
+//     state (m, l) (the same arithmetic in every warp, so the copies are
+//     equal), which saves a barrier a chunk; the fp32 accumulator stays
+//     in registers, one partial per row slot, summed once at the end;
+//   * splits of one (b, kv-head) combine in the same launch: each live
+//     split writes its unnormalised (m, l, acc) to scratch, fences, and
+//     takes a ticket from a per-(b, kv-head) counter; the block that
+//     takes the last ticket rescales the splits to one maximum (in split
+//     order, so the result does not depend on which block came last),
+//     writes the output and resets the counter to 0 for the next launch.
+//     A row with one live split writes its output directly.
+// Takes G = 1..kMaxG (compiled for 1, 2, 4 and 8 rows) and Dh in
+// {32, 64, 128}; K/V in bf16 or fp32; rows 16-byte aligned.
 
 #pragma once
 
@@ -26,9 +43,7 @@ namespace decode_attn {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
-constexpr int kMaxDh = 128;
-constexpr int kChunk = 64;                           // positions per softmax step
-constexpr int kMaxAcc = kMaxG * kMaxDh / kThreads;   // accumulators per thread
+constexpr int kChunk = 64;   // positions per softmax step; splits are whole chunks
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -45,109 +60,303 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The block's shared state.
-struct Smem {
-  float q[kMaxG][kMaxDh];
-  float p[kMaxG][kChunk];
-  long long row[kChunk];   // element offset of each chunk position's (token, h) row
-  float m[kMaxG];
-  float l[kMaxG];
-  float corr[kMaxG];
-};
-
-// Load the group's query rows q [G, Dh] and clear the softmax state.
-template <typename QT>
-__device__ __forceinline__ void init(Smem& s, float (&acc)[kMaxAcc], const QT* q, int G,
-                                     int Dh) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < G * Dh; e += kThreads) s.q[e / Dh][e % Dh] = to_f(q[e]);
-  if (tid < kMaxG) {
-    s.m[tid] = -INFINITY;
-    s.l[tid] = 0.f;
-    s.corr[tid] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
-  __syncthreads();
+// 16 bytes of a K/V row in shared memory as floats.
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x;
+  f[1] = u.y;
+  f[2] = u.z;
+  f[3] = u.w;
 }
 
-// Fold the n (1..kChunk) positions whose rows the caller wrote into s.row
-// into the running softmax.  Every position passed is live.  Returns with
-// the block synchronised, so the caller may overwrite s.row.
-template <typename KT, int VPL>
-__device__ __forceinline__ void attend_chunk(Smem& s, float (&acc)[kMaxAcc],
-                                             const KT* __restrict__ k,
-                                             const KT* __restrict__ v, int n, int G,
-                                             float scale) {
-  constexpr int Dh = VPL * 32;
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// How a block of kThreads covers one chunk of K/V rows with 16-byte pieces.
+template <typename KT, int Dh>
+struct Tile {
+  static constexpr int kVec = 16 / sizeof(KT);       // elements per piece
+  static constexpr int kLanes = Dh / kVec;            // lanes per row (4..32)
+  static constexpr int kSlots = kThreads / kLanes;    // rows read at once by the block
+  static constexpr int kStage = kChunk * Dh;          // elements of one K or V chunk
+  static constexpr int kCopies = kChunk * kLanes / kThreads;   // pieces a thread copies
+  static_assert(Dh % kVec == 0 && 32 % kLanes == 0 && kChunk % kSlots == 0, "tile");
+};
+
+// Dynamic shared memory of one block: two stages of K and V chunks, the
+// chunk's scores [GM][kChunk], then m and l [GM] and a flag.  After the
+// loop the stages hold the accumulator's per-warp partials [kWarps][GM][Dh].
+template <typename KT, int Dh, int GM>
+constexpr int smem_bytes() {
+  return 4 * Tile<KT, Dh>::kStage * (int)sizeof(KT) + (GM * kChunk + 2 * GM + 4) * 4;
+}
+
+struct Args {
+  const void* q;      // [rows, G, Dh]
+  const void* k;
+  const void* v;
+  float* out;         // [rows, G, Dh]
+  float* part_m;      // [rows, nsplit, G]
+  float* part_l;      // [rows, nsplit, G]
+  float* part_acc;    // [rows, nsplit, G, Dh]
+  int* count;         // [rows], 0 between launches
+  int G;
+  int split;          // positions per split, a multiple of kChunk
+  int nsplit;
+  float scale;
+};
+
+// Copy positions [c0, c0 + n) of the chunk into stage buffers ks, vs.
+template <typename KT, int Dh, typename RowFn>
+__device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict__ k,
+                                            const KT* __restrict__ v, const RowFn& row,
+                                            int c0, int n) {
+  using T = Tile<KT, Dh>;
+#pragma unroll
+  for (int i = 0; i < T::kCopies; ++i) {
+    const int piece = threadIdx.x + i * kThreads;
+    const int j = piece / T::kLanes;
+    const int col = (piece % T::kLanes) * T::kVec;
+    if (j < n) {
+      const long long off = row(c0 + j) + col;
+      cp_async16(ks + j * Dh + col, k + off);
+      cp_async16(vs + j * Dh + col, v + off);
+    }
+  }
+  cp_async_commit();
+}
+
+// The block's work for row rid = b * KVH + h, whose live positions are
+// [lo, hi); row(t) is the element offset of position t's K/V row.
+template <typename QT, typename KT, int Dh, int GM, typename RowFn>
+__device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int hi,
+                                             const RowFn& row) {
+  using T = Tile<KT, Dh>;
+  constexpr int V = T::kVec;
+  const int sp = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  __syncthreads();
+  const int G = a.G;
+  const long long obase = (long long)rid * G * Dh;
+  if (hi <= lo) {                                  // no live position: 0 out
+    if (sp == 0)
+      for (int e = tid; e < G * Dh; e += kThreads) a.out[obase + e] = 0.f;
+    return;
+  }
+  const int first = lo / a.split;
+  const int last = (hi - 1) / a.split;
+  if (sp < first || sp > last) return;
+  const int nlive = last - first + 1;
+  const int s0 = max(lo, sp * a.split);
+  const int s1 = min(hi, (sp + 1) * a.split);
 
-  // 1) scores: one warp per position, lanes across Dh
-  for (int j = warp; j < n; j += kWarps) {
-    const KT* kr = k + s.row[j] + lane * VPL;
-    float kv[VPL];
+  extern __shared__ __align__(16) unsigned char smem[];
+  KT* stages = reinterpret_cast<KT*>(smem);                       // [2][K, V][kStage]
+  float* sc = reinterpret_cast<float*>(smem + 4 * T::kStage * sizeof(KT));   // [GM][kChunk]
+  float* sm_m = sc + GM * kChunk;
+  float* sm_l = sm_m + GM;
+  int* flag = reinterpret_cast<int*>(sm_l + GM);
+
+  const KT* k = static_cast<const KT*>(a.k);
+  const KT* v = static_cast<const KT*>(a.v);
+  const int nchunks = (s1 - s0 + kChunk - 1) / kChunk;
+  stage_chunk<KT, Dh>(stages, stages + T::kStage, k, v, row, s0, min(kChunk, s1 - s0));
+
+  // this thread's head dims [sub * V, sub * V + V) of rows slot, slot + kSlots, ...
+  const int sub = lane % T::kLanes;
+  const int slot = tid / T::kLanes;
+  const QT* q = static_cast<const QT*>(a.q) + obase;
+  float qr[GM][V];
 #pragma unroll
-    for (int t = 0; t < VPL; ++t) kv[t] = to_f(kr[t]);
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
+  for (int g = 0; g < GM; ++g) {
 #pragma unroll
-      for (int t = 0; t < VPL; ++t) part += s.q[g][lane * VPL + t] * kv[t];
-      part = warp_sum(part);
-      if (lane == 0) s.p[g][j] = part * scale;
+    for (int e = 0; e < V; ++e) qr[g][e] = g < G ? to_f(q[g * Dh + sub * V + e]) : 0.f;
+  }
+
+  float m_run[GM], l_run[GM], acc[GM][V];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m_run[g] = -INFINITY;
+    l_run[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
+  }
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int c0 = s0 + c * kChunk;
+    const int n = min(kChunk, s1 - c0);
+    cp_async_wait_all();
+    __syncthreads();   // chunk c is in; everyone is done with chunk c - 1
+    if (c + 1 < nchunks) {
+      KT* nx = stages + ((c + 1) & 1) * 2 * T::kStage;
+      stage_chunk<KT, Dh>(nx, nx + T::kStage, k, v, row, c0 + kChunk,
+                          min(kChunk, s1 - c0 - kChunk));
+    }
+    const KT* ks = stages + (c & 1) * 2 * T::kStage;
+    const KT* vs = ks + T::kStage;
+
+    // 1) scores, kLanes lanes a row; rows >= n hold stale data and are masked
+#pragma unroll
+    for (int it = 0; it < kChunk / T::kSlots; ++it) {
+      const int j = slot + it * T::kSlots;
+      float kf[V];
+      load16(ks + j * Dh + sub * V, kf);
+      float part[GM];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float t = 0.f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) t += qr[g][e] * kf[e];
+        part[g] = t;
+      }
+#pragma unroll
+      for (int o = T::kLanes / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+      }
+      if (sub == 0) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) sc[g * kChunk + j] = j < n ? part[g] * a.scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // 2) online softmax over the chunk, in every warp alike
+    float corr[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float x0 = sc[g * kChunk + lane];
+      const float x1 = sc[g * kChunk + lane + 32];
+      const float m_new = fmaxf(m_run[g], warp_max(fmaxf(x0, x1)));
+      const float sum = warp_sum(expf(x0 - m_new) + expf(x1 - m_new));
+      corr[g] = m_run[g] == -INFINITY ? 0.f : expf(m_run[g] - m_new);
+      l_run[g] = l_run[g] * corr[g] + sum;
+      m_run[g] = m_new;
+    }
+
+    // 3) acc = acc * corr + P V over this thread's rows of the chunk
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[g][e] *= corr[g];
+    }
+#pragma unroll
+    for (int it = 0; it < kChunk / T::kSlots; ++it) {
+      const int j = slot + it * T::kSlots;
+      if (j < n) {
+        float vf[V];
+        load16(vs + j * Dh + sub * V, vf);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          const float p = expf(sc[g * kChunk + j] - m_run[g]);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[g][e] += p * vf[e];
+        }
+      }
+    }
+  }
+
+  // sum the row slots: the warp's by shuffles, then the warps' in shared memory
+#pragma unroll
+  for (int o = T::kLanes; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  }
+  __syncthreads();   // the stages are free
+  float* red = reinterpret_cast<float*>(smem);   // [kWarps][GM][Dh]
+  if (lane < T::kLanes) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) red[(warp * GM + g) * Dh + sub * V + e] = acc[g][e];
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      sm_m[g] = m_run[g];
+      sm_l[g] = l_run[g];
     }
   }
   __syncthreads();
 
-  // 2) online softmax, one warp per query row
-  for (int g = warp; g < G; g += kWarps) {
+  const long long pbase = (long long)rid * a.nsplit;   // this row's first split slot
+  for (int e = tid; e < G * Dh; e += kThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[w * GM * Dh + e];
+    if (nlive == 1)
+      a.out[obase + e] = t / fmaxf(sm_l[e / Dh], 1e-20f);
+    else
+      a.part_acc[(pbase + sp) * G * Dh + e] = t;
+  }
+  if (nlive == 1) return;
+  if (tid < G) {
+    a.part_m[(pbase + sp) * G + tid] = sm_m[tid];
+    a.part_l[(pbase + sp) * G + tid] = sm_l[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(a.count + rid, 1) == nlive - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+
+  // the last live split: rescale every live split to one maximum, in order
+  for (int e = tid; e < G * Dh; e += kThreads) {
+    const int g = e / Dh;
     float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s.p[g][j]);
-    mx = warp_max(mx);
-    const float m_prev = s.m[g];
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(s.p[g][j] - m_new);
-      s.p[g][j] = p;
-      sum += p;
+    for (int s = first; s <= last; ++s) mx = fmaxf(mx, __ldcg(a.part_m + (pbase + s) * G + g));
+    float l = 0.f, o = 0.f;
+    for (int s = first; s <= last; ++s) {
+      const float w = expf(__ldcg(a.part_m + (pbase + s) * G + g) - mx);
+      l += __ldcg(a.part_l + (pbase + s) * G + g) * w;
+      o += __ldcg(a.part_acc + (pbase + s) * G * Dh + e) * w;
     }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float corr = (m_prev == -INFINITY) ? 0.f : expf(m_prev - m_new);
-      s.l[g] = s.l[g] * corr + sum;
-      s.m[g] = m_new;
-      s.corr[g] = corr;
-    }
+    a.out[obase + e] = o / fmaxf(l, 1e-20f);
   }
-  __syncthreads();
-
-  // 3) acc = acc * corr + P @ V, consecutive threads on consecutive dims
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < G * Dh) {
-      const int g = e / Dh;
-      const int d = e % Dh;
-      float a = acc[i] * s.corr[g];
-      for (int j = 0; j < n; ++j) a += s.p[g][j] * to_f(v[s.row[j] + d]);
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
+  if (tid == 0) a.count[rid] = 0;
 }
 
-// out [G, Dh] = acc / l (0 where no position was live).
-template <int Dh>
-__device__ __forceinline__ void store(const Smem& s, const float (&acc)[kMaxAcc], float* out,
-                                      int G) {
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
-    const int e = threadIdx.x + i * kThreads;
-    if (e < G * Dh) out[e] = acc[i] / fmaxf(s.l[e / Dh], 1e-20f);
+// Launch kernel<<<grid, kThreads, smem>>> on the stream, after raising
+// the kernel's dynamic shared memory limit (once per device).
+template <auto kernel, typename... Ts>
+int launch_kernel(int smem, dim3 grid, cudaStream_t stream, Ts... args) {
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
   }
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace decode_attn

@@ -5,18 +5,18 @@ wrappers and their plain versions.
 ``flash_decode_paged`` (block-table KV) dispatch by the tensor's device
 alone: a CPU tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref``;
 a CUDA tensor launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_paged.cu``
-on the current stream (built on first use) or raises.  Each wrapper's
-``launches`` counts grid launches on the card: one per
-``flash_decode_paged`` call, and one or two per ``flash_decode`` call
-(the split kernel, then the combine kernel when S is split over more
-than one block per (b, kv-head), as at every serve shape).
+on the current stream (built on first use) or raises.  Both kernels split
+every sequence over positions (``_splits``: whole 64-position chunks,
+enough blocks for several per SM) and combine the splits inside the same
+launch, so each wrapper's ``launches`` counts one grid launch a call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,12 +28,16 @@ _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
 _CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "flash_decode_paged": [_P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 7
+    "flash_decode_paged": [_P, _I, _P, _P, _I, _P, _P] + [_P] * 5 + [_I] * 9
                           + [ctypes.c_float, _P],
-    "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 8
+    "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 8
                     + [ctypes.c_float, _P],
 }
 _fns = {}
+_sms: Dict[int, int] = {}                          # device index -> SM count
+# (device index, stream) -> (split counters [rows] int32, zero between
+# launches; fp32 scratch for the splits' partial (m, l, acc))
+_work: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _kernel(name: str):
@@ -65,16 +69,70 @@ def _check_launch(q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", kv), ("v", v), *ints.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if kv.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start on a 16-byte boundary")
 
 
+@functools.lru_cache(maxsize=1024)
 def _splits(rows: int, S: int, sms: int) -> Tuple[int, int]:
-    """(positions per block, blocks per (b, kv-head)) for the dense kernel:
-    enough blocks for about four per SM, each a whole number of softmax
-    chunks, together covering the S cache positions."""
+    """The split plan of both kernels: (positions per split, splits per
+    (b, kv-head)) over S positions (the dense cache's S, or the block
+    table's MB * ps): enough blocks for about four per SM, each a whole
+    number of softmax chunks, together covering the S positions."""
     n = max(1, min(-(-4 * sms // max(rows, 1)), -(-S // _CHUNK)))
     per = -(-S // n)
     split = -(-per // _CHUNK) * _CHUNK            # whole chunks
     return split, -(-S // split)
+
+
+def _sm_count(index: int) -> int:
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def _workspace(device: torch.device, stream: int, rows: int, floats: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(counters, scratch) for one launch on ``stream``: at least ``rows``
+    int32 split counters, zeroed when made and left zero by every launch,
+    and ``floats`` fp32 of scratch.  Kept per (device, stream), so
+    launches that share them run in stream order; grown as needed."""
+    key = (device.index, stream)
+    count, part = _work.get(key, (None, None))
+    if count is None or count.numel() < rows:
+        count = torch.zeros((max(rows, 256),), dtype=torch.int32, device=device)
+    if part is None or part.numel() < floats:
+        part = torch.empty((max(floats, 1 << 16),), dtype=torch.float32,
+                           device=device)
+    _work[key] = (count, part)
+    return count, part
+
+
+def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
+            S: int, head: tuple, tail: tuple, window: int) -> torch.Tensor:
+    """One grid launch of kernel ``name`` over S positions a row; ``head``
+    are the arguments between k/v and the output, ``tail`` those between
+    the counters and (window, split, nsplit)."""
+    B, KVH, G, Dh = q.shape
+    rows = B * KVH
+    dev = q.device
+    split, nsplit = _splits(rows, S, _sm_count(dev.index))
+    out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=dev)
+    # the current stream's handle, as torch.cuda.current_stream(dev)
+    # .cuda_stream gives it, without building a Stream object a call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    n = rows * nsplit * G if nsplit > 1 else 0
+    count, part = _workspace(dev, stream, rows, n * (Dh + 2))
+    pm = part.data_ptr()
+    err = _kernel(name)(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), kv.data_ptr(),
+        v.data_ptr(), int(kv.dtype == torch.bfloat16), *head, out.data_ptr(),
+        pm, pm + 4 * n, pm + 8 * n, count.data_ptr(), *tail, int(window),
+        split, nsplit, 1.0 / math.sqrt(Dh), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
 
 
 def _check_dense(q, k, v, pos) -> None:
@@ -101,8 +159,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     token's position (positions > pos are masked; ``window`` > 0 keeps
     only the last ``window``).  Returns [B, KVH, G, Dh] fp32, equal to
     ``flash_decode_ref`` within fp32 summation-order error.  On the card
-    it runs one grid launch, or two (the splits, then their combine)
-    when ``_splits`` cuts S; ``flash_decode.launches`` counts them.
+    it runs one grid launch, splits and their combine together;
+    ``flash_decode.launches`` counts it.
     """
     _check_dense(q, k, v, pos)
     if q.device.type == "cpu":
@@ -112,21 +170,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_launch(q, k, v, pos=pos)
     B, KVH, G, Dh = q.shape
     S = k.shape[1]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split, nsplit = _splits(B * KVH, S, sms)
-    out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=q.device)
-    n = B * KVH * nsplit * G if nsplit > 1 else 0
-    part = torch.empty((n * (Dh + 2),), dtype=torch.float32, device=q.device)
-    part_m = part.data_ptr()
-    err = _kernel("flash_decode")(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
-        v.data_ptr(), int(k.dtype == torch.bfloat16), pos.data_ptr(),
-        out.data_ptr(), part_m, part_m + 4 * n, part_m + 8 * n,
-        B, S, KVH, G, Dh, int(window), split, nsplit, 1.0 / math.sqrt(Dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
-    flash_decode.launches += 2 if nsplit > 1 else 1    # split (+ combine)
+    out = _launch("flash_decode", q, k, v, S, (pos.data_ptr(),),
+                  (B, S, KVH, G, Dh), window)
+    flash_decode.launches += 1
     return out
 
 
@@ -161,7 +207,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     q [B, KVH, G, Dh]; k_pages, v_pages [NP, ps, KVH, Dh]; block_table
     [B, MB] int32 (-1 = unused tail); lengths [B] int32 valid tokens
     (>= 1).  Returns [B, KVH, G, Dh] fp32, equal to
-    ``flash_decode_paged_ref`` within fp32 summation-order error.
+    ``flash_decode_paged_ref`` within fp32 summation-order error.  On the
+    card it runs one grid launch, split over the MB * ps table positions
+    as ``flash_decode`` splits S; ``flash_decode_paged.launches`` counts it.
     """
     _check_paged(q, k_pages, v_pages, block_table, lengths)
     if q.device.type == "cpu":
@@ -172,18 +220,11 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     _check_launch(q, k_pages, v_pages, block_table=block_table,
                   lengths=lengths)
     B, KVH, G, Dh = q.shape
-    NP, ps, _, _ = k_pages.shape
+    ps = k_pages.shape[1]
     MB = block_table.shape[1]
-    out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=q.device)
-    err = _kernel("flash_decode_paged")(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
-        v_pages.data_ptr(), int(k_pages.dtype == torch.bfloat16),
-        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, KVH, G, Dh, ps, MB, int(window), 1.0 / math.sqrt(Dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode_paged kernel launch failed: "
-                           f"cudaError {err}")
+    out = _launch("flash_decode_paged", q, k_pages, v_pages, MB * ps,
+                  (block_table.data_ptr(), lengths.data_ptr()),
+                  (B, KVH, G, Dh, ps, MB), window)
     flash_decode_paged.launches += 1
     return out
 

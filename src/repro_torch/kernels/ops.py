@@ -5,10 +5,10 @@ There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
 hand-written kernels or raise.  Launch counts live on the wrappers,
 and each adds to its count only where it launches on the card:
-``flash_decode.launches`` counts grid launches (two a call when S is
-split: the splits, then their combine; else one);
-``flash_decode_paged.launches`` and ``centroid_scores.launches`` count
-calls, each one grid launch; ``probe_topk_fused.launches`` and
+``flash_decode.launches``, ``flash_decode_paged.launches`` and
+``centroid_scores.launches`` count calls, each one grid launch (the
+decode kernels combine their splits inside it);
+``probe_topk_fused.launches`` and
 ``ivf_topk.launches`` count calls, each three grid launches (probe,
 page search, merge) and two (page search, merge).
 """

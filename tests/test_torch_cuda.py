@@ -39,13 +39,6 @@ def _card():
     return torch.device("cuda")
 
 
-def _dense_grids(B, KVH, S):
-    """Grid launches of one ``flash_decode`` call on this card: the
-    splits, and their combine when S is split."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 2 if tfd._splits(B * KVH, S, sms)[1] > 1 else 1
-
-
 def _paged_inputs(B, KVH, G, Dh, ps, MB, seed):
     """Ragged block tables over a slab bigger than needed: non-contiguous
     slots, partial last blocks and -1 tails."""
@@ -98,6 +91,45 @@ def test_flash_decode_paged_kernel_matches_plain(B, KVH, G, Dh, ps, MB, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("KVH,G,Dh,ps,MB,lengths,window,kv_dtype", [
+    (8, 4, 128, 16, 128, [2048, 1536, 1024, 512], 0, torch.bfloat16),  # mid
+    (2, 4, 128, 16, 512, [300, 64, 1000, 2], 0, torch.bfloat16),  # 8192 table
+    (2, 4, 128, 16, 512, [1, 1, 1, 1], 0, torch.bfloat16),
+    (2, 8, 64, 16, 128, [2048, 1000, 700, 65], 300, torch.bfloat16),
+    (2, 3, 32, 48, 20, [960, 500, 47], 0, torch.bfloat16),   # ps 48
+    (1, 2, 128, 48, 20, [960, 500, 47], 100, torch.float32),
+])
+def test_flash_decode_paged_kernel_edge_cases(KVH, G, Dh, ps, MB, lengths,
+                                              window, kv_dtype):
+    """Paged decode at a mid context, under an 8192-position table whose
+    later splits hold no live position (lengths of 1 too), with a window
+    across split boundaries, and at a page size that does not divide 64;
+    -1 tails past each length.  One grid launch a call."""
+    dev = _card()
+    B = len(lengths)
+    rng = np.random.default_rng(ps * MB + window)
+    NP = B * MB + 4
+    q = torch.from_numpy(rng.standard_normal((B, KVH, G, Dh)).astype(
+        np.float32)).to(dev, torch.float32 if kv_dtype == torch.float32
+                        else torch.bfloat16)
+    kp, vp = (torch.from_numpy(rng.standard_normal((NP, ps, KVH, Dh)).astype(
+        np.float32)).to(dev, kv_dtype) for _ in range(2))
+    bt = rng.permutation(NP)[:B * MB].reshape(B, MB).astype(np.int32)
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // ps):] = -1
+    bt = torch.from_numpy(bt).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_paged.launches
+    got = tfd.flash_decode_paged(q, kp, vp, bt, lens, window=window)
+    want = tref.flash_decode_paged_ref(q, kp, vp, bt, lens, window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_paged.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    again = tfd.flash_decode_paged(q, kp, vp, bt, lens, window=window)
+    assert torch.equal(again, got)        # the counters were left at zero
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,KVH,G,Dh,pos,window,q_dtype,kv_dtype", [
     (4, 128, 8, 4, 128, [127] * 4, 0, torch.bfloat16, torch.bfloat16),  # serve
     (4, 128, 8, 4, 128, [127, 96, 40, 7], 0, torch.bfloat16, torch.bfloat16),
@@ -110,13 +142,20 @@ def test_flash_decode_paged_kernel_matches_plain(B, KVH, G, Dh, ps, MB, window,
     (3, 100, 2, 1, 32, [99, 50, 0], 9, torch.float32, torch.float32),
     (2, 200, 1, 8, 128, [0, 199], 0, torch.bfloat16, torch.bfloat16),  # MQA
     (4, 128, 8, 4, 128, [0] * 4, 0, torch.bfloat16, torch.bfloat16),
+    (4, 2048, 8, 4, 128, [2047, 1535, 1023, 511], 0, torch.bfloat16,
+     torch.bfloat16),                                        # mid context
+    (4, 8192, 2, 4, 128, [0, 1, 300, 64], 0, torch.bfloat16,
+     torch.bfloat16),                              # later splits empty
+    (3, 2048, 2, 5, 64, [2047, 900, 40], 333, torch.float32,
+     torch.bfloat16),                              # window across splits
 ])
 def test_flash_decode_kernel_matches_plain(B, S, KVH, G, Dh, pos, window,
                                            q_dtype, kv_dtype):
-    """Dense decode: the serve and long-context shapes, ragged positions,
-    windows, G=1 (fp32 and bf16), MQA (fp32 and bf16), ``pos = 0``, and S
-    a multiple of no tile.  ``launches`` counts the grid launches: the
-    splits, and their combine when S is split."""
+    """Dense decode: the serve, mid and long-context shapes, ragged
+    positions, windows (one across split boundaries), G=1 (fp32 and
+    bf16), MQA (fp32 and bf16), ``pos = 0``, a long cache whose later
+    splits hold no live position, and S a multiple of no tile.  One grid
+    launch a call, the splits' combine included."""
     dev = _card()
     rng = np.random.default_rng(S + B)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -128,7 +167,7 @@ def test_flash_decode_kernel_matches_plain(B, S, KVH, G, Dh, pos, window,
     got = tfd.flash_decode(q, k, v, p, window=window)
     want = tref.flash_decode_ref(q, k, v, p, window)
     torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == before + _dense_grids(B, KVH, S)
+    assert tfd.flash_decode.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, KVH, G, Dh)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
 
@@ -333,8 +372,7 @@ def test_serve_step_on_card_matches_cpu(start):
     got, gc = ttf.serve_step(model_d, {"k": k0.to(dev), "v": v0.to(dev)},
                              {"token": tok.to(dev), "pos": pos.to(dev)})
     torch.cuda.synchronize()
-    assert tfd.flash_decode.launches == before + cfg.num_layers * \
-        _dense_grids(B, cfg.num_kv_heads, S)
+    assert tfd.flash_decode.launches == before + cfg.num_layers
     torch.testing.assert_close(gc["k"].cpu(), wc["k"], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(gc["v"].cpu(), wc["v"], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)

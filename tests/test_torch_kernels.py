@@ -7,6 +7,8 @@ sum in other orders).  ``test_torch_cuda.py`` holds the hand-written CUDA
 kernels against these plain versions on a card.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -234,6 +236,199 @@ def test_dense_kernel_splits_cover_the_cache(rows, S, sms):
     assert split % 64 == 0 and nsplit >= 1
     assert (nsplit - 1) * split < S <= nsplit * split
     assert nsplit == 1 or rows * (nsplit - 1) < 4 * sms
+
+
+def _live_range(S, window, *, pos=None, length=None):
+    """Positions [lo, hi) a row attends to, as the CUDA kernels compute
+    them (csrc/flash_decode.cu, csrc/flash_decode_paged.cu):
+    the dense row at ``pos`` (``kp <= pos``) over S cache positions, or
+    the paged row of ``length`` tokens (``kp < length``, clamped to the
+    S = MB * ps table positions); ``window`` > 0 keeps the last
+    ``window``."""
+    if length is None:
+        hi = min(pos + 1, S)
+        return (max(0, pos + 1 - window) if window > 0 else 0), hi
+    hi = min(max(length, 0), S)
+    return (max(0, hi - window) if window > 0 else 0), hi
+
+
+def _split_plan(lo, hi, split, nsplit):
+    """For each of the ``nsplit`` split blocks of a row with live
+    positions [lo, hi): the positions [s0, s1) it reads, or None where the
+    block returns at once, as csrc/decode_attn.cuh ``decode_block``
+    decides."""
+    if hi <= lo:
+        return [None] * nsplit
+    first, last = lo // split, (hi - 1) // split
+    return [(max(lo, sp * split), min(hi, (sp + 1) * split))
+            if first <= sp <= last else None for sp in range(nsplit)]
+
+
+# (layout, rows, S, sms, per-row pos (dense) or length (paged), window):
+# S is the dense cache's or the table's MB * ps positions
+_PLAN_CASES = [
+    ("dense", 32, 128, 132, [127, 96, 40, 0], 0),         # the serve bucket
+    ("dense", 8, 1000, 132, [999, 500, 64, 63], 700),     # window across splits
+    ("dense", 2, 4096, 8, [4095, 10], 100),
+    ("paged", 32, 8192, 132, [8192, 6144, 5000, 4096], 0),   # long table
+    ("paged", 8, 8192, 132, [1, 300, 64, 0], 0),          # later splits empty
+    ("paged", 4, 1000, 132, [1000, 999, 65, 1], 129),     # 8 * 125 positions
+    ("paged", 3, 240, 132, [240, 7, 64], 16),             # ps 48 * 5 pages
+]
+
+
+@pytest.mark.parametrize("layout,rows,S,sms,at,window", _PLAN_CASES)
+def test_split_plan_reads_each_live_position_once(layout, rows, S, sms, at,
+                                                  window):
+    """Both kernels' split plan: every position the plain version attends
+    to (``kp <= pos`` or ``kp < length``, inside the window) falls in
+    exactly one split block; no block reads another position; and the
+    blocks that return at once are exactly the splits with no live
+    position."""
+    split, nsplit = tfd._splits(rows, S, sms)
+    kp = np.arange(S)
+    for x in at:
+        if layout == "dense":
+            lo, hi = _live_range(S, window, pos=x)
+            live = kp <= x
+            if window > 0:
+                live &= kp > x - window
+        else:
+            lo, hi = _live_range(S, window, length=x)
+            live = kp < x
+            if window > 0:
+                live &= kp >= x - window
+        plan = _split_plan(lo, hi, split, nsplit)
+        assert len(plan) == nsplit
+        seen = np.zeros(S, int)
+        for sp, rng in enumerate(plan):
+            in_split = live[sp * split:(sp + 1) * split]
+            if rng is None:
+                assert not in_split.any()
+                continue
+            s0, s1 = rng
+            assert sp * split <= s0 < s1 <= (sp + 1) * split
+            seen[s0:s1] += 1
+        np.testing.assert_array_equal(seen, live.astype(int))
+
+
+def _split_combine(q, k, v, ranges, split, nsplit, follow_plan):
+    """The kernels' arithmetic in plain PyTorch, one row at a time: q
+    [B, KVH, G, Dh], k/v [B, T, KVH, Dh] (the block table gathered for
+    the paged layout), ``ranges`` each row's live [lo, hi).  Each split
+    folds 64-position chunks into an unnormalised (m, l, acc) with the
+    scale applied after the dot, then the splits combine to one maximum.
+    ``follow_plan``: only the positions ``_split_plan`` gives each block,
+    chunks from its first live position, skipped blocks left out (as the
+    kernels do); else every split walks all its positions with the dead
+    ones at -inf, so splits and chunks that are all -inf enter the
+    combine."""
+    B, T, KVH, Dh = k.shape
+    G = q.shape[2]
+    scale = 1.0 / math.sqrt(Dh)
+    out = torch.zeros((B, KVH, G, Dh))
+    for b, (lo, hi) in enumerate(ranges):
+        kp = torch.arange(T)
+        live = (kp >= lo) & (kp < hi)
+        plan = _split_plan(lo, hi, split, nsplit)
+        parts = []
+        for sp in range(nsplit):
+            if follow_plan and plan[sp] is None:
+                continue
+            s0, s1 = plan[sp] if follow_plan else (sp * split,
+                                                   min(T, (sp + 1) * split))
+            m = torch.full((KVH, G), -math.inf)
+            l, acc = torch.zeros((KVH, G)), torch.zeros((KVH, G, Dh))
+            for c0 in range(s0, s1, 64):
+                c = slice(c0, min(c0 + 64, s1))
+                s = torch.einsum("hgd,shd->hgs", q[b], k[b, c]) * scale
+                s = s.masked_fill(~live[c], -math.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                dead = torch.isinf(m_new)[..., None]
+                p = torch.where(dead, 0.0, torch.exp(s - m_new[..., None]))
+                corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_new))
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("hgs,shd->hgd", p,
+                                                           v[b, c])
+                m = m_new
+            parts.append((m, l, acc))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.where(torch.isinf(m), 0.0, torch.exp(m - mx))
+             for m, _, _ in parts]
+        l = sum(pl * wi for (_, pl, _), wi in zip(parts, w))
+        o = sum(pa * wi[..., None] for (_, _, pa), wi in zip(parts, w))
+        out[b] = o / l.clamp(min=1e-20)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("rows_sms,S,window,pos", [
+    (132, 300, 0, [299, 130, 5]),
+    (132, 1000, 150, [999, 600, 70]),       # window across split boundaries
+    (1, 256, 0, [255, 0, 64]),              # one split a row
+])
+@pytest.mark.parametrize("follow_plan", [True, False],
+                         ids=["plan", "all_splits"])
+def test_dense_split_combine_matches_refs(rows_sms, S, window, pos,
+                                          follow_plan):
+    """The dense kernel's split-then-combine arithmetic (``_split_combine``
+    over ``_splits``) equals ``flash_decode_ref`` and the JAX oracle on
+    the same numpy inputs, fp32, atol=rtol=1e-5."""
+    from repro.kernels import ref as jref
+    B, KVH, G, Dh = len(pos), 2, 3, 32
+    rng = np.random.default_rng(S + window)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, KVH, G, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh)))
+    p = np.array(pos, np.int32)
+    split, nsplit = tfd._splits(B * KVH, S, rows_sms)
+    got = _split_combine(*map(torch.from_numpy, (q, k, v)),
+                         [_live_range(S, window, pos=x) for x in pos],
+                         split, nsplit, follow_plan)
+    want = tref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, p)), window)
+    jwant = jref.flash_decode_ref(*map(jnp.asarray, (q, k, v, p)), window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("ps,MB,lengths,window", [
+    (16, 64, [1024, 1, 300], 0),            # later splits empty, length 1
+    (48, 6, [288, 100, 47], 0),             # ps does not divide 64
+    (7, 40, [280, 150, 9], 90),             # window across splits
+])
+@pytest.mark.parametrize("follow_plan", [True, False],
+                         ids=["plan", "all_splits"])
+def test_paged_split_combine_matches_refs(ps, MB, lengths, window,
+                                          follow_plan):
+    """The paged kernel's split-then-combine arithmetic over the MB * ps
+    table positions (-1 tails read as page 0) equals
+    ``flash_decode_paged_ref`` and the JAX oracle, fp32,
+    atol=rtol=1e-5."""
+    from repro.kernels import ref as jref
+    B, KVH, G, Dh = len(lengths), 2, 2, 32
+    rng = np.random.default_rng(ps * MB + window)
+    NP = B * MB + 3
+    q = rng.standard_normal((B, KVH, G, Dh)).astype(np.float32)
+    kp, vp = (rng.standard_normal((NP, ps, KVH, Dh)).astype(np.float32)
+              for _ in range(2))
+    bt = rng.permutation(NP)[:B * MB].reshape(B, MB).astype(np.int32)
+    for b, n in enumerate(lengths):
+        bt[b, -(-n // ps):] = -1
+    lens = np.array(lengths, np.int32)
+    T = MB * ps
+    split, nsplit = tfd._splits(B * KVH, T, 132)
+    gather = np.maximum(bt, 0)
+    k, v = (x[gather].reshape(B, T, KVH, Dh) for x in (kp, vp))
+    got = _split_combine(*map(torch.from_numpy, (q, k, v)),
+                         [_live_range(T, window, length=n)
+                          for n in lengths], split, nsplit, follow_plan)
+    args = (q, kp, vp, bt, lens)
+    want = tref.flash_decode_paged_ref(*map(torch.from_numpy, args), window)
+    jwant = jref.flash_decode_paged_ref(*map(jnp.asarray, args), window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("Nc,d,B,nprobe", [
