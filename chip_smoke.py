@@ -4,6 +4,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --decode-timing DIR  # time DIR/src's decode kernels
     python3 chip_smoke.py --decode-ab PARENT   # PARENT, this, this, PARENT
+    python3 chip_smoke.py --retrieval-ab PARENT   # the same for kernels 2, 3
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -19,16 +20,19 @@ Phases, one line each, every one fatal on failure:
      MQA, S a multiple of no tile); all atol=rtol=2e-3 (fp32 output from
      bf16 K/V, sums in another order), one grid launch a call;
   4. probe_topk_fused and ivf_topk against their plain versions at the
-     serve shapes and at a small shape: equal ids (and the same admitted
-     clusters) and scores within rtol=1e-4 on tie-free data; and
-     centroid_scores, through ops.centroid_probe (kernel + torch.topk),
-     at the serve probe shape and at an odd one (Nc and d multiples of
-     neither 32 nor 4, invalid centroids): equal top-k ids, scores
-     within rtol=1e-4;
-  5. timing: kernels 2, 3 and 5 over many launches (CUDA events, after
-     warm-up) beside their bounds and plain versions, centroid_scores
-     also beside q @ c.T + masked_fill (the one library call that
-     computes its function);
+     serve shapes, at a small shape and at their edges (every page dead,
+     one live page, every live page in one cluster, B=9, page sizes 48
+     and 7, d=60 and a slab off a 16-byte boundary (the direct path),
+     rows duplicated across pages): equal ids (by flat position among
+     exact ties) and the same admitted clusters, scores within
+     rtol=1e-4, equal bits from a second call; and centroid_scores,
+     through ops.centroid_probe (kernel + torch.topk), at the serve
+     probe shape and at an odd one (Nc and d multiples of neither 32
+     nor 4, invalid centroids): equal top-k ids, scores within
+     rtol=1e-4;
+  5. timing: centroid_scores over many launches (CUDA events, after
+     warm-up) beside its bound, its plain version and q @ c.T +
+     masked_fill (the one library call that computes its function);
   6. serving: repro_torch.launch.serve's TeleRAGServer at the full
      Llama-3-8B width over a 1M x 768 datastore, built once and served
      three times: fused retrieval with paged decode (flash_decode_paged
@@ -38,15 +42,17 @@ Phases, one line each, every one fatal on failure:
      make exactly one grid launch per layer in every decode step; each
      serve's doc ids must match an exact host search and at least one
      round must hit the device.  Then one observation: one retrieval
-     round fused against unfused, in alternating pairs;
-  7. decode timing: both decode kernels at the serve, mid and long
-     contexts beside their bounds and plain versions, flash_decode also
-     beside scaled_dot_product_attention (GQA, masked), each with three
-     numbers: the event mean, the device time a call (a loop of launches
-     in a CUDA graph) and the wrapper's host microseconds a call; then
-     whether the aims for them are met.  It runs after the serves, so
-     that its CUDA graphs and 8k-position inputs cannot touch their
-     timing.
+     round fused against unfused, in alternating pairs, and each path's
+     kernel alone on that buffer state;
+  7. kernel timing, after the serves, so that its CUDA graphs and
+     8k-position inputs cannot touch their timing: probe_topk_fused and
+     ivf_topk at the serve shapes, and both decode kernels at the serve,
+     mid and long contexts, beside their bounds and plain versions,
+     flash_decode also beside scaled_dot_product_attention (GQA,
+     masked), each with three numbers: the event mean, the device time a
+     call (a loop of launches in a CUDA graph) and the wrapper's host
+     microseconds a call; the retrieval kernels must run exactly 2 and 1
+     grids a call (profiler); then whether the aims are met.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -61,6 +67,10 @@ JSON line; --decode-ab PARENT runs it four times in turn, on PARENT,
 this checkout, this checkout and PARENT, one process each, and prints
 the three numbers of each kernel and shape side by side with the aims,
 the serve-shape aim judged against PARENT's device time.
+--retrieval-timing DIR and --retrieval-ab PARENT do the same for
+probe_topk_fused and ivf_topk: their phase-7 timing, then each alone on
+phase 6's buffer state (the index built again, with a reduced model),
+with the retrieval aims, the device-time aim judged on every run.
 """
 
 from __future__ import annotations
@@ -97,6 +107,11 @@ LONG_POS = [8191, 6143, 4999, 4095]
 AIM_DENSE_BOUND_SHARE = 0.40     # flash_decode: >= 40% of its byte bound
 AIM_PAGED_MS = 0.1               # flash_decode_paged: <= 0.1 ms and
 AIM_PAGED_OVER_DENSE = 2.0       # <= 2x flash_decode in the same run
+
+# the aims for the retrieval kernels, at chip_smoke's serve shapes
+AIM_IVF_MS = 0.305               # ivf_topk: >= 50% of its 0.1523 ms bound
+AIM_PROBE_MS = 0.144             # probe_topk_fused: >= 40% of its 0.0574 ms
+AIM_FUSED_OVER_UNFUSED_MS = 0.05  # fused alone - unfused alone, one state
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -186,6 +201,27 @@ def three_times(fn, counted, iters: int) -> dict:
     grids = (counted.launches - before) / (iters + 3)
     return {"ms": ms, "grids_per_call": grids, "device_ms": device_ms(fn),
             "host_us": host_us(fn)}
+
+
+def grids(fn, calls: int = 5) -> float:
+    """Grids a call of ``fn`` runs on the card, by the profiler over
+    ``calls`` calls, after a first call that makes the wrapper's
+    per-stream workspace.  The tracer now and then loses device events
+    (all of one profile, or one of ten) but never adds any, so the most
+    of three profiles counts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))))
+    return max(counts) / calls
 
 
 # -- kernel 1: flash_decode_paged ---------------------------------------------
@@ -492,10 +528,37 @@ def retrieval_work(ref, case, nprobe, k):
     return nbytes, flops, pages_any
 
 
-def check_retrieval(pt, ref, case, nprobe, k, label):
+def stable_ids(scores, ids, k):
+    """Ids of the top-k of masked scores [B, P * ps] by (score desc, flat
+    position asc): the order the kernels and the Pallas kernels break
+    exact ties in (torch.topk keeps no order among ties)."""
+    top_s, top_p = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_s, top_p = top_s[:, :k], top_p[:, :k]
+    return torch.where(torch.isfinite(top_s), ids.reshape(-1)[top_p],
+                       -1).to(torch.int32)
+
+
+def masked_scores(pages, ids, mask, q):
+    """q . x over every row of every page, -inf where the [B, P] mask
+    does not admit the page or the row's id is -1."""
+    P, ps, d = pages.shape
+    s = q @ pages.reshape(P * ps, d).float().T
+    ok = mask.repeat_interleave(ps, dim=1) & (ids.reshape(-1) >= 0)[None]
+    return s.masked_fill(~ok, float("-inf"))
+
+
+def check_retrieval(pt, ref, case, nprobe, k, label, ties=False):
+    """Kernel 2 against its plain version: equal ids (by flat position
+    among exact ties when ``ties``), equal admitted clusters, scores
+    within rtol=1e-4; a second call must give equal bits."""
     out_s, out_i, out_adm = pt.probe_topk_fused(*case, nprobe=nprobe, k=k)
     want_s, want_i, want_adm = ref.probe_and_topk_ref(*case, nprobe, k)
+    again = pt.probe_topk_fused(*case, nprobe=nprobe, k=k)
     torch.cuda.synchronize()
+    q, cent, _, pages, pids, pc = case
+    if ties:
+        mask = (pc >= 0)[None, :] & want_adm[:, pc.long().clamp(min=0)]
+        want_i = stable_ids(masked_scores(pages, pids, mask, q), pids, k)
     if not torch.equal(out_i, want_i):
         fail(f"probe_topk_fused {label}: ids differ\n{out_i}\n{want_i}")
     if not torch.equal(out_adm, want_adm):
@@ -504,14 +567,51 @@ def check_retrieval(pt, ref, case, nprobe, k, label):
         torch.testing.assert_close(out_s, want_s, rtol=1e-4, atol=1e-6)
     except AssertionError as e:
         fail(f"probe_topk_fused {label}: {e}")
+    if not all(torch.equal(a, b) for a, b in zip(again, (out_s, out_i, out_adm))):
+        fail(f"probe_topk_fused {label}: a second call gave other bits")
     fin = torch.isfinite(want_s)
     err = (out_s[fin] - want_s[fin]).abs().max().item() if fin.any() else 0.0
-    q, cent, _, pages, _, _ = case
     phase("check", f"probe_topk_fused {label}: B={q.shape[0]} d={q.shape[1]} "
           f"Nc={cent.shape[0]} P={pages.shape[0]} ps={pages.shape[1]} "
-          f"nprobe={nprobe} k={k}: ids and admitted clusters equal, "
+          f"nprobe={nprobe} k={k}: ids and admitted clusters equal"
+          f"{' (ties by flat position)' if ties else ''}, equal bits twice, "
           f"max_abs_err={err:.3e} (rtol=1e-4)")
     return err
+
+
+def retrieval_edges(pt, ref):
+    """Kernel 2 at its edges: every page dead, one live page, every live
+    page in one cluster, B = 9, page sizes 48 and 7 with d = 60 (the
+    direct path), and rows duplicated across pages (exact ties)."""
+    errs = []
+    for label, (B, d, Nc, P, ps, nprobe, k) in (
+            ("every page dead", (4, 768, 256, 64, 128, 16, 3)),
+            ("one live page", (4, 768, 256, 64, 128, 16, 3)),
+            ("every live page in one cluster", (4, 768, 256, 300, 128, 8, 3)),
+            ("B=9", (9, 768, 512, 200, 128, 32, 3)),
+            ("page size 48", (4, 128, 64, 30, 48, 8, 5)),
+            ("page size 7, d=60 (direct path)", (3, 60, 48, 40, 7, 9, 4)),
+            ("rows duplicated across pages", (4, 256, 32, 40, 16, 8, 6))):
+        q, cent, valid, pages, pids, pc = retrieval_case(B, d, Nc, P, ps,
+                                                         seed=P + ps + d)
+        best0 = int(torch.argmax(torch.where(valid, q[0] @ cent.T,
+                                             float("-inf"))))
+        if label == "every page dead":
+            pc[:] = -1
+        elif label == "one live page":
+            pc[:] = -1
+            pc[7] = best0
+        elif label == "every live page in one cluster":
+            pc[:] = -1
+            pc[P // 3:P // 3 + 120] = best0
+        elif label.startswith("rows duplicated"):
+            pages[P - 1] = pages[0]
+            pages[P // 2] = pages[3]
+            pages[2, ps - 1] = pages[2, 0]
+        case = (q, cent, valid, pages, pids, pc)
+        errs.append(check_retrieval(pt, ref, case, nprobe, k, label,
+                                    ties=label.startswith("rows duplicated")))
+    return errs
 
 
 # -- kernel 3: ivf_topk ---------------------------------------------------------
@@ -548,26 +648,138 @@ def ivf_work(case, k):
     return nbytes, 2 * mask.sum().item() * ps * d, pages_any
 
 
-def check_ivf(it, ref, case, k, label):
+def check_ivf(it, ref, case, k, label, ties=False):
+    """Kernel 3 against its plain version: equal ids (by flat position
+    among exact ties when ``ties``), scores within rtol=1e-4; a second
+    call must give equal bits."""
     out_s, out_i = it.ivf_topk(*case, k)
     want_s, want_i = ref.ivf_topk_ref(*case, k)
+    again = it.ivf_topk(*case, k)
     torch.cuda.synchronize()
+    pages, pids, mask, q = case
+    if ties:
+        want_i = stable_ids(masked_scores(pages, pids, mask, q), pids, k)
     if not torch.equal(out_i, want_i):
         fail(f"ivf_topk {label}: ids differ\n{out_i}\n{want_i}")
     try:
         torch.testing.assert_close(out_s, want_s, rtol=1e-4, atol=1e-6)
     except AssertionError as e:
         fail(f"ivf_topk {label}: {e}")
+    if not (torch.equal(again[0], out_s) and torch.equal(again[1], out_i)):
+        fail(f"ivf_topk {label}: a second call gave other bits")
     fin = torch.isfinite(want_s)
     err = (out_s[fin] - want_s[fin]).abs().max().item() if fin.any() else 0.0
-    pages, _, mask, q = case
     empty = int((~mask.any(1)).sum().item())
     phase("check", f"ivf_topk {label}: B={q.shape[0]} d={q.shape[1]} "
           f"P={pages.shape[0]} ps={pages.shape[1]} k={k}, "
           f"{mask.float().mean().item():.1%} of pages admitted, {empty} "
-          f"query(ies) with none: ids equal, max_abs_err={err:.3e} "
-          "(rtol=1e-4)")
+          f"query(ies) with none: ids equal"
+          f"{' (ties by flat position)' if ties else ''}, equal bits twice, "
+          f"max_abs_err={err:.3e} (rtol=1e-4)")
     return err
+
+
+def ivf_edges(it, ref):
+    """Kernel 3 at its edges: every page dead, one live page, page sizes
+    48 and 7 with d = 60 and a slab off a 16-byte boundary (the direct
+    path), rows duplicated across pages (exact ties), and B = 9 at
+    d = 768 (two passes of queries)."""
+    errs = []
+    for label, (B, d, P, ps, k) in (
+            ("every page dead", (4, 768, 64, 128, 3)),
+            ("one live page", (4, 768, 64, 128, 3)),
+            ("page size 48", (4, 128, 30, 48, 5)),
+            ("page size 7, d=60 (direct path)", (3, 60, 40, 7, 4)),
+            ("slab off a 16-byte boundary (direct path)", (4, 768, 40, 128, 3)),
+            ("rows duplicated across pages", (4, 256, 24, 16, 6)),
+            ("B=9 (two passes)", (9, 768, 120, 128, 3))):
+        pages, pids, mask, q = ivf_case(B, d, P, ps, seed=P + ps + d,
+                                        admit=0.3)
+        if label == "every page dead":
+            mask[:] = False
+        elif label == "one live page":
+            mask[:] = False
+            mask[1:, 5] = True
+        elif label.startswith("slab off"):
+            buf = torch.empty(pages.numel() + 1, dtype=pages.dtype,
+                              device="cuda")
+            pages = buf[1:].view(P, ps, d).copy_(pages)
+        elif label.startswith("rows duplicated"):
+            pages[P - 1] = pages[0]
+            pages[P // 2] = pages[3]
+            pages[2, ps - 1] = pages[2, 0]
+            mask[:, [0, 2, 3, P // 2, P - 1]] = True
+        errs.append(check_ivf(it, ref, (pages, pids, mask, q), k, label,
+                              ties=label.startswith("rows duplicated")))
+    return errs
+
+
+def retrieval_timing(pt, it, ref, smi: str) -> dict:
+    """Kernels 2 and 3 at the serve shapes: the three times of
+    ``three_times``, the grids a call (profiler), the bound, the plain
+    version's event mean and the pages admitted.  Returns {kernel:
+    numbers}, one line printed for each."""
+    t = {}
+    case = retrieval_case(4, 768, 1024, POOL_PAGES, 128, seed=4)
+    fn = lambda: pt.probe_topk_fused(*case, nprobe=64, k=3)
+    r = three_times(fn, pt.probe_topk_fused, 50)
+    r["grids_per_call"] = grids(fn)
+    nbytes, flops, r["pages_admitted"] = retrieval_work(ref, case, 64, 3)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    r["plain_ms"] = time_ms(lambda: ref.probe_and_topk_ref(*case, 64, 3), 10)
+    r["library_ms"] = None
+    t["probe_topk_fused"] = r
+    phase("time", f"probe_topk_fused ({r['pages_admitted']} of {POOL_PAGES} "
+          "pages admitted): " + describe(r) + f" on {smi}")
+    del case
+    case = ivf_case(4, 768, POOL_PAGES, 128, seed=8)
+    fn = lambda: it.ivf_topk(*case, 3)
+    r = three_times(fn, it.ivf_topk, 50)
+    r["grids_per_call"] = grids(fn)
+    nbytes, flops, r["pages_admitted"] = ivf_work(case, 3)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    r["plain_ms"] = time_ms(lambda: ref.ivf_topk_ref(*case, 3), 10)
+    r["library_ms"] = None
+    t["ivf_topk"] = r
+    phase("time", f"ivf_topk ({r['pages_admitted']} of {POOL_PAGES} pages "
+          "admitted): " + describe(r) + f" on {smi}")
+    del case
+    torch.cuda.empty_cache()
+    return t
+
+
+def retrieval_aims(t: dict, alone: dict = None, parent: list = None,
+                   change: list = None) -> list:
+    """(aim, met, numbers) for the retrieval timings ``t``: ivf_topk and
+    probe_topk_fused event means at most AIM_IVF_MS and AIM_PROBE_MS;
+    with ``alone`` (retrieval_ab's kernels alone), the fused kernel at
+    most AIM_FUSED_OVER_UNFUSED_MS slower; with the ``parent`` and
+    ``change`` runs' timings, each kernel's device time a call lower in
+    every change run than in every parent run."""
+    aims = []
+    for name, cap in (("ivf_topk", AIM_IVF_MS), ("probe_topk_fused", AIM_PROBE_MS)):
+        r = t[name]
+        aims.append((f"{name} at the serve shape: event mean <= {cap} ms",
+                     r["ms"] <= cap, f"{r['ms']:.4f} ms, "
+                     f"{r['bound_ms'] / r['ms']:.1%} of its {r['bound_ms']:.4f} "
+                     f"ms bound, {r['grids_per_call']:g} grids a call"))
+    if alone:
+        gap = alone["probe_topk_fused"] - alone["ivf_topk"]
+        aims.append(("one buffer state, every probed cluster resident: "
+                     "probe_topk_fused alone at most "
+                     f"{AIM_FUSED_OVER_UNFUSED_MS} ms slower than ivf_topk alone",
+                     gap <= AIM_FUSED_OVER_UNFUSED_MS,
+                     f"{alone['probe_topk_fused']:.4f} against "
+                     f"{alone['ivf_topk']:.4f} ms, {gap:+.4f} ms, "
+                     f"{alone['pages_read']} pages read"))
+    for name in (("probe_topk_fused", "ivf_topk") if parent else ()):
+        mine = [r[name]["device_ms"] for r in change]
+        theirs = [r[name]["device_ms"] for r in parent]
+        aims.append((f"{name}: device time a call lower than the parent's in "
+                     "every run", max(mine) < min(theirs),
+                     f"{' '.join(f'{x:.4f}' for x in mine)} ms against "
+                     f"{' '.join(f'{x:.4f}' for x in theirs)} ms"))
+    return aims
 
 
 # -- one retrieval round, fused against unfused -------------------------------
@@ -580,7 +792,8 @@ def retrieval_ab(serve, setup, reps=20):
     queries is resident (no host search runs).  Both must return the
     same doc ids and partition.  Returns the two lists of ms, the
     resident cluster count, and each path's kernel alone on that state
-    (device ms, CUDA events) with the pages its mask admits."""
+    (event mean and device time a call, ms) with the pages its mask
+    admits."""
     from repro_torch.core.hybrid_search import hybrid_retrieve
     from repro_torch.core.ivf import probe
     from repro_torch.core.prefetch_buffer import PrefetchBuffer
@@ -625,13 +838,15 @@ def retrieval_ab(serve, setup, reps=20):
     mask = np.zeros((len(q), buf.num_pages), bool)
     mask[:, pc >= 0] = luts[:, pc[pc >= 0]]
     mask_d = torch.from_numpy(mask).to(dev)
-    alone = {
-        "probe_topk_fused": time_ms(lambda: probe_topk_fused(
-            qd, cents, valid, pages, page_ids, page_cluster,
-            nprobe=args.nprobe, k=args.top_k), iters=50),
-        "ivf_topk": time_ms(lambda: ivf_topk(pages, page_ids, mask_d, qd,
-                                             args.top_k), iters=50),
-        "pages_read": int(mask.any(0).sum())}
+    fused = lambda: probe_topk_fused(qd, cents, valid, pages, page_ids,
+                                     page_cluster, nprobe=args.nprobe,
+                                     k=args.top_k)
+    unfused = lambda: ivf_topk(pages, page_ids, mask_d, qd, args.top_k)
+    alone = {"probe_topk_fused": time_ms(fused, iters=50),
+             "ivf_topk": time_ms(unfused, iters=50),
+             "probe_topk_fused_device": device_ms(fused),
+             "ivf_topk_device": device_ms(unfused),
+             "pages_read": int(mask.any(0).sum())}
     return ms["fused"], ms["unfused"], sum(map(len, a.hit_clusters)), alone
 
 
@@ -749,6 +964,74 @@ def decode_ab_main(parent: Path) -> None:
     print(json.dumps({"decode_ab": runs}))
 
 
+def retrieval_timing_main(root: Path) -> None:
+    """Kernels 2 and 3 alone, on the port under ``root``/src: their three
+    times at the serve shapes, then each alone on ``retrieval_ab``'s
+    buffer state (its index built without the full-width model)."""
+    need_card()
+    if not (root / "src" / "repro_torch").is_dir():
+        fail(f"{root} holds no src/repro_torch")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import ivf_topk as it
+    from repro_torch.kernels import probe_topk as pt
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = card_line()
+    t = retrieval_timing(pt, it, ref, smi)
+    setup = serve.build(serve.parse_args(SERVE_ARGS + ["--reduced", "--quiet"]))
+    fused_ms, unfused_ms, hits, alone = retrieval_ab(serve, setup)
+    print(json.dumps({"root": str(root), "card": smi, "timing": t,
+                      "alone": alone, "round_ms": {
+                          "fused": float(np.median(fused_ms)),
+                          "unfused": float(np.median(unfused_ms))}}))
+
+
+def retrieval_ab_main(parent: Path) -> None:
+    """``--retrieval-timing`` of ``parent``, this checkout, this checkout
+    and ``parent``, one process each, side by side, with the aims: the
+    event-mean aims on the means of this checkout's runs, the device-time
+    aim on every run."""
+    need_card()
+    runs = []
+    for i, root in enumerate((parent, ROOT, ROOT, parent), 1):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--retrieval-timing", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            fail(f"retrieval timing of {root}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        phase("ab", f"run {i}: {root} on {runs[-1]['card']}")
+    names = ("probe_topk_fused", "ivf_topk")
+    for name in names:
+        for key in ("ms", "device_ms", "grids_per_call", "host_us"):
+            vals = " | ".join(f"{r['timing'][name][key]:.4f}" for r in runs)
+            phase("ab", f"{name} serve shape {key}: runs 1-4 (parent, change, "
+                  f"change, parent) {vals}")
+        for key in (name, f"{name}_device"):
+            vals = " | ".join(f"{r['alone'][key]:.4f}" for r in runs)
+            phase("ab", f"{key} alone on the resident state "
+                  f"({runs[1]['alone']['pages_read']} pages): runs 1-4 {vals}")
+    for mode in ("fused", "unfused"):
+        vals = " | ".join(f"{r['round_ms'][mode]:.3f}" for r in runs)
+        phase("ab", f"one {mode} retrieval round, median ms: runs 1-4 {vals}")
+    change = [runs[1], runs[2]]
+    mean = lambda xs: float(np.mean(xs))
+    avg = {name: {**runs[1]["timing"][name],
+                  **{k: mean([r["timing"][name][k] for r in change])
+                     for k in ("ms", "device_ms", "host_us")}}
+           for name in names}
+    alone = {**runs[1]["alone"], **{n: mean([r["alone"][n] for r in change])
+                                    for n in names}}
+    for aim, met, numbers in retrieval_aims(
+            avg, alone, parent=[runs[0]["timing"], runs[3]["timing"]],
+            change=[r["timing"] for r in change]):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; means "
+              f"of runs 2-3, against runs 1 and 4; {runs[1]['card']})")
+    print(json.dumps({"retrieval_ab": runs}))
+
+
 def main() -> None:
     need_card()
     sys.path.insert(0, str(ROOT / "src"))
@@ -844,13 +1127,16 @@ def main() -> None:
     serve_ret = retrieval_case(4, 768, 1024, POOL_PAGES, 128, seed=4)
     small_ret = retrieval_case(3, 60, 24, 18, 8, seed=5)
     err_ret = max(check_retrieval(pt, ref, serve_ret, 64, 3, "serve shapes"),
-                  check_retrieval(pt, ref, small_ret, 7, 5, "small shape"))
+                  check_retrieval(pt, ref, small_ret, 7, 5, "small shape"),
+                  *retrieval_edges(pt, ref))
 
     # kernel 3 against its plain version, at the same pool
     serve_ivf = ivf_case(4, 768, POOL_PAGES, 128, seed=8)
     small_ivf = ivf_case(3, 60, 18, 8, seed=9, admit=0.5, empty_row=True)
     err_ivf = max(check_ivf(it, ref, serve_ivf, 3, "serve shapes"),
-                  check_ivf(it, ref, small_ivf, 5, "small shape"))
+                  check_ivf(it, ref, small_ivf, 5, "small shape"),
+                  *ivf_edges(it, ref))
+    del serve_ret, serve_ivf
 
     # kernel 5 against its plain version
     serve_cent = centroid_case(4, 768, 1024, 0.0, seed=20)
@@ -861,23 +1147,9 @@ def main() -> None:
 
     check_model(ttf, get_arch)
 
-    # 5) timing
-    ret_ms = time_ms(lambda: pt.probe_topk_fused(*serve_ret, nprobe=64, k=3), 50)
-    ret_plain = time_ms(lambda: ref.probe_and_topk_ref(*serve_ret, 64, 3), 10)
-    nbytes, flops, pages_any = retrieval_work(ref, serve_ret, 64, 3)
-    ret_bound, ret_by = bound(nbytes, flops)
-    phase("time", f"probe_topk_fused: {ret_ms:.4f} ms, plain {ret_plain:.4f} ms, "
-          f"bound {ret_bound:.5f} ms ({ret_by}; {pages_any} of "
-          f"{serve_ret[3].shape[0]} pages admitted) on {smi}")
-    ivf_ms = time_ms(lambda: it.ivf_topk(*serve_ivf, 3), 50)
-    ivf_plain = time_ms(lambda: ref.ivf_topk_ref(*serve_ivf, 3), 10)
-    nbytes, flops, ivf_pages = ivf_work(serve_ivf, 3)
-    ivf_bound, ivf_by = bound(nbytes, flops)
-    phase("time", f"ivf_topk: {ivf_ms:.4f} ms, plain {ivf_plain:.4f} ms, "
-          f"bound {ivf_bound:.5f} ms ({ivf_by}; {ivf_pages} of "
-          f"{serve_ivf[0].shape[0]} pages admitted) on {smi}")
+    # 5) timing of kernel 5 (kernels 2 and 3 come after the serves)
     cent_t = time_centroid(cp, ref, serve_cent, smi)
-    del serve_ret, serve_ivf, serve_cent
+    del serve_cent
     torch.cuda.empty_cache()
 
     # 6) serving through the port's entry point: one build, two serves,
@@ -937,10 +1209,21 @@ def main() -> None:
           f"{sum(u < f for f, u in zip(fused_ms, unfused_ms))} pairs; "
           f"same doc ids and partition; the kernels alone on that state "
           f"({alone['pages_read']} pages read): probe_topk_fused "
-          f"{alone['probe_topk_fused']:.4f} ms, ivf_topk "
-          f"{alone['ivf_topk']:.4f} ms; on {smi}")
+          f"{alone['probe_topk_fused']:.4f} ms (device "
+          f"{alone['probe_topk_fused_device']:.4f}), ivf_topk "
+          f"{alone['ivf_topk']:.4f} ms (device {alone['ivf_topk_device']:.4f}); "
+          f"on {smi}")
 
-    # 7) the decode kernels' three times, after the serves
+    # 7) the retrieval and decode kernels' three times, after the serves
+    ret_t = retrieval_timing(pt, it, ref, smi)
+    for name, want in (("probe_topk_fused", 2), ("ivf_topk", 1)):
+        if ret_t[name]["grids_per_call"] != want:
+            fail(f"{name}: {ret_t[name]['grids_per_call']} grids a call, "
+                 f"want {want}")
+    for aim, met, numbers in retrieval_aims(ret_t, alone):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
+    phase("aim", "each retrieval kernel: device time a call lower than the "
+          "parent's in every run: judged by --retrieval-ab PARENT")
     decode_t = decode_timing(fd, ref, smi)
     for aim, met, numbers in decode_aims(decode_t):
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
@@ -962,17 +1245,15 @@ def main() -> None:
          "launches": launches["fused"]["probe_topk_fused"],
          "launches_by_path": {p: c["probe_topk_fused"]
                               for p, c in launches.items()},
-         "max_abs_err": err_ret,
-         "ms": ret_ms, "plain_ms": ret_plain, "bound_ms": ret_bound,
-         "bound_by": ret_by, "library_ms": None},
+         "max_abs_err": err_ret, **ret_t["probe_topk_fused"],
+         "alone_on_resident_state_ms": alone["probe_topk_fused"]},
         {"name": "ivf_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ivf_topk.cu",
          "replaces": "src/repro/kernels/ivf_topk.py:110",
          "launches": launches["unfused"]["ivf_topk"],
          "launches_by_path": {p: c["ivf_topk"] for p, c in launches.items()},
-         "max_abs_err": err_ivf,
-         "ms": ivf_ms, "plain_ms": ivf_plain, "bound_ms": ivf_bound,
-         "bound_by": ivf_by, "library_ms": None},
+         "max_abs_err": err_ivf, **ret_t["ivf_topk"],
+         "alone_on_resident_state_ms": alone["ivf_topk"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88",
@@ -998,7 +1279,12 @@ if __name__ == "__main__":
         decode_timing_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--decode-ab":
         decode_ab_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-timing":
+        retrieval_timing_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-ab":
+        retrieval_ab_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 1:
         main()
     else:
-        fail(f"usage: {sys.argv[0]} [--decode-timing DIR | --decode-ab PARENT]")
+        fail(f"usage: {sys.argv[0]} [--decode-timing DIR | --decode-ab PARENT"
+             " | --retrieval-timing DIR | --retrieval-ab PARENT]")

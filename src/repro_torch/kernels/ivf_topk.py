@@ -2,9 +2,10 @@
 kernel's wrapper (the unfused retrieval path's device search).
 
 ``ivf_topk`` dispatches by the tensor's device alone: a CPU tensor runs
-``ivf_topk_ref``; a CUDA tensor launches ``csrc/ivf_topk.cu`` (page
-search, then merge) on the current stream or raises.
-``ivf_topk.launches`` counts wrapper launches (one per call).
+``ivf_topk_ref``; a CUDA tensor launches ``csrc/ivf_topk.cu`` (the page
+search and its merge, one grid, on the plan of ``page_topk.plan``) on the
+current stream or raises.  ``ivf_topk.launches`` counts calls, one grid
+launch each.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, page_topk
+from repro_torch.kernels.flash_decode import _sm_count, _workspace
 from repro_torch.kernels.ref import ivf_topk_ref
 
 _SOURCE = "ivf_topk"
@@ -27,7 +29,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load(_SOURCE).ivf_topk
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I] * 7 + [P]
+        fn.argtypes = [P] * 9 + [I] * 10 + [P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -78,17 +80,21 @@ def ivf_topk(pages: torch.Tensor, page_ids: torch.Tensor,
     B, d = queries.shape
     P, ps = page_ids.shape
     dev = queries.device
-    cand_s = torch.empty((P, B, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((P, B, k), dtype=torch.int32, device=dev)
+    rows, stages, qpass, blocks = page_topk.plan(
+        B, P, ps, d, int(k), _sm_count(dev.index), pages.data_ptr() % 16 == 0)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     stride = P if page_mask.dim() == 2 else 0      # a [P] mask broadcasts
-    vec = int(d % 8 == 0 and pages.data_ptr() % 16 == 0)
+    # the current stream's handle, without building a Stream object a call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    n = blocks * B * k                              # the blocks' [B, k] lists
+    count, part = _workspace(dev, stream, 1, 2 * n)
+    pm = part.data_ptr()
     err = _kernel()(
         queries.data_ptr(), pages.data_ptr(), page_ids.data_ptr(),
-        page_mask.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), B, d, P, ps, int(k), stride, vec,
-        torch.cuda.current_stream(dev).cuda_stream)
+        page_mask.data_ptr(), pm, pm + 4 * n, count.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), B, d, P, ps, int(k), stride,
+        rows, stages, qpass, blocks, stream)
     if err != 0:
         raise RuntimeError(f"ivf_topk kernel launch failed: cudaError {err}")
     ivf_topk.launches += 1

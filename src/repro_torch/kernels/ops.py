@@ -9,8 +9,8 @@ and each adds to its count only where it launches on the card:
 ``centroid_scores.launches`` count calls, each one grid launch (the
 decode kernels combine their splits inside it);
 ``probe_topk_fused.launches`` and
-``ivf_topk.launches`` count calls, each three grid launches (probe,
-page search, merge) and two (page search, merge).
+``ivf_topk.launches`` count calls, each two grid launches (probe, then
+page search and merge) and one (page search and merge).
 """
 
 from __future__ import annotations

@@ -3,12 +3,13 @@ and its plain version.
 
 ``probe_topk_fused`` dispatches by the tensor's device alone: a CPU
 tensor runs ``probe_and_topk_ref``; a CUDA tensor launches
-``csrc/probe_topk.cu`` (three kernels: probe + threshold, page search,
-merge) on the current stream or raises.  Both return the [B, Nc] mask of
-the clusters they admitted beside the top-k, so a caller can split hits
-from misses by the very admission that decided the device search.
-``probe_topk_fused.launches`` counts wrapper launches (one per call,
-whatever the kernel count).
+``csrc/probe_topk.cu`` (two grids: the probe and threshold spread over
+the card, then the page search and its merge on the plan of
+``page_topk.plan``) on the current stream or raises.  Both return the
+[B, Nc] mask of the clusters they admitted beside the top-k, so a caller
+can split hits from misses by the very admission that decided the
+device search.
+``probe_topk_fused.launches`` counts calls (two grid launches each).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, page_topk
+from repro_torch.kernels.flash_decode import _sm_count, _workspace
 from repro_torch.kernels.ref import probe_and_topk_ref
 
 _SOURCE = "probe_topk"
@@ -31,7 +33,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load(_SOURCE).probe_topk_fused
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 11 + [I] * 8 + [P]
+        fn.argtypes = [P] * 13 + [I] * 12 + [P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -90,18 +92,24 @@ def probe_topk_fused(queries: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"need 1 <= nprobe <= Nc ({Nc}) and k >= 1; got "
                          f"nprobe={nprobe}, k={k}")
     dev = queries.device
+    rows, stages, qpass, blocks = page_topk.plan(
+        B, P, ps, d, int(k), _sm_count(dev.index), pages.data_ptr() % 16 == 0)
     admit = torch.empty((B, Nc), dtype=torch.uint8, device=dev)
-    cand_s = torch.empty((P, B, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((P, B, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    vec = int(d % 8 == 0 and pages.data_ptr() % 16 == 0)
+    vec = int(d % 4 == 0 and queries.data_ptr() % 16 == 0
+              and centroids.data_ptr() % 16 == 0)
+    # the current stream's handle, without building a Stream object a call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    n = blocks * B * k                   # the blocks' [B, k] lists
+    count, part = _workspace(dev, stream, 2, 2 * n + B * Nc)
+    pm = part.data_ptr()
     err = _kernel()(
         queries.data_ptr(), centroids.data_ptr(), valid.data_ptr(),
         pages.data_ptr(), page_ids.data_ptr(), page_cluster.data_ptr(),
-        admit.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        admit.data_ptr(), pm + 8 * n, pm, pm + 4 * n, count.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), B, d, Nc, P, ps, int(nprobe),
-        int(k), vec, torch.cuda.current_stream(dev).cuda_stream)
+        int(k), rows, stages, qpass, blocks, vec, stream)
     if err != 0:
         raise RuntimeError(f"probe_topk_fused kernel launch failed: "
                            f"cudaError {err}")

@@ -224,6 +224,172 @@ def test_ivf_topk_kernel_matches_plain(B, d, P, ps, k, shared_mask):
         assert (gi[0] == -1).all() and torch.isinf(gs[0]).all()
 
 
+def _grids(fn, calls=5):
+    """Grids a call of ``fn`` runs on the card, by the profiler over
+    ``calls`` calls (after a first call that makes the wrapper's
+    per-stream workspace).  The tracer now and then loses device events
+    (all of one profile, or one of ten) but never adds any, so the most
+    of three profiles counts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))))
+    return max(counts) / calls
+
+
+def _stable_ids(scores, ids, k):
+    """Ids of the top-k of masked scores [B, P * ps] by (score desc, flat
+    position asc), the order the kernels break exact ties in (torch.topk
+    keeps no order among ties)."""
+    top_s, top_p = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_s, top_p = top_s[:, :k], top_p[:, :k]
+    return torch.where(torch.isfinite(top_s), ids.reshape(-1)[top_p],
+                       -1).to(torch.int32)
+
+
+def _pool(P, ps, d, seed, *, ties=False, misalign=False):
+    """bf16 gaussian pages with unique ids and a padded tail on page 1;
+    ``ties`` duplicates rows across pages (and within page 2);
+    ``misalign`` puts the slab 2 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((P, ps, d)).astype(np.float32)
+    if ties:
+        x[P - 1] = x[0]
+        x[P // 2] = x[3 % P]
+        x[2, ps - 1] = x[2, 0]
+    ids = rng.permutation(P * ps).reshape(P, ps).astype(np.int32)
+    ids[1, ps // 2:] = -1
+    dev = torch.device("cuda")
+    pages = torch.from_numpy(x).to(dev, torch.bfloat16)
+    if misalign:
+        buf = torch.empty(pages.numel() + 1, dtype=torch.bfloat16, device=dev)
+        pages = buf[1:].view(P, ps, d).copy_(pages)
+    return pages, torch.from_numpy(ids).to(dev), rng
+
+
+def _masked_scores(pages, ids, mask, q):
+    P, ps, d = pages.shape
+    s = q @ pages.reshape(P * ps, d).float().T
+    ok = mask.repeat_interleave(ps, dim=1) & (ids.reshape(-1) >= 0)[None]
+    return s.masked_fill(~ok, float("-inf"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,d,P,ps,k", [
+    ("all_dead", 4, 768, 64, 128, 3),
+    ("one_live_page", 4, 768, 64, 128, 3),
+    ("ps48", 4, 128, 30, 48, 5),
+    ("ps7_d60", 3, 60, 40, 7, 4),          # unaligned rows: the direct path
+    ("misaligned_slab", 4, 768, 40, 128, 3),   # the direct path at d = 768
+    ("ties", 4, 256, 24, 16, 6),           # duplicated rows, across pages
+    ("b9_serve_width", 9, 768, 120, 128, 3),   # two passes of queries
+    ("two_windows", 3, 16, 70000, 2, 5),   # more pages than one bitmap
+    ("k16_wide_merge", 4, 128, 200, 16, 16),   # 2112 candidates a query
+    ("d1040", 2, 1040, 20, 8, 4),          # d past the register slices
+])
+def test_ivf_topk_kernel_edge_cases(case, B, d, P, ps, k):
+    """The one-grid search and merge: every page dead, one live page,
+    page sizes 48 and 7, d = 60, d = 1040 and a slab off a 16-byte
+    boundary (the direct path), exact ties across pages (ids by flat
+    position, as the Pallas kernel orders them), B = 9, a pool of two
+    bitmap windows, and more candidates than the merge holds in
+    registers; ids equal, scores within rtol=1e-4, exactly one grid a
+    call, equal bits from a second call."""
+    dev = _card()
+    pages, ids, rng = _pool(P, ps, d, P + ps + d, ties=case == "ties",
+                            misalign=case == "misaligned_slab")
+    mask = torch.from_numpy(rng.random((B, P)) < 0.3).to(dev)
+    if case == "all_dead":
+        mask[:] = False
+    elif case == "one_live_page":
+        mask[:] = False
+        mask[1:, 5] = True
+    elif case == "ties":
+        mask[:, [0, 2, 3 % P, P // 2, P - 1]] = True
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    before = tivf.ivf_topk.launches
+    gs, gi = tivf.ivf_topk(pages, ids, mask, q, k)
+    ws, wi = tref.ivf_topk_ref(pages, ids, mask, q, k)
+    torch.cuda.synchronize()
+    assert tivf.ivf_topk.launches == before + 1
+    if case == "ties":
+        wi = _stable_ids(_masked_scores(pages, ids, mask, q), ids, k)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-6)
+    if case == "all_dead":
+        assert (gi == -1).all() and torch.isinf(gs).all()
+    again = tivf.ivf_topk(pages, ids, mask, q, k)
+    assert torch.equal(again[0], gs) and torch.equal(again[1], gi)
+    assert _grids(lambda: tivf.ivf_topk(pages, ids, mask, q, k)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,d,Nc,P,ps,nprobe,k", [
+    ("all_dead", 4, 768, 256, 64, 128, 16, 3),
+    ("one_live_page", 4, 768, 256, 64, 128, 16, 3),
+    ("one_cluster", 4, 768, 256, 300, 128, 8, 3),   # every live page in one
+    ("b9", 9, 768, 512, 200, 128, 32, 3),
+    ("ps48", 4, 128, 64, 30, 48, 8, 5),
+    ("ps7_d60", 3, 60, 48, 40, 7, 9, 4),
+    ("ties", 4, 256, 32, 40, 16, 8, 6),
+    ("nc2000", 3, 64, 2000, 60, 16, 100, 3),   # scores past the key registers
+])
+def test_probe_topk_kernel_edge_cases(case, B, d, Nc, P, ps, nprobe, k):
+    """Probe and search in two grids: every page dead, one live page,
+    every live page in one cluster (the load on a run of pages), B = 9,
+    page sizes 48 and 7, d = 60, duplicated rows tied across pages, and
+    Nc = 2000 (the threshold select reads the scores again each pass);
+    ids and the admitted mask equal, scores within rtol=1e-4, exactly two
+    grids a call, equal bits from a second call."""
+    dev = _card()
+    pages, ids, rng = _pool(P, ps, d, Nc + P + d, ties=case == "ties")
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    cents = torch.from_numpy(rng.standard_normal((Nc, d)).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(Nc) > 0.1).to(dev)
+    pc = torch.from_numpy(rng.integers(-1, Nc, P).astype(np.int32)).to(dev)
+    if case == "all_dead":
+        pc[:] = -1
+    elif case == "one_live_page":
+        pc[:] = -1
+        pc[7] = int(torch.argmax(torch.where(valid, q[0] @ cents.T,
+                                             float("-inf"))))
+    elif case == "one_cluster":
+        c = int(torch.argmax(torch.where(valid, q[0] @ cents.T,
+                                         float("-inf"))))
+        pc[:] = -1
+        pc[P // 3:P // 3 + 120] = c
+    args = (q, cents, valid, pages, ids, pc)
+    before = tpt.probe_topk_fused.launches
+    gs, gi, gadm = tpt.probe_topk_fused(*args, nprobe=nprobe, k=k)
+    ws, wi, wadm = tref.probe_and_topk_ref(*args, nprobe, k)
+    torch.cuda.synchronize()
+    assert tpt.probe_topk_fused.launches == before + 1
+    assert torch.equal(gadm, wadm)
+    if case == "ties":
+        pm = (pc >= 0)[None, :] & wadm[:, pc.long().clamp(min=0)]
+        wi = _stable_ids(_masked_scores(pages, ids, pm, q), ids, k)
+    assert torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-6)
+    if case == "all_dead":
+        assert (gi == -1).all()
+    if case in ("one_live_page", "one_cluster"):
+        assert (gi[0] >= 0).all()
+    again = tpt.probe_topk_fused(*args, nprobe=nprobe, k=k)
+    assert all(torch.equal(a, b) for a, b in zip(again, (gs, gi, gadm)))
+    assert _grids(lambda: tpt.probe_topk_fused(*args, nprobe=nprobe,
+                                               k=k)) == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,d,Nc,nprobe,invalid", [
     (4, 768, 1024, 64, 0.0),        # serve probe shape, all valid
