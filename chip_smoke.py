@@ -17,8 +17,15 @@ Phases, one line each, every one fatal on failure:
      divides 64) and -1 tails; and flash_decode (the dense cache) at the
      serve shape, ragged positions, the mid and long contexts, a long
      cache with its later splits empty, and small shapes (window>0, G=1,
-     MQA, S a multiple of no tile); all atol=rtol=2e-3 (fp32 output from
-     bf16 K/V, sums in another order), one grid launch a call;
+     MQA, S a multiple of no tile); and flash_decode_spliced (no TPU
+     kernel: chunk-KV decode, K rotated by each page's delta, dead slots
+     masked), in bf16 and fp32, on an all-fresh table (which must also
+     give flash_decode_paged's bits), one and several chunks with
+     partial last pages, rows with different spliced leads and -1
+     tails, page sizes 16 and 48, rope_fraction 0.5, a dead tail across
+     a 64-position chunk, and the serve, mid and long contexts; all
+     atol=rtol=2e-3 (fp32 output from bf16 K/V, sums in another order),
+     one grid launch a call, equal bits from a second spliced call;
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes, at a small shape and at their edges (every page dead,
      one live page, every live page in one cluster, B=9, page sizes 48
@@ -41,9 +48,16 @@ Phases, one line each, every one fatal on failure:
      flash_decode_paged never); the decode kernel of each serve must
      make exactly one grid launch per layer in every decode step; each
      serve's doc ids must match an exact host search and at least one
-     round must hit the device.  Then one observation: one retrieval
-     round fused against unfused, in alternating pairs, and each path's
-     kernel alone on that buffer state;
+     round must hit the device.  Then a fourth serve, with chunk-KV
+     splicing (chunk_serve: a chunk-less twin and the chunk serve on the
+     event clock over one roomy pool; the store is the twin's docs,
+     prefilled at full width): every doc must splice, some wave must
+     splice, the doc ids must equal the twin's, the kv and chunk_kv
+     ledgers must drain to 0, and flash_decode_spliced and
+     flash_decode_paged must launch 32 times per step of the spliced and
+     the other waves.  Then one observation: one retrieval round fused
+     against unfused, in alternating pairs, and each path's kernel alone
+     on that buffer state;
   7. kernel timing, after the serves, so that its CUDA graphs and
      8k-position inputs cannot touch their timing: probe_topk_fused and
      ivf_topk at the serve shapes, and both decode kernels at the serve,
@@ -52,11 +66,15 @@ Phases, one line each, every one fatal on failure:
      masked), each with three numbers: the event mean, the device time a
      call (a loop of launches in a CUDA graph) and the wrapper's host
      microseconds a call; the retrieval kernels must run exactly 2 and 1
-     grids a call (profiler); then whether the aims are met.
+     grids a call (profiler); then whether the aims are met; then
+     flash_decode_spliced on an all-fresh table of kernel 1's lengths,
+     beside flash_decode_paged in the same process and on a table of
+     20-token spliced chunks.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
-kernel's launches by path (fused, unfused, dense) and in the checks.
+kernel's launches by path (fused, unfused, dense, chunk) and in the
+checks.
 The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
@@ -112,6 +130,11 @@ AIM_PAGED_OVER_DENSE = 2.0       # <= 2x flash_decode in the same run
 AIM_IVF_MS = 0.305               # ivf_topk: >= 50% of its 0.1523 ms bound
 AIM_PROBE_MS = 0.144             # probe_topk_fused: >= 40% of its 0.0574 ms
 AIM_FUSED_OVER_UNFUSED_MS = 0.05  # fused alone - unfused alone, one state
+
+# the chunk serve's pool (and its chunk-less twin's): the serve pool plus
+# 8192 pages' worth (1.6 GB) of room for chunk pages, so neither serve
+# stalls on the pool and the two form the same waves
+CHUNK_POOL_PAGES = POOL_PAGES + 8192
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -429,6 +452,173 @@ def decode_aims(t: dict, parent: dict = None) -> list:
                      "than the parent's", mine <= theirs,
                      f"{mine:.4f} ms against {theirs:.4f} ms"))
     return aims
+
+
+# -- the spliced-decode kernel (no TPU kernel: the chunk-KV path) ------------
+
+
+def chunk_rows(lengths):
+    """Rows of 20-token chunks (two 16-token pages each, the second with
+    12 dead slots) that fill each of ``lengths`` but its last 16-48
+    positions, which fall on two fresh pages."""
+    return [[20] * max(0, (n - 16) // 32) for n in lengths]
+
+
+def spliced_case(B, KVH, G, Dh, ps, chunks, fresh, seed, dtype=torch.bfloat16,
+                 tail=2):
+    """Spliced decode inputs on the card: row b holds the chunks
+    ``chunks[b]`` (token counts) back to back at page boundaries, each
+    page's delta its chunk's first layout position and its valid count
+    the chunk's live tokens on it, then ``fresh`` fresh pages (delta 0,
+    valid ps), then ``tail`` -1 columns (valid 0).  The new token sits on
+    the fresh pages."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    MB = max(sum(-(-c // ps) for c in row) for row in chunks) + fresh + tail
+    NP = B * MB + 4
+    q = torch.randn((B, KVH, G, Dh), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((NP, ps, KVH, Dh), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((NP, ps, KVH, Dh), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(NP, generator=g, device="cuda")[:B * MB].reshape(
+        B, MB).to(torch.int32).cpu()
+    bt = torch.full((B, MB), -1, dtype=torch.int32)
+    dl = torch.zeros((B, MB), dtype=torch.int32)
+    vd = torch.zeros((B, MB), dtype=torch.int32)
+    lens = []
+    for b, row in enumerate(chunks):
+        b0 = 0
+        for c in row:
+            n = -(-c // ps)
+            bt[b, b0:b0 + n] = perm[b, b0:b0 + n]
+            dl[b, b0:b0 + n] = b0 * ps
+            vd[b, b0:b0 + n] = ps
+            vd[b, b0 + n - 1] = c - (n - 1) * ps
+            b0 += n
+        bt[b, b0:b0 + fresh] = perm[b, b0:b0 + fresh]
+        vd[b, b0:b0 + fresh] = ps
+        lens.append(b0 * ps + 1 + (7 * b + 3) % (fresh * ps))
+    lens = torch.tensor(lens, dtype=torch.int32)
+    return [q, kp, vp] + [t.cuda() for t in (bt, lens, dl, vd)]
+
+
+def spliced_work(case):
+    """(bytes, flops) this input needs: each live K/V row (causal and
+    inside its page's valid count), q and the four tables read once, the
+    fp32 output written once; the dot, the P V and the rotation of every
+    live K element (6 flops)."""
+    q, kp, _, bt, lens, _, vd = case
+    B, KVH, G, Dh = q.shape
+    ps = kp.shape[1]
+    pos = torch.arange(bt.shape[1] * ps, device="cuda")
+    live = ((pos[None, :] % ps < vd.repeat_interleave(ps, 1))
+            & (pos[None, :] < lens[:, None])).sum().item()
+    nbytes = (2 * live * KVH * Dh * kp.element_size()
+              + q.numel() * q.element_size() + 3 * bt.numel() * 4
+              + lens.numel() * 4 + q.numel() * 4)
+    return nbytes, (4 * G + 6) * live * KVH * Dh
+
+
+def check_spliced(fd, ref, case, frac, label, theta=500_000.0):
+    """The spliced kernel against its plain version: one grid launch a
+    call, atol=rtol=2e-3, no NaN, and equal bits from a second call; an
+    all-fresh table must also give flash_decode_paged's bits."""
+    kw = dict(rope_fraction=frac, rope_theta=theta)
+    before = fd.flash_decode_spliced.launches
+    out = fd.flash_decode_spliced(*case, **kw)
+    want = ref.flash_decode_spliced_ref(*case, **kw)
+    torch.cuda.synchronize()
+    if fd.flash_decode_spliced.launches != before + 1:
+        fail(f"flash_decode_spliced {label}: "
+             f"{fd.flash_decode_spliced.launches - before} grid launches, want 1")
+    if torch.isnan(out).any():
+        fail(f"flash_decode_spliced {label}: NaN in the output")
+    err = (out - want).abs().max().item()
+    try:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    except AssertionError as e:
+        fail(f"flash_decode_spliced {label}: {e}")
+    if not torch.equal(fd.flash_decode_spliced(*case, **kw), out):
+        fail(f"flash_decode_spliced {label}: a second call gave other bits")
+    fresh = bool((case[5] == 0).all() and (case[6][case[3] >= 0] == case[1].shape[1]).all())
+    if fresh and not torch.equal(fd.flash_decode_paged(*case[:5]), out):
+        fail(f"flash_decode_spliced {label}: all-fresh table, not "
+             "flash_decode_paged's bits")
+    q, kp = case[0], case[1]
+    phase("check", f"flash_decode_spliced {label}: shape {tuple(q.shape)} "
+          f"{kp.dtype} ps={kp.shape[1]} rope_fraction={frac} table "
+          f"{tuple(case[3].shape)} lengths {case[4].tolist()[:4]} "
+          f"max_abs_err={err:.3e} (atol=rtol=2e-3), equal bits twice"
+          + (", = flash_decode_paged" if fresh else ""))
+    return err
+
+
+# kernel 1's timing shapes: (lengths, MB, iters) at the serve, mid and long
+# contexts (B=4, KVH=8, G=4, Dh=128, ps=16)
+PAGED_TIMING = {"serve": ([128, 97, 40, 7], 8, 200), "mid": (MID_LENGTHS, 128, 100),
+                "long": (LONG_LENGTHS, 512, 100)}
+
+
+def spliced_checks(fd, ref) -> float:
+    """Every case of the spliced kernel's check phase; the largest error."""
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "fp32"
+        cases = [
+            ("all-fresh table", 1.0, spliced_case(4, 8, 4, 128, 16, [[]] * 4, 8, 41, dtype)),
+            ("one chunk a row", 1.0, spliced_case(4, 8, 4, 128, 16, [[21], [9], [33], [16]], 8, 42, dtype)),
+            ("several chunks, partial last pages", 1.0,
+             spliced_case(4, 8, 4, 128, 16, [[21, 9, 40], [3], [17, 17], [1]], 8, 43, dtype)),
+            ("different spliced leads and -1 tails", 1.0,
+             spliced_case(3, 2, 2, 64, 16, [[70], [], [5, 5, 5]], 2, 44, dtype, tail=5)),
+            ("page size 48", 1.0, spliced_case(3, 2, 8, 64, 48, [[50, 100], [7], [150]], 3, 45, dtype)),
+            ("rope_fraction 0.5", 0.5, spliced_case(3, 2, 2, 128, 16, [[21, 9], [5, 5, 5], []], 3, 46, dtype)),
+            ("a dead tail across a 64-position chunk", 1.0,
+             spliced_case(2, 8, 4, 128, 16, [[65, 3], [129]], 4, 47, dtype)),
+        ]
+        for ctx, (lengths, _, _) in PAGED_TIMING.items():
+            cases.append((f"{ctx} context (chunks of 20 tokens)", 1.0, spliced_case(
+                4, 8, 4, 128, 16, chunk_rows(lengths), 2, 48 + len(cases), dtype)))
+        for label, frac, case in cases:
+            errs.append(check_spliced(fd, ref, case, frac, f"{label}, {dn}"))
+            del case
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def spliced_timing(fd, ref, smi: str) -> dict:
+    """The spliced kernel beside flash_decode_paged on an all-fresh table
+    of kernel 1's timing lengths (the same bytes, so the same bound) at
+    the serve, mid and long contexts: the three times of ``three_times``,
+    flash_decode_paged's event mean in the same process, the plain
+    version's event mean, and the event mean on a table of 20-token
+    spliced chunks (the rotation and the masks at work).  No library
+    call computes this function."""
+    t = {}
+    for shape, (lengths, MB, iters) in PAGED_TIMING.items():
+        q, kp, vp, bt, lens = decode_case(4, 8, 4, 128, 16, MB, lengths, seed=1)
+        dl = torch.zeros_like(bt)
+        vd = torch.where(bt >= 0, 16, 0).to(torch.int32)
+        args = (q, kp, vp, bt, lens, dl, vd)
+        kw = dict(rope_theta=500_000.0)
+        r = three_times(lambda: fd.flash_decode_spliced(*args, **kw),
+                        fd.flash_decode_spliced, iters)
+        r["bound_ms"], r["bound_by"] = bound(*spliced_work(args))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_spliced_ref(*args, **kw),
+                                max(iters // 10, 5))
+        r["paged_ms"] = time_ms(lambda: fd.flash_decode_paged(q, kp, vp, bt, lens),
+                                iters)
+        sp = spliced_case(4, 8, 4, 128, 16, chunk_rows(lengths), 2, 60)
+        r["spliced_table_ms"] = time_ms(lambda: fd.flash_decode_spliced(*sp, **kw), iters)
+        r["spliced_table_bound_ms"] = bound(*spliced_work(sp))[0]
+        r["library_ms"], r["lengths"] = None, lengths
+        t[shape] = r
+        phase("time", f"flash_decode_spliced {shape} (all-fresh table, lengths "
+              f"{lengths}): " + describe(r) + f"; flash_decode_paged "
+              f"{r['paged_ms']:.4f} ms in the same process; on a table of "
+              f"20-token spliced chunks {r['spliced_table_ms']:.4f} ms (bound "
+              f"{r['spliced_table_bound_ms']:.5f} ms); no library call; on {smi}")
+        del q, kp, vp, bt, lens, dl, vd, args, sp
+    torch.cuda.empty_cache()
+    return t
 
 
 # -- kernel 5: centroid_scores --------------------------------------------------
@@ -863,6 +1053,106 @@ def check_decode_launches(path, name, setup, summary, counts):
           f"steps x {layers} layers x 1 grid a call")
 
 
+def chunk_serve(serve, setup, fused: dict, counted: dict) -> dict:
+    """The fourth serve, with chunk-KV splicing, on ``serve.build``'s setup.
+
+    A chunk-less fused serve and the chunk serve run as a pair on the
+    event clock (``replay=True``) over one pool with room for every
+    chunk (CHUNK_POOL_PAGES), so the two form the same waves and draw the
+    same query rewrites: chunk pages in the pool and the spliced steps'
+    own time would otherwise move the wave former, and with it which
+    docs the rewritten queries retrieve.  The pair's first serve gives
+    the doc ids; a ChunkKVStore over them is built with the port's
+    full-width prefill (page size 16, clusters from the index's
+    assignments); the same 8 irg requests are served again with
+    chunk_kv=True.  Fails unless every retrieved doc splices (hit rate
+    1.0), some wave splices, the doc ids equal the pair's first serve's,
+    the kv and chunk_kv ledgers drain to 0, and the spliced kernel ran
+    exactly 32 x (steps of spliced waves) times and flash_decode_paged 32
+    x (the other steps).  Prints whether the doc ids also equal phase 6's
+    fused serve's (a wall-clock serve on the tighter pool), and whether
+    lookahead prefetched chunk pages (the aim).  Returns its launches."""
+    from repro_torch.data.chunk_kv import (build_chunk_kv,
+                                           cluster_map_from_assignments)
+    layers = setup.arch.num_layers
+    base = serve.serve(setup, replay=True, pool_pages=CHUNK_POOL_PAGES)
+    docs = sorted({d for rows in base["doc_ids"].values() for row in rows
+                   for d in row})
+    if not docs or min(docs) < 0:
+        fail(f"chunk serve: the chunk-less serve retrieved doc ids {docs}")
+    t0 = time.perf_counter()
+    store = build_chunk_kv(setup.model, docs, page_size=16,
+                           cluster_of=cluster_map_from_assignments(
+                               setup.index.assignments))
+    build_s = time.perf_counter() - t0
+    host_mb = sum(c.k.nbytes + c.v.nbytes for c in store.chunks.values()) / 2**20
+    phase("chunk", f"store of {len(docs)} docs (every doc the chunk-less "
+          f"serve retrieved), {store.total_pages()} pages of 16 tokens, "
+          f"{host_mb:.1f} MiB of fp32 K+V on the host, built with the "
+          f"full-width prefill in {build_s:.2f} s; the chunk-less serve: "
+          f"{base['decode_steps']} steps, {base['wall_s']:.2f} s")
+    for fn in counted.values():
+        fn.launches = 0
+    summary = serve.serve(setup, chunk_store=store, chunk_kv=True, replay=True,
+                          pool_pages=CHUNK_POOL_PAGES)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ck = summary["chunk_kv"]
+    waves = [w for w in summary["decode_waves"] if w["steps"]]
+    spliced = sum(1 for w in waves if w["spliced"])
+    steps, sp_steps = summary["decode_steps"], summary["spliced_steps"]
+    phase("serve", json.dumps({"path": "chunk", **{k: summary[k] for k in (
+        "device", "layers", "retrieval", "decode", "requests", "hits", "misses",
+        "decode_tokens", "decode_steps", "spliced_steps", "decode_s",
+        "tokens_per_s", "decode_waves", "retrievals", "wall_s",
+        "retrieval_gap", "pressure_stall_s", "spliced_waves", "chunk_kv",
+        "ledger_after_drain")}}))
+    phase("chunk", f"chunk serve: wall {summary['wall_s']:.2f} s, "
+          f"{1e3 * summary['decode_s'] / max(steps, 1):.2f} ms/step over "
+          f"{steps} steps ({sp_steps} in spliced waves); waves with steps: "
+          f"{spliced} spliced, {len(waves) - spliced} unspliced; chunk hits "
+          f"{ck.get('hits')} misses {ck.get('misses')} (hit rate "
+          f"{ck.get('hit_rate')}); spliced pages {ck.get('spliced_pages')}, "
+          f"prefetched pages {ck.get('prefetched_pages')}; prefill tokens "
+          f"avoided {ck.get('prefill_tokens_avoided')}; retrieval hits "
+          f"{summary['hits']} misses {summary['misses']}; the chunk-less "
+          f"pair serve {1e3 * base['decode_s'] / max(base['decode_steps'], 1):.2f} "
+          "ms/step")
+    rows = lambda s: [row for rid in sorted(s["doc_ids"]) for row in s["doc_ids"][rid]]
+    same_fused = sum(a == b for a, b in zip(rows(summary), rows(fused)))
+    phase("chunk", f"doc ids against phase 6's fused serve: {same_fused} of "
+          f"{len(rows(summary))} retrieval rows equal ({len(rows(fused))} there)")
+    if summary["doc_ids"] != base["doc_ids"]:
+        fail("chunk serve: doc ids differ from the chunk-less serve's "
+             f"({sum(a != b for a, b in zip(rows(summary), rows(base)))} rows)")
+    if ck.get("hit_rate") != 1.0 or ck.get("misses"):
+        fail(f"chunk serve: not every retrieved doc spliced: {ck}")
+    if summary["spliced_waves"] < 1 or sp_steps < 1:
+        fail(f"chunk serve: no wave spliced ({summary['spliced_waves']} waves)")
+    if summary["ledger_after_drain"] != {"kv": 0, "chunk_kv": 0}:
+        fail(f"chunk serve: ledger after draining {summary['ledger_after_drain']}")
+    if not summary["retrieval_gap"] < 1e-2:
+        fail(f"chunk serve disagrees with the exact host search: score gap "
+             f"{summary['retrieval_gap']}")
+    want = {"flash_decode_spliced": layers * sp_steps,
+            "flash_decode_paged": layers * (steps - sp_steps)}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"chunk serve: {name} made {launches[name]} grid launches, "
+                 f"want {n} ({layers} layers x 1 grid x its steps)")
+    if launches["probe_topk_fused"] < 1 or any(
+            launches[n] for n in ("flash_decode", "ivf_topk", "centroid_scores")):
+        fail(f"chunk serve launched the wrong kernels: {launches}")
+    phase("check", f"chunk serve: flash_decode_spliced {want['flash_decode_spliced']}"
+          f" = {sp_steps} steps x {layers} layers, flash_decode_paged "
+          f"{want['flash_decode_paged']} = {steps - sp_steps} steps x {layers}; "
+          "hit rate 1.0, doc ids equal, ledgers drained to 0")
+    phase("aim", f"lookahead prefetched chunk pages: "
+          f"{'met' if ck.get('prefetched_pages', 0) > 0 else 'NOT met'} "
+          f"({ck.get('prefetched_pages')} pages)")
+    phase("kernels", json.dumps({"path": "chunk", **launches}))
+    return launches
+
+
 def check_model(ttf, get_arch):
     """One reduced Llama-3 decode step (fp32) through the kernel on the
     card against the same step through the plain version on the CPU:
@@ -1145,6 +1435,9 @@ def main() -> None:
         check_centroid(ops, ref, centroid_case(5, 30, 203, 0.15, seed=21), 9,
                        "odd shape"))
 
+    # the spliced-decode kernel against its plain version
+    err_spl = spliced_checks(fd, ref)
+
     check_model(ttf, get_arch)
 
     # 5) timing of kernel 5 (kernels 2 and 3 come after the serves)
@@ -1157,14 +1450,16 @@ def main() -> None:
     counted = {"flash_decode_paged": fd.flash_decode_paged,
                "probe_topk_fused": pt.probe_topk_fused, "ivf_topk": it.ivf_topk,
                "flash_decode": fd.flash_decode,
-               "centroid_scores": cp.centroid_scores}
+               "centroid_scores": cp.centroid_scores,
+               "flash_decode_spliced": fd.flash_decode_spliced}
     launches = {"check": {n: fn.launches for n, fn in counted.items()}}
     setup = serve.build(serve.parse_args(SERVE_ARGS))
+    summaries = {}
     for path, engine in (("fused", {}), ("unfused", {"fused_retrieval": False}),
                          ("dense", {"paged_decode": False})):
         for fn in counted.values():
             fn.launches = 0
-        summary = serve.serve(setup, **engine)
+        summary = summaries[path] = serve.serve(setup, **engine)
         launches[path] = {n: fn.launches for n, fn in counted.items()}
         phase("serve", json.dumps({"path": path, **{k: summary[k] for k in (
             "device", "arch", "layers", "retrieval", "decode", "continuous",
@@ -1190,15 +1485,19 @@ def main() -> None:
     want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
             "unfused": ("flash_decode_paged", "ivf_topk"),
             "dense": ("flash_decode", "probe_topk_fused")}
-    never = {"fused": ("flash_decode", "ivf_topk", "centroid_scores"),
-             "unfused": ("flash_decode", "probe_topk_fused", "centroid_scores"),
-             "dense": ("flash_decode_paged", "ivf_topk", "centroid_scores")}
+    never = {"fused": ("flash_decode", "ivf_topk", "centroid_scores",
+                       "flash_decode_spliced"),
+             "unfused": ("flash_decode", "probe_topk_fused", "centroid_scores",
+                         "flash_decode_spliced"),
+             "dense": ("flash_decode_paged", "ivf_topk", "centroid_scores",
+                       "flash_decode_spliced")}
     for path, names in want.items():
         if min(launches[path][n] for n in names) < 1:
             fail(f"a kernel of the {path} path never launched: {launches[path]}")
         if any(launches[path][n] for n in never[path]):
             fail(f"the {path} path launched one of {never[path]}: "
                  f"{launches[path]}")
+    launches["chunk"] = chunk_serve(serve, setup, summaries["fused"], counted)
     fused_ms, unfused_ms, hits, alone = retrieval_ab(serve, setup)
     q = lambda xs, p: float(np.percentile(xs, p))
     phase("time", f"one retrieval round, {hits} probed clusters all resident, "
@@ -1227,6 +1526,7 @@ def main() -> None:
     decode_t = decode_timing(fd, ref, smi)
     for aim, met, numbers in decode_aims(decode_t):
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
+    spliced_t = spliced_timing(fd, ref, smi)
     phase("aim", "each decode kernel at the serve shape: device time a call no "
           "higher than the parent's: judged by --decode-ab PARENT")
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
@@ -1267,6 +1567,15 @@ def main() -> None:
          "launches_by_path": {p: c["centroid_scores"]
                               for p, c in launches.items()},
          "max_abs_err": err_cent, **cent_t, "shape": [4, 768, 1024]},
+        {"name": "flash_decode_spliced", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode_spliced.cu",
+         "replaces": "none: no TPU kernel; the reference runs its jnp oracle "
+                     "src/repro/kernels/ref.py:93 in every mode "
+                     "(src/repro/kernels/ops.py:200)",
+         "launches": launches["chunk"]["flash_decode_spliced"],
+         "launches_by_path": {p: c["flash_decode_spliced"]
+                              for p, c in launches.items()},
+         "max_abs_err": err_spl, **decode_json(spliced_t)},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

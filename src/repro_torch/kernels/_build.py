@@ -30,7 +30,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every kernel source, csrc/<name>.cu
 SOURCES = ("flash_decode_paged", "probe_topk", "ivf_topk", "flash_decode",
-           "centroid_scores")
+           "centroid_scores", "flash_decode_spliced")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

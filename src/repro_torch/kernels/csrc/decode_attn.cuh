@@ -1,10 +1,15 @@
 // Single-token GQA decode attention for one (b, kv-head) and one split of
-// its cache positions, shared by the paged (flash_decode_paged.cu) and
-// the dense (flash_decode.cu) decode kernels.  The two differ only in
-// where a position's K/V row lives: through a block table into a page
-// slab, or at a fixed stride in a [B, S, KVH, Dh] cache.  Each kernel
-// computes its live positions [lo, hi) and hands decode_block a functor
-// from position to the element offset of that position's row.
+// its cache positions, shared by the paged (flash_decode_paged.cu), the
+// spliced (flash_decode_spliced.cu) and the dense (flash_decode.cu)
+// decode kernels.  They differ in where a position's K/V row lives:
+// through a block table into a page slab, or at a fixed stride in a
+// [B, S, KVH, Dh] cache.  Each kernel computes its positions [lo, hi)
+// and hands decode_block a functor from position to the element offset
+// of that position's row.  The spliced kernel also hands it a splice
+// policy (kOn = true): a position may be dead (never copied, scored
+// -inf, left out of P V), and a live row's K is rotated on its read
+// from shared memory; the other two pass NoSplice, which compiles to
+// the same code as before the policy existed.
 //
 // One grid a call: blockIdx.x is the split (whole kChunk-position chunks,
 // `split` positions each), blockIdx.y the kv-head, blockIdx.z the batch
@@ -125,18 +130,25 @@ struct Args {
   float scale;
 };
 
-// Copy positions [c0, c0 + n) of the chunk into stage buffers ks, vs.
-template <typename KT, int Dh, typename RowFn>
+// Every position in [lo, hi) is live and K is used as stored.
+struct NoSplice {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ bool live(int) const { return true; }
+};
+
+// Copy the live positions of [c0, c0 + n) of the chunk into stage buffers
+// ks, vs (a dead position's slot keeps stale data; it is never used).
+template <typename KT, int Dh, typename RowFn, typename Splice>
 __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict__ k,
                                             const KT* __restrict__ v, const RowFn& row,
-                                            int c0, int n) {
+                                            const Splice& pol, int c0, int n) {
   using T = Tile<KT, Dh>;
 #pragma unroll
   for (int i = 0; i < T::kCopies; ++i) {
     const int piece = threadIdx.x + i * kThreads;
     const int j = piece / T::kLanes;
     const int col = (piece % T::kLanes) * T::kVec;
-    if (j < n) {
+    if (j < n && pol.live(c0 + j)) {
       const long long off = row(c0 + j) + col;
       cp_async16(ks + j * Dh + col, k + off);
       cp_async16(vs + j * Dh + col, v + off);
@@ -145,11 +157,15 @@ __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict
   cp_async_commit();
 }
 
-// The block's work for row rid = b * KVH + h, whose live positions are
-// [lo, hi); row(t) is the element offset of position t's K/V row.
-template <typename QT, typename KT, int Dh, int GM, typename RowFn>
+// The block's work for row rid = b * KVH + h, whose positions are
+// [lo, hi); row(t) is the element offset of position t's K/V row.  With
+// a splice policy (Splice::kOn), pol.live(t) says whether position t is
+// live and pol.rotate(...) rotates a live K row slice in registers; the
+// block's copy of the policy may keep per-thread state (its angles).
+template <typename QT, typename KT, int Dh, int GM, typename RowFn,
+          typename Splice = NoSplice>
 __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int hi,
-                                             const RowFn& row) {
+                                             const RowFn& row, Splice pol = Splice()) {
   using T = Tile<KT, Dh>;
   constexpr int V = T::kVec;
   const int sp = blockIdx.x;
@@ -180,7 +196,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   const KT* k = static_cast<const KT*>(a.k);
   const KT* v = static_cast<const KT*>(a.v);
   const int nchunks = (s1 - s0 + kChunk - 1) / kChunk;
-  stage_chunk<KT, Dh>(stages, stages + T::kStage, k, v, row, s0, min(kChunk, s1 - s0));
+  stage_chunk<KT, Dh>(stages, stages + T::kStage, k, v, row, pol, s0, min(kChunk, s1 - s0));
 
   // this thread's head dims [sub * V, sub * V + V) of rows slot, slot + kSlots, ...
   const int sub = lane % T::kLanes;
@@ -209,18 +225,26 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     __syncthreads();   // chunk c is in; everyone is done with chunk c - 1
     if (c + 1 < nchunks) {
       KT* nx = stages + ((c + 1) & 1) * 2 * T::kStage;
-      stage_chunk<KT, Dh>(nx, nx + T::kStage, k, v, row, c0 + kChunk,
+      stage_chunk<KT, Dh>(nx, nx + T::kStage, k, v, row, pol, c0 + kChunk,
                           min(kChunk, s1 - c0 - kChunk));
     }
     const KT* ks = stages + (c & 1) * 2 * T::kStage;
     const KT* vs = ks + T::kStage;
 
-    // 1) scores, kLanes lanes a row; rows >= n hold stale data and are masked
+    // 1) scores, kLanes lanes a row; rows >= n (and dead rows) hold stale
+    //    data and are masked
+    bool live_row[kChunk / T::kSlots];   // a splice policy's liveness, for 3)
 #pragma unroll
     for (int it = 0; it < kChunk / T::kSlots; ++it) {
       const int j = slot + it * T::kSlots;
       float kf[V];
       load16(ks + j * Dh + sub * V, kf);
+      bool ok = j < n;
+      if constexpr (Splice::kOn) {
+        ok = ok && pol.live(c0 + j);
+        if (ok) pol.template rotate<KT, V>(ks + j * Dh, sub * V, c0 + j, kf);
+      }
+      live_row[it] = ok;
       float part[GM];
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
@@ -236,7 +260,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       }
       if (sub == 0) {
 #pragma unroll
-        for (int g = 0; g < GM; ++g) sc[g * kChunk + j] = j < n ? part[g] * a.scale : -INFINITY;
+        for (int g = 0; g < GM; ++g) sc[g * kChunk + j] = ok ? part[g] * a.scale : -INFINITY;
       }
     }
     __syncthreads();
@@ -248,7 +272,11 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       const float x0 = sc[g * kChunk + lane];
       const float x1 = sc[g * kChunk + lane + 32];
       const float m_new = fmaxf(m_run[g], warp_max(fmaxf(x0, x1)));
-      const float sum = warp_sum(expf(x0 - m_new) + expf(x1 - m_new));
+      float m_exp = m_new;
+      // a spliced chunk may have no live position yet: keep -inf - -inf
+      // out of the sum, so such a split reaches the combine as (-inf, 0, 0)
+      if constexpr (Splice::kOn) m_exp = m_new == -INFINITY ? 0.f : m_new;
+      const float sum = warp_sum(expf(x0 - m_exp) + expf(x1 - m_exp));
       corr[g] = m_run[g] == -INFINITY ? 0.f : expf(m_run[g] - m_new);
       l_run[g] = l_run[g] * corr[g] + sum;
       m_run[g] = m_new;
@@ -263,7 +291,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
 #pragma unroll
     for (int it = 0; it < kChunk / T::kSlots; ++it) {
       const int j = slot + it * T::kSlots;
-      if (j < n) {
+      if (Splice::kOn ? live_row[it] : j < n) {
         float vf[V];
         load16(vs + j * Dh + sub * V, vf);
 #pragma unroll

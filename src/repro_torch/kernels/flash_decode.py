@@ -1,14 +1,18 @@
-"""Single-token decode attention, dense and paged: the CUDA kernels'
-wrappers and their plain versions.
+"""Single-token decode attention, dense, paged and spliced: the CUDA
+kernels' wrappers and their plain versions.
 
-``flash_decode`` (dense [B, S, KVH, Dh] cache, per-row ``pos``) and
-``flash_decode_paged`` (block-table KV) dispatch by the tensor's device
-alone: a CPU tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref``;
-a CUDA tensor launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_paged.cu``
-on the current stream (built on first use) or raises.  Both kernels split
-every sequence over positions (``_splits``: whole 64-position chunks,
-enough blocks for several per SM) and combine the splits inside the same
-launch, so each wrapper's ``launches`` counts one grid launch a call.
+``flash_decode`` (dense [B, S, KVH, Dh] cache, per-row ``pos``),
+``flash_decode_paged`` (block-table KV) and ``flash_decode_spliced``
+(block-table KV with spliced chunk-KV pages: a RoPE offset and a
+live-token count per page) dispatch by the tensor's device alone: a CPU
+tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref`` /
+``flash_decode_spliced_ref``; a CUDA tensor launches
+``csrc/flash_decode.cu`` / ``csrc/flash_decode_paged.cu`` /
+``csrc/flash_decode_spliced.cu`` on the current stream (built on first
+use) or raises.  All three kernels split every sequence over positions
+(``_splits``: whole 64-position chunks, enough blocks for several per SM)
+and combine the splits inside the same launch, so each wrapper's
+``launches`` counts one grid launch a call.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
+from repro_torch.kernels.ref import (flash_decode_paged_ref, flash_decode_ref,
+                                     flash_decode_spliced_ref)
+from repro_torch.models.layers import rope_frequencies
 
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
            (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
@@ -32,12 +38,18 @@ _ARGTYPES = {
                           + [ctypes.c_float, _P],
     "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 8
                     + [ctypes.c_float, _P],
+    "flash_decode_spliced": [_P, _I, _P, _P, _I] + [_P] * 10 + [_I] * 9
+                            + [ctypes.c_float, _P],
 }
 _fns = {}
 _sms: Dict[int, int] = {}                          # device index -> SM count
 # (device index, stream) -> (split counters [rows] int32, zero between
 # launches; fp32 scratch for the splits' partial (m, l, acc))
 _work: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+# (device index, Dh, rope fraction, theta) -> the fp32 RoPE frequencies
+# [max(rot/2, 1)] the spliced kernel reads, from the port's own
+# rope_frequencies on that device (the plain version's table)
+_freqs: Dict[Tuple[int, int, float, float], torch.Tensor] = {}
 
 
 def _kernel(name: str):
@@ -110,10 +122,10 @@ def _workspace(device: torch.device, stream: int, rows: int, floats: int
 
 
 def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
-            S: int, head: tuple, tail: tuple, window: int) -> torch.Tensor:
+            S: int, head: tuple, tail: tuple) -> torch.Tensor:
     """One grid launch of kernel ``name`` over S positions a row; ``head``
     are the arguments between k/v and the output, ``tail`` those between
-    the counters and (window, split, nsplit)."""
+    the counters and (split, nsplit)."""
     B, KVH, G, Dh = q.shape
     rows = B * KVH
     dev = q.device
@@ -128,7 +140,7 @@ def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
     err = _kernel(name)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kv.data_ptr(),
         v.data_ptr(), int(kv.dtype == torch.bfloat16), *head, out.data_ptr(),
-        pm, pm + 4 * n, pm + 8 * n, count.data_ptr(), *tail, int(window),
+        pm, pm + 4 * n, pm + 8 * n, count.data_ptr(), *tail,
         split, nsplit, 1.0 / math.sqrt(Dh), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -171,7 +183,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, KVH, G, Dh = q.shape
     S = k.shape[1]
     out = _launch("flash_decode", q, k, v, S, (pos.data_ptr(),),
-                  (B, S, KVH, G, Dh), window)
+                  (B, S, KVH, G, Dh, int(window)))
     flash_decode.launches += 1
     return out
 
@@ -179,10 +191,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode.launches = 0
 
 
-def _check_paged(q, k_pages, v_pages, block_table, lengths) -> None:
+def _check_paged(q, k_pages, v_pages, block_table, lengths, **tables) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_table", block_table), ("lengths", lengths)):
+                    ("block_table", block_table), ("lengths", lengths),
+                    *tables.items()):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -197,6 +210,10 @@ def _check_paged(q, k_pages, v_pages, block_table, lengths) -> None:
             or lengths.shape != (B,):
         raise ValueError(f"block_table {tuple(block_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
+    for name, t in tables.items():
+        if t.shape != block_table.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"block_table {tuple(block_table.shape)}")
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -224,9 +241,69 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     MB = block_table.shape[1]
     out = _launch("flash_decode_paged", q, k_pages, v_pages, MB * ps,
                   (block_table.data_ptr(), lengths.data_ptr()),
-                  (B, KVH, G, Dh, ps, MB), window)
+                  (B, KVH, G, Dh, ps, MB, int(window)))
     flash_decode_paged.launches += 1
     return out
 
 
 flash_decode_paged.launches = 0
+
+
+def _rope_table(dev: torch.device, Dh: int, fraction: float,
+                theta: float) -> torch.Tensor:
+    key = (dev.index, Dh, float(fraction), float(theta))
+    t = _freqs.get(key)
+    if t is None:
+        f = rope_frequencies(Dh, fraction, theta, device=dev)
+        t = _freqs[key] = f if f.numel() else torch.zeros(1, device=dev)
+    return t
+
+
+def flash_decode_spliced(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_table: torch.Tensor,
+                         lengths: torch.Tensor, page_delta: torch.Tensor,
+                         page_valid: torch.Tensor, *,
+                         rope_fraction: float = 1.0,
+                         rope_theta: float = 10_000.0) -> torch.Tensor:
+    """Block-table decode attention over paged KV that holds spliced
+    chunk-KV pages, read in place.
+
+    q [B, KVH, G, Dh]; k_pages, v_pages [NP, ps, KVH, Dh]; block_table,
+    page_delta, page_valid [B, MB] int32 (-1 columns carry valid 0);
+    lengths [B] int32 layout positions (>= 1; the new token at
+    ``lengths - 1``).  Each page's K is rotated by its ``page_delta``
+    (rotate-half RoPE over ``rope_fraction`` of Dh, base ``rope_theta``)
+    and rounded back to the page dtype before the fp32 product; slots at
+    or past a page's ``page_valid`` are masked and never read.  Returns
+    [B, KVH, G, Dh] fp32, equal to ``flash_decode_spliced_ref`` within
+    fp32 summation-order error.  On the card one grid launch, split as
+    ``flash_decode_paged`` splits; ``flash_decode_spliced.launches``
+    counts it.
+    """
+    _check_paged(q, k_pages, v_pages, block_table, lengths,
+                 page_delta=page_delta, page_valid=page_valid)
+    if q.device.type == "cpu":
+        return flash_decode_spliced_ref(
+            q, k_pages, v_pages, block_table, lengths, page_delta,
+            page_valid, rope_fraction=rope_fraction, rope_theta=rope_theta)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_spliced runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_launch(q, k_pages, v_pages, block_table=block_table,
+                  lengths=lengths, page_delta=page_delta,
+                  page_valid=page_valid)
+    B, KVH, G, Dh = q.shape
+    ps = k_pages.shape[1]
+    MB = block_table.shape[1]
+    rot = int(Dh * rope_fraction) // 2 * 2
+    freq = _rope_table(q.device, Dh, rope_fraction, rope_theta)
+    out = _launch("flash_decode_spliced", q, k_pages, v_pages, MB * ps,
+                  (block_table.data_ptr(), lengths.data_ptr(),
+                   page_delta.data_ptr(), page_valid.data_ptr(),
+                   freq.data_ptr()),
+                  (B, KVH, G, Dh, ps, MB, rot))
+    flash_decode_spliced.launches += 1
+    return out
+
+
+flash_decode_spliced.launches = 0

@@ -5,9 +5,10 @@ There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
 hand-written kernels or raise.  Launch counts live on the wrappers,
 and each adds to its count only where it launches on the card:
-``flash_decode.launches``, ``flash_decode_paged.launches`` and
-``centroid_scores.launches`` count calls, each one grid launch (the
-decode kernels combine their splits inside it);
+``flash_decode.launches``, ``flash_decode_paged.launches``,
+``flash_decode_spliced.launches`` and ``centroid_scores.launches``
+count calls, each one grid launch (the decode kernels combine their
+splits inside it);
 ``probe_topk_fused.launches`` and
 ``ivf_topk.launches`` count calls, each two grid launches (probe, then
 page search and merge) and one (page search and merge).
@@ -80,3 +81,20 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     with per-request ``lengths`` [B]."""
     return _flash.flash_decode_paged(q, k_pages, v_pages, block_table,
                                      lengths, window=window)
+
+
+def flash_decode_spliced(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_table: torch.Tensor,
+                         lengths: torch.Tensor, page_delta: torch.Tensor,
+                         page_valid: torch.Tensor, *,
+                         rope_fraction: float = 1.0,
+                         rope_theta: float = 10_000.0) -> torch.Tensor:
+    """Paged decode attention over a block table mixing fresh pages with
+    spliced chunk-KV pages: each page's K rotated by ``page_delta``
+    [B,MB] (the constant RoPE offset per page), dead slots masked by
+    ``page_valid`` [B,MB] (live tokens per page).  The reference has no
+    Pallas kernel for it (every mode runs its jnp oracle); the port's
+    CUDA kernel is ``flash_decode_paged``'s with those two changes."""
+    return _flash.flash_decode_spliced(
+        q, k_pages, v_pages, block_table, lengths, page_delta, page_valid,
+        rope_fraction=rope_fraction, rope_theta=rope_theta)

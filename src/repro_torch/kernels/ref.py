@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.models.layers import apply_rope
+
 
 def ivf_topk_ref(pages: torch.Tensor, page_ids: torch.Tensor,
                  page_mask: torch.Tensor, queries: torch.Tensor, k: int,
@@ -110,3 +112,45 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
     k = k_pages[bt].reshape(B, MB * ps, KVH, Dh)
     v = v_pages[bt].reshape(B, MB * ps, KVH, Dh)
     return flash_decode_ref(q, k, v, lengths - 1, window)
+
+
+def flash_decode_spliced_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, block_table: torch.Tensor,
+                             lengths: torch.Tensor, page_delta: torch.Tensor,
+                             page_valid: torch.Tensor, *,
+                             rope_fraction: float = 1.0,
+                             rope_theta: float = 10_000.0) -> torch.Tensor:
+    """Paged decode attention over a block table that mixes fresh pages
+    with **spliced** chunk-KV pages (reordered RoPE, TurboRAG).
+
+    Spliced pages hold K rotated at chunk-local positions; rotations
+    compose, so rotating a page's stored K by its constant layout offset
+    ``page_delta[b, blk]`` reindexes it to the wave's positions (the
+    rotated K is rounded back to the page dtype, as ``apply_rope``
+    returns).  ``page_valid[b, blk]`` live tokens per page (< ps only on a
+    chunk's partial last page; 0 on -1 columns): dead slots are masked.
+    Fresh pages carry delta 0 and valid ps.
+
+    q [B, KVH, G, Dh]; k_pages, v_pages [NP, ps, KVH, Dh]; block_table,
+    page_delta, page_valid [B, MB] int32; lengths [B] int32 (the new
+    token at layout position ``lengths - 1``).  Returns [B, KVH, G, Dh]
+    fp32.
+    """
+    B, MB = block_table.shape
+    NP, ps, KVH, Dh = k_pages.shape
+    bt = block_table.long().clamp(min=0)
+    k = k_pages[bt]                                    # [B, MB, ps, KVH, Dh]
+    v = v_pages[bt]
+    k = apply_rope(k, page_delta[:, :, None].expand(B, MB, ps),
+                   fraction=rope_fraction, theta=rope_theta)
+    k = k.reshape(B, MB * ps, KVH, Dh)
+    v = v.reshape(B, MB * ps, KVH, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    kp = torch.arange(MB * ps, dtype=torch.int32, device=k.device)
+    live = (kp[None, :] % ps) < page_valid.repeat_interleave(ps, dim=1)
+    causal = kp[None, :] <= (lengths.to(torch.int32) - 1)[:, None]
+    mask = (live & causal)[:, None, None, :]
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float())

@@ -15,9 +15,15 @@ retrieval (fused by default; ``serve(setup, fused_retrieval=False)``
 takes the unfused ``ivf_topk`` path).  Decode is paged by default
 (``flash_decode_paged``); ``--dense-decode`` or ``serve(setup,
 paged_decode=False)`` decodes over dense ``[B, max_len]`` buckets
-(``flash_decode``).  Per-request continuous batching is the default;
-``--static-groups`` runs the legacy group-granular discipline.
-``serve`` may run several times over one ``build``.
+(``flash_decode``).  ``serve(setup, chunk_store=store, chunk_kv=True)``
+splices each wave's previously retrieved documents from a precomputed
+chunk-KV store (``data.chunk_kv.build_chunk_kv``) and decodes those
+waves with ``flash_decode_spliced``; the pool and the KV slab grow by
+the store's pages, so every stored doc can be resident at once (there
+is no CLI flag for it, as the reference has none).  Per-request
+continuous batching is the default; ``--static-groups`` runs the legacy
+group-granular discipline.  ``serve`` may run several times over one
+``build``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pipeline irg \\
         --requests 8 --batch 4 [--dense-decode] [--trace-out trace.json]
@@ -41,6 +47,7 @@ from repro_torch.core.datastore import Datastore, synthetic_datastore
 from repro_torch.core.hybrid_search import host_search
 from repro_torch.core.ivf import IVFIndex, build_ivf, probe
 from repro_torch.core.prefetch_buffer import host_pages
+from repro_torch.data.chunk_kv import ChunkKVStore
 from repro_torch.models import transformer as tf
 from repro_torch.obs.analyze import analyze
 from repro_torch.obs.clock import SystemClock
@@ -209,27 +216,46 @@ class _PhaseLog:
 
     def wrap_hook(self, hook):
         def timed(replica, records, gen_tokens, rnd):
+            spliced = hook.stats["spliced_waves"]
             t0 = self.clock.perf()
             evs = hook(replica, records, gen_tokens, rnd)
             self.decode.append({"ms": (self.clock.perf() - t0) * 1e3,
                                 "batch": len(records),
                                 "steps": max((e.tokens for e in evs),
-                                             default=0)})
+                                             default=0),
+                                "spliced": hook.stats["spliced_waves"]
+                                > spliced})
             return evs
         return timed
 
 
-def serve(setup: Setup, **engine) -> Dict[str, object]:
+def serve(setup: Setup, *, chunk_store: Optional[ChunkKVStore] = None,
+          replay: bool = False, **engine) -> Dict[str, object]:
     """Serve ``--requests`` requests through a fresh ``TeleRAGServer``
     over ``setup``; ``engine`` overrides ``EngineConfig`` fields (e.g.
-    ``fused_retrieval=False`` or ``paged_decode=False``).  Prints a
-    report and returns a summary dict (``chip_smoke.py`` reads it)."""
+    ``fused_retrieval=False``, ``paged_decode=False``, ``chunk_kv=True``
+    or ``pool_pages``).  ``chunk_store`` goes to the ``DecodeRunner``;
+    the pool (unless ``pool_pages`` is given) and the KV slab then also
+    hold every page of it, and after serving the chunk residency and KV
+    buckets are drained and the ledger read back.  ``replay=True`` runs
+    the server on the deterministic event clock (decode adds no event
+    time; the host-clock phase times below are still measured), so two
+    serves that differ only in how they decode form the same waves and
+    draw the same query rewrites.  Prints a report and returns a summary
+    dict (``chip_smoke.py`` reads it)."""
     args, dev, index = setup.args, setup.device, setup.index
     say = (lambda *a: None) if args.quiet else print
     clock = SystemClock()
-    kv_bytes = KVCacheManager(setup.arch, device=dev).nbytes(args.batch,
-                                                             args.max_len)
+    kvm = KVCacheManager(setup.arch, device=dev)
+    kv_bytes = kvm.nbytes(args.batch, args.max_len)
     page_bytes = index.paged.page_nbytes()
+    slab_seqs = max(2 * args.batch, 8)
+    chunk_pages = chunk_store.total_pages() if chunk_store is not None else 0
+    if chunk_pages:
+        # one KV page (k+v, all layers) is nbytes(1, page size) bytes
+        chunk_bytes = chunk_pages * kvm.nbytes(1, args.kv_page_size)
+        kv_bytes += chunk_bytes
+        slab_seqs += -(-chunk_pages // -(-args.max_len // args.kv_page_size))
     cfg = EngineConfig(**{**dict(
         nprobe=args.nprobe, top_k=args.top_k, buffer_pages=args.buffer_pages,
         pool_pages=args.buffer_pages + -(-kv_bytes // page_bytes),
@@ -239,11 +265,12 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
     runner = DecodeRunner(setup.model, max_len=args.max_len,
                           max_steps=args.max_steps,
                           page_size=args.kv_page_size,
-                          slab_seqs=max(2 * args.batch, 8))
+                          slab_seqs=slab_seqs, chunk_store=chunk_store)
     log = _PhaseLog(clock)
     srv = TeleRAGServer(index, cfg, 1, setup.arch, micro_batch=args.batch,
                         include_tail=True, decode_hook=log.wrap_hook(runner),
-                        continuous=not args.static_groups, wall_clock=clock)
+                        continuous=not args.static_groups,
+                        wall_clock=None if replay else clock)
     runner.attach(srv)
     eng = srv.engines[0]
     eng.calibrate_tcc()
@@ -290,9 +317,19 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
         f"MB in {len(copy_ms)} copies ({sum(copy_ms):.2f} ms on the copy "
         f"stream); retrieval vs exact host search: max score gap {gap:.2e}")
     say(f"# event-clock {summarize_latency(responses)}")
-    say(srv.telemetry().summary())
+    telemetry = srv.telemetry()
+    say(telemetry.summary())
     report = analyze(srv.recorder)
     say(report.summary())
+    chunk = runner.chunk(0)
+    spliced_steps = sum(w["steps"] for w in log.decode if w["spliced"])
+    drained = {}
+    if chunk is not None:
+        say(f"# chunk-KV: {runner.stats['spliced_waves']} spliced waves "
+            f"({spliced_steps} steps), {chunk.stats.as_dict()}")
+        chunk.drain()
+        runner.kv(0).drop_all()
+        drained = {c: eng.ledger.bytes_of(c) for c in ("kv", "chunk_kv")}
     if args.trace_out:
         write_trace(srv.recorder, args.trace_out)
         jl = os.path.splitext(args.trace_out)[0] + ".jsonl"
@@ -315,6 +352,10 @@ def serve(setup: Setup, **engine) -> Dict[str, object]:
         "copy_ms": copy_ms, "copy_bytes": copy_bytes, "wall_s": wall,
         "index_s": setup.index_s, "bytes_h2d": eng.buffer.stats.bytes_h2d,
         "retrieval_gap": gap, "pressure_stall_s": report.stall["pressure_s"],
+        "spliced_waves": runner.stats["spliced_waves"],
+        "spliced_steps": spliced_steps,
+        "chunk_kv": dict(telemetry.replicas[0].chunk_kv),
+        "ledger_after_drain": drained,
     }
 
 

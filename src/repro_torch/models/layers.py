@@ -2,11 +2,14 @@
 
 Numerics follow the reference's ``models/layers.py`` exactly: RMSNorm in
 fp32 with a ``(1 + scale)`` gain, rotary embedding over split halves with
-fp32 angles, and the gated MLP as ``act(x @ w_gate) * (x @ w_up)``.
+fp32 angles, the gated MLP as ``act(x @ w_gate) * (x @ w_up)``, and the
+prefill's causal ``chunked_attention`` (fp32 scores, probabilities cast
+to the K/V dtype before P·V).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -73,3 +76,60 @@ def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     else:
         h = activation(act)(up)
     return h @ p["w_down"]
+
+
+def _best_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (>= 1)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      chunk: int = 1024, q_chunk: int = 256) -> torch.Tensor:
+    """Causal attention tiled over both the query and the KV dims, with an
+    online softmax: the reference's ``layers.chunked_attention`` for the
+    global-causal family (no window, no logit softcap, no valid-length
+    mask; Llama needs none of them).
+
+    q [B, Sq, KVH, G, Dh] (grouped query heads); k, v [B, Skv, KVH, Dh];
+    positions [Sq] and [Skv].  Live scores are [B, KVH, G, q_chunk,
+    kv_chunk], never Sq x Skv.  Rounding as the reference's: q scaled in
+    fp32, scores in fp32 against K in its own dtype's values, the
+    probabilities cast to the V dtype before P·V, fp32 accumulation.
+    Returns [B, Sq, KVH, G, Dh] in q's dtype.
+    """
+    B, Sq, KVH, G, Dh = q.shape
+    Skv = k.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+    kv_c = _best_chunk(Skv, chunk)
+    q_c = _best_chunk(Sq, q_chunk)
+    outs = []
+    for q0 in range(0, Sq, q_c):
+        q32 = q[:, q0:q0 + q_c].float() * scale        # [B, q_c, KVH, G, Dh]
+        qp = q_positions[q0:q0 + q_c][:, None]           # [q_c, 1]
+        m = torch.full((B, KVH, G, q_c), float("-inf"), device=q.device)
+        l = torch.zeros((B, KVH, G, q_c), device=q.device)
+        acc = torch.zeros((B, KVH, G, q_c, Dh), device=q.device)
+        for k0 in range(0, Skv, kv_c):
+            kc, vc = k[:, k0:k0 + kv_c], v[:, k0:k0 + kv_c]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc.float())
+            mask = kv_positions[k0:k0 + kv_c][None, :] <= qp   # [q_c, kv_c]
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new,
+                                 torch.zeros_like(m_new))
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]),
+                            torch.zeros_like(s))
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                               torch.zeros_like(m))
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vc.dtype).float(),
+                              vc.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-20)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1)

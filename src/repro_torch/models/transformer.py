@@ -3,12 +3,17 @@
 Parameters are stacked along a leading layer dim, exactly like the
 reference's pytree (``layers.attn.wq`` [L, d, H, Dh], ...), so
 ``from_jax_params`` carries a reference ``init_params`` tree across as
-is.  Two decode steps share one per-layer body (norm, attention, MLP)
-and differ only in the attention (``models/attention.py``):
+is.  ``forward`` runs a whole sequence (causal ``attn_forward`` per
+layer) and ``prefill`` returns its last-token logits and its K/V cache.
+Three decode steps share one per-layer body (norm, attention, MLP) and
+differ only in the attention (``models/attention.py``):
 ``serve_step_paged`` writes the new token's K/V into a block-table page
-slab and attends with the ``flash_decode_paged`` kernel; ``serve_step``
-writes it into a dense ``init_cache`` cache and attends with the
-``flash_decode`` kernel.  Prefill, MoE, MLA and SSM are not ported yet.
+slab and attends with the ``flash_decode_paged`` kernel;
+``serve_step_paged_spliced`` does the same over a table that also holds
+spliced chunk-KV pages and attends with the ``flash_decode_spliced``
+kernel; ``serve_step`` writes it into a dense ``init_cache`` cache and
+attends with the ``flash_decode`` kernel.  MoE, MLA and SSM are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -153,6 +158,47 @@ def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return softcap(x @ model.unembed, model.cfg.final_logit_softcap)
 
 
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            attn_chunk: int = 1024, want_cache: bool = False,
+            ) -> Tuple[torch.Tensor, torch.Tensor,
+                       Optional[Dict[str, torch.Tensor]]]:
+    """Full-sequence forward of the GQA family: tokens [B, S] at positions
+    0..S-1.  Returns (hidden [B, S, d] after the final norm, aux loss (0:
+    no MoE), cache or None); ``want_cache`` gives {"k", "v"} [L, B, S,
+    KVH, Dh], k rotated, in the model's dtype, as the reference's
+    ``forward`` lays out its attention cache."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)                      # [B, S, d]
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        lp = model.layer(l)
+        a_out, (k, v) = attn.attn_forward(
+            lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+            positions=positions, attn_chunk=attn_chunk)
+        x = x + a_out
+        m_in = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated)
+        if want_cache:
+            ks.append(k)
+            vs.append(v)
+    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache
+             else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
+
+
+def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
+            attn_chunk: int = 1024,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-prompt forward of ``inputs["tokens"]`` [B, S]: returns
+    (last-token logits [B, V], cache {"k", "v"} [L, B, S, KVH, Dh] at the
+    prompt's length)."""
+    x, _, cache = forward(model, inputs["tokens"], attn_chunk=attn_chunk,
+                          want_cache=True)
+    return unembed(model, x[:, -1, :]), cache
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
@@ -239,5 +285,42 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
         return attn.attn_decode_paged(lp, a_in, cfg, k_slab[l], v_slab[l],
                                       block_table, lengths, slot, off,
                                       attn_len)
+
+    return _decode(model, inputs["token"], attend), k_slab, v_slab
+
+
+def serve_step_paged_spliced(model: Transformer, k_slab: torch.Tensor,
+                             v_slab: torch.Tensor, block_table: torch.Tensor,
+                             lengths: torch.Tensor, page_delta: torch.Tensor,
+                             page_valid: torch.Tensor,
+                             inputs: Dict[str, torch.Tensor],
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``serve_step_paged`` over a block table that mixes fresh pages with
+    **spliced** chunk-KV pages (reordered RoPE, TurboRAG).
+
+    Spliced pages hold K/V prefilled offline at chunk-local positions and
+    attach by block-table edit (``KVCacheManager.splice_paged``): at
+    attention time each page's stored K is rotated by its constant layout
+    offset ``page_delta`` [B, MB] and the dead tail of a chunk's partial
+    last page is masked by ``page_valid`` [B, MB] live-token counts;
+    fresh pages carry delta 0 and valid ``ps``, so an all-fresh table
+    gives ``serve_step_paged``'s numbers.  The new token is rotated and
+    written IN PLACE at layout position ``lengths`` as there, and
+    attention runs over ``lengths + 1`` layout positions with
+    ``kernels.ops.flash_decode_spliced``.  Returns (logits [B, V],
+    k_slab, v_slab), the slabs updated in place.
+    """
+    cfg = model.cfg
+    ps = k_slab.shape[2]
+    lens = lengths.long()
+    slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]
+    off = lens % ps
+    attn_len = (lengths + 1).to(torch.int32)
+
+    def attend(l, lp, a_in):
+        return attn.attn_decode_spliced(lp, a_in, cfg, k_slab[l], v_slab[l],
+                                        block_table, lengths, page_delta,
+                                        page_valid, slot, off, attn_len)
 
     return _decode(model, inputs["token"], attend), k_slab, v_slab

@@ -19,20 +19,32 @@ a raising step cannot leak slab pages or pool bytes, and tenant-tag the
 lease.  ``PoolExhausted`` from either acquire propagates: the
 ``RetrievalRuntime`` sheds and parks on it.
 
+Chunk-KV splicing (``EngineConfig.chunk_kv`` with a ``chunk_store``, on
+the paged path): each row's documents from its previous retrieval round
+(at most ``chunk_kv_docs``) are loaded and pinned from precomputed pages
+(``ChunkKVCache.acquire_rows``) and spliced into the fresh lease ahead of
+its own pages (``splice_paged``); the wave then decodes through
+``transformer.serve_step_paged_spliced`` (the ``flash_decode_spliced``
+kernel), and the pins go back to warm residency in the same ``finally``
+that frees the lease.
+
 ``attach(server)`` adopts the server's wall clock (launch drivers inject
 ``SystemClock``; the library default is the deterministic event clock)
-and the first engine's ``paged_decode``, and builds one KV manager per
-replica engine.
+and the first engine's ``paged_decode`` and chunk-KV settings, and builds
+one KV manager per replica engine, and one ``ChunkKVCache`` beside it
+when splicing is on.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.data.chunk_kv import ChunkKVStore
 from repro_torch.models import transformer as tf
+from repro_torch.serving.chunk_kv import ChunkKVCache
 from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.runtime import DecodeEvent
 from repro_torch.serving.sampler import sample
@@ -56,15 +68,19 @@ class DecodeRunner:
     ``attach(server)`` to build one pool-backed ``KVCacheManager`` per
     replica engine and take the path from the engine's
     ``paged_decode``.  ``records`` are any objects with ``request_id``
-    and ``tenant``."""
+    and ``tenant`` (and ``result.doc_ids`` when chunk-KV splicing is on)."""
 
     def __init__(self, model: tf.Transformer, *, max_len: int = 128,
                  max_steps: int = 32, page_size: int = 16,
-                 slab_seqs: int = 16, kv_dtype: torch.dtype = torch.bfloat16):
+                 slab_seqs: int = 16, kv_dtype: torch.dtype = torch.bfloat16,
+                 chunk_store: Optional[ChunkKVStore] = None):
         """``slab_seqs`` sizes the paged KV slab: page slots for that many
-        concurrent ``max_len`` sequences.  KV (slab or dense buckets) is
-        stored in ``kv_dtype`` (bf16, as the reference's, whatever the
-        weights' dtype)."""
+        concurrent ``max_len`` sequences (chunk residency shares it).  KV
+        (slab or dense buckets) is stored in ``kv_dtype`` (bf16, as the
+        reference's, whatever the weights' dtype).  ``chunk_store`` is
+        the offline-built chunk-KV corpus (``data.chunk_kv``): when given
+        and the engine enables ``chunk_kv``, each wave's previous-round
+        documents are spliced in from precomputed pages."""
         self.model = model
         self.cfg = model.cfg
         self.max_len = max_len
@@ -72,24 +88,36 @@ class DecodeRunner:
         self.page_size = page_size
         self.slab_seqs = slab_seqs
         self.kv_dtype = kv_dtype
+        self.chunk_store = chunk_store
+        self.chunk_docs = 0                    # attach() takes the engine's
         self.paged = True                      # attach() takes the engine's
         self.clock = None                      # attach() adopts server.wall
         self._kv: Dict[int, KVCacheManager] = {}
+        self._chunk: Dict[int, ChunkKVCache] = {}
         # per-request generated tokens, per round
         self.generated: Dict[int, List[Tuple[int, ...]]] = {}
         self.stats = {"paged_waves": 0, "dense_waves": 0,
-                      "paged_appends": 0, "dense_steps": 0}
+                      "paged_appends": 0, "dense_steps": 0,
+                      "spliced_waves": 0}
 
     def attach(self, server) -> "DecodeRunner":
         """Bind to a constructed ``TeleRAGServer`` (or anything with its
         ``wall`` and ``engines``): the path from the first engine's
         ``paged_decode``, one KV manager per replica engine (paged mode
         also allocates its slab), each charged to that engine's pool, and
-        ``server.wall.perf()`` to time the steps."""
+        ``server.wall.perf()`` to time the steps.  With the engine's
+        ``chunk_kv`` on, a paged path and a ``chunk_store``, each replica
+        also gets a ``ChunkKVCache`` over its slab, set as the engine's
+        ``chunk_kv`` too (its spill chain and lookahead prefetch reach
+        chunk residency through it)."""
         self.clock = server.wall
+        eng0 = server.engines[0]
         # every model the port builds passed check_supported, so it can
         # decode paged: the engine's flag alone picks the path
-        self.paged = bool(server.engines[0].cfg.paged_decode)
+        self.paged = bool(eng0.cfg.paged_decode)
+        want_chunk = (self.paged and eng0.cfg.chunk_kv
+                      and self.chunk_store is not None)
+        self.chunk_docs = eng0.cfg.chunk_kv_docs
         blocks = -(-self.max_len // self.page_size)
         for r, eng in enumerate(server.engines):
             kv = KVCacheManager(self.cfg, self.kv_dtype, pool=eng.pool,
@@ -98,7 +126,19 @@ class DecodeRunner:
                 kv.init_paged(num_pages=self.slab_seqs * blocks,
                               page_size=self.page_size)
             self._kv[r] = kv
+            if want_chunk:
+                self._chunk[r] = eng.chunk_kv = ChunkKVCache(
+                    kv, self.chunk_store)
         return self
+
+    def kv(self, replica: int = 0) -> KVCacheManager:
+        """The replica's KV manager (``attach`` must have run)."""
+        return self._kv[replica]
+
+    def chunk(self, replica: int = 0) -> Optional[ChunkKVCache]:
+        """The replica's chunk-KV residency cache (None when splicing is
+        off on this runner)."""
+        return self._chunk.get(replica)
 
     def __call__(self, replica: int, records, gen_tokens: Sequence[int],
                  rnd: int) -> List[DecodeEvent]:
@@ -109,8 +149,20 @@ class DecodeRunner:
             raise RuntimeError("DecodeRunner.attach(server) before serving")
         n = len(records)
         steps = min(max(gen_tokens, default=0), self.max_steps)
-        run = self._run_paged if self.paged else self._run_dense
-        toks, per_step = run(self._kv[replica], n, steps, records[0].tenant)
+        kv, tenant = self._kv[replica], records[0].tenant
+        if self.paged:
+            chunk = self._chunk.get(replica)
+            row_docs = None
+            if chunk is not None:
+                # each row's context: the docs its previous retrieval
+                # round returned (round 0 has none yet)
+                row_docs = [[int(d) for d in r.result.doc_ids[-1]]
+                            [:self.chunk_docs] if r.result.doc_ids else []
+                            for r in records]
+            toks, per_step = self._run_paged(kv, n, steps, tenant,
+                                             chunk=chunk, row_docs=row_docs)
+        else:
+            toks, per_step = self._run_dense(kv, n, steps, tenant)
         for j, r in enumerate(records):
             self.generated.setdefault(r.request_id, []).append(
                 tuple(int(t[j]) for t in toks))
@@ -119,22 +171,44 @@ class DecodeRunner:
                             seconds=per_step * (min(g, steps) if g else 0))
                 for r, g in zip(records, gen_tokens)]
 
-    def _run_paged(self, kv: KVCacheManager, n: int, steps: int, tenant: str):
+    def _run_paged(self, kv: KVCacheManager, n: int, steps: int, tenant: str,
+                   *, chunk: Optional[ChunkKVCache] = None,
+                   row_docs: Optional[List[List[int]]] = None):
         """acquire_paged -> (serve_step_paged + append_paged) per step ->
         release_paged.  ``PoolExhausted`` from the acquire propagates.
         Tokens stay on the device between steps; the one host sync is the
-        final read of the generated tokens."""
+        final read of the generated tokens.
+
+        With a chunk cache and per-row doc ids, the docs' precomputed
+        pages are loaded, pinned and spliced into the fresh lease before
+        the first step, and every step runs ``serve_step_paged_spliced``;
+        the pins go back to warm residency after the lease is released,
+        in the same ``finally``."""
         self.stats["paged_waves"] += 1
         lease = kv.acquire_paged(n, self.max_len, tenant=tenant)
         dev = self.model.device
+        pinned: List[int] = []
         try:
-            bt, lens = lease.device_tables(dev)
+            if chunk is not None and row_docs and any(row_docs):
+                row_chunks, pinned, _ = chunk.acquire_rows(row_docs,
+                                                           tenant=tenant)
+                if kv.splice_paged(lease, row_chunks):
+                    self.stats["spliced_waves"] += 1
+            if lease.spliced_pages:
+                bt, lens, dl, vd = lease.device_splice_tables(dev)
+                step = lambda tok: tf.serve_step_paged_spliced(
+                    self.model, kv.slab.k, kv.slab.v, bt, lens, dl, vd,
+                    {"token": tok})
+            else:
+                bt, lens = lease.device_tables(dev)
+                step = lambda tok: tf.serve_step_paged(
+                    self.model, kv.slab.k, kv.slab.v, bt, lens,
+                    {"token": tok})
             tok = torch.zeros((n,), dtype=torch.int32, device=dev)
             out: List[torch.Tensor] = []
             t0 = self.clock.perf()
             for _ in range(steps):
-                logits, _, _ = tf.serve_step_paged(
-                    self.model, kv.slab.k, kv.slab.v, bt, lens, {"token": tok})
+                logits, _, _ = step(tok)
                 kv.append_paged(lease)
                 lens += 1
                 self.stats["paged_appends"] += 1
@@ -144,6 +218,8 @@ class DecodeRunner:
             per_step = (self.clock.perf() - t0) / max(steps, 1)
         finally:
             kv.release_paged(lease)
+            if chunk is not None:
+                chunk.release_rows(pinned)
         return toks, per_step
 
     def _run_dense(self, kv: KVCacheManager, n: int, steps: int, tenant: str):

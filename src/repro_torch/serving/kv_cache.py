@@ -22,7 +22,11 @@ island: every live lease charges its exact tensor bytes to the replica's
 out of the same pool the prefetch buffer draws from; an acquire the
 slab or the pool cannot fit raises ``PoolExhausted``.
 
-Chunk-KV splicing is not ported yet.
+``splice_paged`` attaches precomputed chunk-KV pages (held by a
+``serving.chunk_kv.ChunkKVCache``) to a fresh paged lease by block-table
+edit, ahead of the lease's own pages, and records on the lease the
+per-page RoPE offset and live-token count that
+``transformer.serve_step_paged_spliced`` attends with.
 """
 
 from __future__ import annotations
@@ -268,9 +272,86 @@ class KVCacheManager:
                      pages=lease.block_table.size,
                      length=int(lease.lengths.max(initial=0)))
 
+    def splice_paged(self, lease: "PagedCacheLease",
+                     row_chunks: List[List[Tuple[Tuple[int, ...], int]]],
+                     ) -> int:
+        """Attach precomputed chunk-KV pages to a fresh paged lease by
+        **block-table edit** (TurboRAG-style reuse; no copy).
+
+        ``row_chunks[i]`` lists row ``i``'s chunks as ``(slots, length)``
+        pairs: slab page slots already holding the chunk's K/V (written
+        by ``ChunkKVCache.load``) and the chunk's token count.  Chunks
+        splice at page boundaries, in order, AHEAD of the lease's own
+        (fresh) pages: row ``i``'s table becomes ``[chunk pages..., fresh
+        pages..., -1 padding]``, its length starts at the end of its
+        spliced region (generation resumes at the next page boundary),
+        and the lease's ``max_len`` grows by the widest spliced region so
+        the append bounds check keeps holding.
+
+        Per-page metadata for ``serve_step_paged_spliced`` lands on the
+        lease: ``page_delta[i, blk]``, the RoPE rotation offset (the
+        chunk's first layout position: its K was rotated chunk-locally,
+        and rotations compose), and ``page_valid[i, blk]``, the live
+        tokens on the page (< page_size only on a chunk's partial last
+        page, 0 on -1 columns).
+
+        The spliced slots are NOT added to ``owned_slots``: ownership
+        (and the pool's ``chunk_kv`` byte charge) stays with the chunk
+        residency, which the caller pins for the lease's lifetime.
+        Emits ``kv.splice`` (pages = spliced page count, length = the
+        post-splice max length).  Returns the spliced page count (0 =
+        nothing to splice; the lease is untouched)."""
+        slab = self._require_slab()
+        ps = slab.page_size
+        if len(row_chunks) != lease.batch:
+            raise ValueError(f"row_chunks has {len(row_chunks)} rows for a "
+                             f"batch-{lease.batch} lease")
+        if int(lease.lengths.max(initial=0)) > 0:
+            raise ValueError("splice_paged must run on a fresh lease "
+                             "(before any append)")
+        n_blocks = [sum(len(slots) for slots, _ in row) for row in row_chunks]
+        total = sum(n_blocks)
+        if total == 0:
+            return 0
+        lead = max(n_blocks)
+        B, MB = lease.block_table.shape
+        bt = np.full((B, lead + MB), -1, np.int32)
+        delta = np.zeros((B, lead + MB), np.int32)
+        valid = np.full((B, lead + MB), ps, np.int32)
+        for i, row in enumerate(row_chunks):
+            b0 = 0
+            for slots, length in row:
+                npg = len(slots)
+                if length <= 0 or npg != -(-length // ps):
+                    raise ValueError(
+                        f"chunk of {length} tokens needs "
+                        f"{-(-max(length, 1) // ps)} pages, got {npg}")
+                bt[i, b0:b0 + npg] = slots
+                # stored K is rotated at chunk-local positions p*ps + off;
+                # its layout position is (b0 + p)*ps + off, so the page's
+                # rotation offset is the constant b0*ps
+                delta[i, b0:b0 + npg] = b0 * ps
+                valid[i, b0 + npg - 1] = length - (npg - 1) * ps
+                b0 += npg
+            bt[i, b0:b0 + MB] = lease.block_table[i]
+        valid[bt < 0] = 0                  # padding columns attend nothing
+        lease.block_table = bt
+        lease.lengths = np.asarray([n * ps for n in n_blocks], np.int32)
+        lease.page_delta = delta
+        lease.page_valid = valid
+        lease.spliced_pages = total
+        lease.max_len = lead * ps + lease.max_len
+        self._record("kv.splice", lease.batch, lease.max_len,
+                     total * self.paged_page_nbytes(), lease.tenant,
+                     lease_id=lease.lease_id, pages=total,
+                     length=int(lease.lengths.max(initial=0)))
+        return total
+
     def release_paged(self, lease: "PagedCacheLease") -> int:
-        """Return the lease's slab pages to the free list and release its
-        pool bytes; returns bytes freed."""
+        """Return the lease's **owned** slab pages to the free list and
+        release its pool bytes; returns bytes freed.  Spliced chunk-KV
+        pages in its table are not owned: they stay with the
+        ``ChunkKVCache`` residency (the splicer unpins them)."""
         slab = self._require_slab()
         slab.free.extend(int(s) for s in lease.owned_slots)
         pages = len(lease.owned_slots)
@@ -319,7 +400,8 @@ class KVPageSlab:
 class PagedCacheLease:
     """One leased block-table decode cache: ``block_table`` [B, MB] int32
     (slab page slot per sequence block, -1 after release) and ``lengths``
-    [B] int32 (tokens written so far), plus byte/tenant accounting."""
+    [B] int32 (tokens written so far), plus byte/tenant accounting and,
+    after ``splice_paged``, the per-page splice tables."""
 
     block_table: np.ndarray
     lengths: np.ndarray
@@ -329,7 +411,14 @@ class PagedCacheLease:
     page_lease: Optional[PageLease] = None
     tenant: str = "shared"
     lease_id: int = -1                 # globally unique (trace correlation)
+    # slab slots this lease allocated (and will free): spliced chunk-KV
+    # pages appear in block_table but never here
     owned_slots: Tuple[int, ...] = ()
+    # splice metadata (None until splice_paged ran): per-block RoPE
+    # rotation offset and live-token count for serve_step_paged_spliced
+    page_delta: Optional[np.ndarray] = None
+    page_valid: Optional[np.ndarray] = None
+    spliced_pages: int = 0
 
     def device_tables(self, device: DeviceLike) -> Tuple[torch.Tensor, torch.Tensor]:
         """(block_table, lengths) as int32 tensors on ``device`` — copies,
@@ -337,3 +426,17 @@ class PagedCacheLease:
         device lengths itself)."""
         return (torch.tensor(self.block_table, device=device),
                 torch.tensor(self.lengths, device=device))
+
+    def device_splice_tables(self, device: DeviceLike,
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+        """(block_table, lengths, page_delta, page_valid) as int32 tensors
+        on ``device``, the ``serve_step_paged_spliced`` operands — copies,
+        as ``device_tables`` makes.  Requires a prior ``splice_paged``."""
+        if self.page_delta is None or self.page_valid is None:
+            raise RuntimeError("lease has no splice tables: call "
+                               "KVCacheManager.splice_paged first")
+        return (torch.tensor(self.block_table, device=device),
+                torch.tensor(self.lengths, device=device),
+                torch.tensor(self.page_delta, device=device),
+                torch.tensor(self.page_valid, device=device))

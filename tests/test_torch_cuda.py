@@ -6,7 +6,9 @@ the JAX package, so it runs on a card host that has neither:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the decode kernels' fp32 output from bf16 K/V is summed in
-another order than the plain version's (atol=rtol=2e-3); the retrieval
+another order than the plain version's (atol=rtol=2e-3; the spliced
+kernel also rotates K with the card's sincosf where the plain version
+uses torch.cos/sin); the retrieval
 kernels must give equal ids (and kernel 2 the same admitted clusters)
 and scores within rtol=1e-4 on tie-free data; the centroid scores
 within rtol=1e-4 (fp32 dots summed in another order) and equal top-k
@@ -541,4 +543,152 @@ def test_serve_step_on_card_matches_cpu(start):
     assert tfd.flash_decode.launches == before + cfg.num_layers
     torch.testing.assert_close(gc["k"].cpu(), wc["k"], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(gc["v"].cpu(), wc["v"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+def _spliced_inputs(seed, B, KVH, G, Dh, ps, chunks, fresh, tail=2):
+    """Row b: chunks[b] (token counts) spliced at page boundaries with
+    their layout offsets, then ``fresh`` fresh pages, then ``tail`` -1
+    columns (valid 0); the new token somewhere on the fresh pages."""
+    rng = np.random.default_rng(seed)
+    MB = max(sum(-(-c // ps) for c in row) for row in chunks) + fresh + tail
+    NP = B * MB + 3
+    q = rng.standard_normal((B, KVH, G, Dh)).astype(np.float32)
+    kp = rng.standard_normal((NP, ps, KVH, Dh)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, KVH, Dh)).astype(np.float32)
+    perm = rng.permutation(NP)[:B * MB].reshape(B, MB).astype(np.int32)
+    bt = np.full((B, MB), -1, np.int32)
+    delta = np.zeros((B, MB), np.int32)
+    valid = np.zeros((B, MB), np.int32)
+    lengths = []
+    for b, row in enumerate(chunks):
+        b0 = 0
+        for c in row:
+            n = -(-c // ps)
+            bt[b, b0:b0 + n] = perm[b, b0:b0 + n]
+            delta[b, b0:b0 + n] = b0 * ps
+            valid[b, b0:b0 + n] = ps
+            valid[b, b0 + n - 1] = c - (n - 1) * ps
+            b0 += n
+        bt[b, b0:b0 + fresh] = perm[b, b0:b0 + fresh]
+        valid[b, b0:b0 + fresh] = ps
+        lengths.append(b0 * ps + 1 + int(rng.integers(0, fresh * ps)))
+    return q, kp, vp, bt, np.asarray(lengths, np.int32), delta, valid
+
+
+# (seed, B, KVH, G, Dh, ps, chunks, fresh pages, rope fraction)
+SPLICED = {
+    "all fresh": (1, 4, 8, 4, 128, 16, [[]] * 4, 8, 1.0),
+    "one chunk a row": (2, 4, 8, 4, 128, 16, [[21], [9], [33], [16]], 8, 1.0),
+    "several chunks, partial last pages": (
+        3, 4, 8, 4, 128, 16, [[21, 9, 40], [3], [17, 17], [1]], 8, 1.0),
+    "different leads, -1 tails": (4, 3, 2, 2, 64, 16, [[70], [], [5, 5, 5]],
+                                  2, 1.0),
+    "page size 48": (5, 3, 2, 8, 64, 48, [[50, 100], [7], [150]], 3, 1.0),
+    "rope fraction 0.5": (6, 3, 2, 2, 32, 16, [[21, 9], [5, 5, 5], []], 3,
+                          0.5),
+    "dead tail across a 64-position chunk": (7, 2, 8, 4, 128, 16,
+                                             [[65, 3], [129]], 4, 1.0),
+    "mid context": (8, 4, 8, 4, 128, 16, [[24] * 20, [20] * 30, [], [9] * 60],
+                    64, 1.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(SPLICED))
+def test_flash_decode_spliced_kernel_matches_plain(name, dtype):
+    """The spliced kernel against its plain version on the same inputs:
+    K rotated by each page's delta (theta 5e5), dead slots and -1 columns
+    masked; one grid launch a call and equal bits from a second call."""
+    dev = _card()
+    *shape, frac = SPLICED[name]
+    q, kp, vp, bt, lens, dl, vd = (torch.from_numpy(a).to(dev) for a in
+                                   _spliced_inputs(*shape))
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    q = q.to(dtype)
+    kw = dict(rope_fraction=frac, rope_theta=500_000.0)
+    before = tfd.flash_decode_spliced.launches
+    got = tops.flash_decode_spliced(q, kp, vp, bt, lens, dl, vd, **kw)
+    want = tref.flash_decode_spliced_ref(q, kp, vp, bt, lens, dl, vd, **kw)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_spliced.launches == before + 1
+    assert got.dtype == torch.float32 and not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    again = tops.flash_decode_spliced(q, kp, vp, bt, lens, dl, vd, **kw)
+    assert torch.equal(again, got)        # the counters were left at zero
+    if name == "all fresh":
+        assert torch.equal(tfd.flash_decode_paged(q, kp, vp, bt, lens), got)
+
+
+@pytest.mark.cuda
+def test_flash_decode_spliced_kernel_replays_in_a_cuda_graph():
+    """Captured once and replayed, the kernel gives the eager call's bits
+    (no host state between launches)."""
+    dev = _card()
+    *shape, frac = SPLICED["several chunks, partial last pages"]
+    args = [torch.from_numpy(a).to(dev) for a in _spliced_inputs(*shape)]
+    args[0] = args[0].to(torch.bfloat16)
+    args[1], args[2] = args[1].to(torch.bfloat16), args[2].to(torch.bfloat16)
+    want = tfd.flash_decode_spliced(*args, rope_theta=500_000.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfd.flash_decode_spliced(*args, rope_theta=500_000.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tfd.flash_decode_spliced(*args, rope_theta=500_000.0)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_flash_decode_spliced_wrapper_raises_on_bad_tables():
+    dev = _card()
+    *shape, _ = SPLICED["rope fraction 0.5"]
+    q, kp, vp, bt, lens, dl, vd = (torch.from_numpy(a).to(dev) for a in
+                                   _spliced_inputs(*shape))
+    before = tfd.flash_decode_spliced.launches
+    with pytest.raises(ValueError, match="int32"):
+        tfd.flash_decode_spliced(q, kp, vp, bt, lens, dl.long(), vd)
+    with pytest.raises(ValueError, match="page_valid"):
+        tfd.flash_decode_spliced(q, kp, vp, bt, lens, dl, vd[:, :-1])
+    with pytest.raises(ValueError, match="page_delta"):
+        tfd.flash_decode_spliced(q, kp, vp, bt, lens, dl.cpu(), vd)
+    assert tfd.flash_decode_spliced.launches == before
+
+
+@pytest.mark.cuda
+def test_serve_step_paged_spliced_on_card_matches_cpu():
+    """A reduced Llama-3 spliced decode step through the kernel on the
+    card agrees with the same step through the plain version on the CPU
+    (fp32): the slab write and the logits."""
+    dev = _card()
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(), num_kv_heads=2)
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    q, _, _, bt, lens, dl, vd = _spliced_inputs(
+        9, 3, cfg.num_kv_heads, 2, cfg.resolved_head_dim, 4,
+        [[5, 3], [9], []], 2)
+    rng = np.random.default_rng(9)
+    NP = int(bt.max()) + 1
+    shape = (cfg.num_layers, NP, 4, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    tables = [torch.from_numpy(a) for a in (bt, lens - 1, dl, vd)]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, 3).astype(np.int32))
+    want, wk, _ = ttf.serve_step_paged_spliced(model, k0.clone(), v0.clone(),
+                                               *tables, {"token": tok})
+    model_d = ttf.Transformer(cfg, {n: p.detach().to(dev)
+                                    for n, p in model.named_parameters()})
+    before = tfd.flash_decode_spliced.launches
+    got, gk, _ = ttf.serve_step_paged_spliced(
+        model_d, k0.to(dev), v0.to(dev), *(t.to(dev) for t in tables),
+        {"token": tok.to(dev)})
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_spliced.launches == before + cfg.num_layers
+    torch.testing.assert_close(gk.cpu(), wk, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
