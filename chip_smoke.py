@@ -2,9 +2,10 @@
 builds, is right and serves on one NVIDIA card.
 
     python3 chip_smoke.py                      # every phase, one card
-    python3 chip_smoke.py --decode-timing DIR  # time DIR/src's decode kernels
+    python3 chip_smoke.py --decode-timing DIR BITS  # time DIR/src's decode kernels
     python3 chip_smoke.py --decode-ab PARENT   # PARENT, this, this, PARENT
     python3 chip_smoke.py --retrieval-ab PARENT   # the same for kernels 2, 3
+    python3 chip_smoke.py --centroid-ab PARENT    # the same for kernel 5
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -22,10 +23,15 @@ Phases, one line each, every one fatal on failure:
      masked), in bf16 and fp32, on an all-fresh table (which must also
      give flash_decode_paged's bits), one and several chunks with
      partial last pages, rows with different spliced leads and -1
-     tails, page sizes 16 and 48, rope_fraction 0.5, a dead tail across
-     a 64-position chunk, and the serve, mid and long contexts; all
-     atol=rtol=2e-3 (fp32 output from bf16 K/V, sums in another order),
-     one grid launch a call, equal bits from a second spliced call;
+     tails, page sizes 16, 48 and 2 (more runs of one delta in a chunk
+     than its angle table holds), rope_fraction 0.5, a dead tail across
+     a 64-position chunk, fresh chunks beside spliced ones in one split
+     (checked against the kernel's split plan), rot = 64, 32, 16, 24
+     and 0 at Dh=64 and 48 at Dh=128 (partners by shuffle or from
+     shared memory), G = 1, 3, 5 and 8, and the serve, mid and long
+     contexts, each line naming the paths it took; all atol=rtol=2e-3
+     (fp32 output from bf16 K/V, sums in another order), one grid launch
+     a call, equal bits from a second spliced call;
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes, at a small shape and at their edges (every page dead,
      one live page, every live page in one cluster, B=9, page sizes 48
@@ -33,13 +39,17 @@ Phases, one line each, every one fatal on failure:
      rows duplicated across pages): equal ids (by flat position among
      exact ties) and the same admitted clusters, scores within
      rtol=1e-4, equal bits from a second call; and centroid_scores,
-     through ops.centroid_probe (kernel + torch.topk), at the serve
-     probe shape and at an odd one (Nc and d multiples of neither 32
-     nor 4, invalid centroids): equal top-k ids, scores within
-     rtol=1e-4;
-  5. timing: centroid_scores over many launches (CUDA events, after
-     warm-up) beside its bound, its plain version and q @ c.T +
-     masked_fill (the one library call that computes its function);
+     alone and through ops.centroid_probe (kernel + torch.topk), at the
+     serve probe shape, an odd one (Nc and d multiples of neither 32
+     nor 4), d=770 and 12288, B=1, 5 and 33, Nc=1, 1000 and 4096, every
+     centroid invalid, a sliced query off a 16-byte boundary and
+     valid=None: equal top-k ids, scores within rtol=1e-4;
+  5. timing: centroid_scores at B=4, d=768 over Nc=1024 and 4096: the
+     event mean, the device time a call (CUDA graph), the host us a
+     call and the cold device time a call (a 64 MB write before each
+     call), beside its bound, its plain version and q @ c.T +
+     masked_fill_ (the one library call that computes its function)
+     timed the same ways, then its aims;
   6. serving: repro_torch.launch.serve's TeleRAGServer at the full
      Llama-3-8B width over a 1M x 768 datastore, built once and served
      three times: fused retrieval with paged decode (flash_decode_paged
@@ -69,7 +79,7 @@ Phases, one line each, every one fatal on failure:
      grids a call (profiler); then whether the aims are met; then
      flash_decode_spliced on an all-fresh table of kernel 1's lengths,
      beside flash_decode_paged in the same process and on a table of
-     20-token spliced chunks.
+     20-token spliced chunks, and its aims.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -79,12 +89,18 @@ The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
 
---decode-timing DIR runs phase 7's decode timing alone on the port
-under DIR/src (any checkout of this repository) and prints it as one
-JSON line; --decode-ab PARENT runs it four times in turn, on PARENT,
-this checkout, this checkout and PARENT, one process each, and prints
-the three numbers of each kernel and shape side by side with the aims,
-the serve-shape aim judged against PARENT's device time.
+--decode-timing DIR BITS runs phase 7's decode timing alone (kernels 1
+and 4 and the spliced kernel) on the port under DIR/src (any checkout of
+this repository), saves the spliced kernel's outputs on seeded inputs
+to BITS and prints the timing as one JSON line; --decode-ab PARENT runs
+it four times in turn, on PARENT, this checkout, this checkout and
+PARENT, one process each (BITS under chiprun_out/decode_ab/), and
+prints the numbers of each kernel and shape side by side with the aims
+(the serve-shape and spliced aims judged against PARENT's device time,
+kernels 1 and 4 unchanged within the runs' spread) and how many of the
+spliced kernel's outputs equal PARENT's bit for bit.
+--centroid-timing DIR and --centroid-ab PARENT do the same for
+centroid_scores: phase 5's timing, warm and cold, with its aims.
 --retrieval-timing DIR and --retrieval-ab PARENT do the same for
 probe_topk_fused and ivf_topk: their phase-7 timing, then each alone on
 phase 6's buffer state (the index built again, with a reduced model),
@@ -125,6 +141,18 @@ LONG_POS = [8191, 6143, 4999, 4095]
 AIM_DENSE_BOUND_SHARE = 0.40     # flash_decode: >= 40% of its byte bound
 AIM_PAGED_MS = 0.1               # flash_decode_paged: <= 0.1 ms and
 AIM_PAGED_OVER_DENSE = 2.0       # <= 2x flash_decode in the same run
+
+# the aims for the spliced-decode kernel, in the same process as
+# flash_decode_paged on the same lengths (at the long context unless named)
+AIM_SPLICED_FRESH_OVER_PAGED = 1.05   # all-fresh table: <= 1.05x kernel 1
+AIM_SPLICED_FRESH_BOUND_SHARE = 0.43  # and >= 43% of its byte bound
+AIM_SPLICED_CHUNKS_OVER_PAGED = 1.35  # 20-token chunks: <= 1.35x kernel 1
+AIM_SPLICED_SERVE_OVER_PAGED = 1.10   # serve shape, device time a call
+
+# the aims for centroid_scores (B=4, d=768; Nc=1024 and 4096, warm and cold)
+AIM_CENTROID_COLD_BOUND_SHARE = 0.40  # cold at Nc=4096: >= 40% of the bound
+CENTROID_TIMING = {"serve": 1024, "paper": 4096}   # Nc of each timing shape
+FLUSH_BYTES = 64 << 20           # written before each cold call: > the 50 MB L2
 
 # the aims for the retrieval kernels, at chip_smoke's serve shapes
 AIM_IVF_MS = 0.305               # ivf_topk: >= 50% of its 0.1523 ms bound
@@ -170,12 +198,10 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
-    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
-    graph and replayed ``reps`` times between two events, so no host
-    time falls between the launches and no tracer runs in the process.
-    One call on the capture stream first makes the wrapper's per-stream
-    workspace outside the capture."""
+def capture(fn, calls: int):
+    """A CUDA graph of ``calls`` calls of ``fn``, replayed once.  One call
+    on the capture stream first makes the wrapper's per-stream workspace
+    outside the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -187,6 +213,11 @@ def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, reps: int) -> float:
+    """Milliseconds of ``reps`` replays of ``graph`` between two events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -194,8 +225,29 @@ def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed ``reps`` times between two events, so no host
+    time falls between the launches and no tracer runs in the process."""
+    graph = capture(fn, calls)
+    ms = replay_ms(graph, reps)
     del graph
-    return start.elapsed_time(end) / (reps * calls)
+    return ms / (reps * calls)
+
+
+def cold_ms(fn, flush: torch.Tensor, calls: int = 20, reps: int = 7) -> float:
+    """Device ms a call of ``fn`` with the L2 cache flushed before each
+    call: a CUDA graph of ``calls`` pairs (write ``flush``, larger than
+    the L2, then call) against one of ``calls`` writes alone, replayed in
+    turn; the median difference over the calls."""
+    both = capture(lambda: (flush.fill_(1.0), fn()), calls)
+    alone = capture(lambda: flush.fill_(1.0), calls)
+    diffs = [replay_ms(both, 1) - replay_ms(alone, 1) for _ in range(reps)]
+    del both, alone
+    return float(np.median(diffs)) / calls
 
 
 def host_us(fn, calls: int = 200, blocks: int = 5) -> float:
@@ -466,14 +518,16 @@ def chunk_rows(lengths):
 
 def spliced_case(B, KVH, G, Dh, ps, chunks, fresh, seed, dtype=torch.bfloat16,
                  tail=2):
-    """Spliced decode inputs on the card: row b holds the chunks
-    ``chunks[b]`` (token counts) back to back at page boundaries, each
-    page's delta its chunk's first layout position and its valid count
-    the chunk's live tokens on it, then ``fresh`` fresh pages (delta 0,
-    valid ps), then ``tail`` -1 columns (valid 0).  The new token sits on
-    the fresh pages."""
+    """Spliced decode inputs on the card: row b holds ``chunks[b]`` back
+    to back at page boundaries, a positive entry a chunk of that many
+    tokens (each page's delta its chunk's first layout position, its
+    valid count the chunk's live tokens on it) and a negative entry -k
+    k fresh pages (delta 0, valid ps), then ``fresh`` fresh pages, then
+    ``tail`` -1 columns (valid 0).  The new token sits on the last fresh
+    pages."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    MB = max(sum(-(-c // ps) for c in row) for row in chunks) + fresh + tail
+    npages = lambda c: -c if c < 0 else -(-c // ps)
+    MB = max(sum(map(npages, row)) for row in chunks) + fresh + tail
     NP = B * MB + 4
     q = torch.randn((B, KVH, G, Dh), generator=g, device="cuda").to(dtype)
     kp = torch.randn((NP, ps, KVH, Dh), generator=g, device="cuda").to(dtype)
@@ -486,16 +540,15 @@ def spliced_case(B, KVH, G, Dh, ps, chunks, fresh, seed, dtype=torch.bfloat16,
     lens = []
     for b, row in enumerate(chunks):
         b0 = 0
-        for c in row:
-            n = -(-c // ps)
+        for c in row + [-fresh]:
+            n = npages(c)
             bt[b, b0:b0 + n] = perm[b, b0:b0 + n]
-            dl[b, b0:b0 + n] = b0 * ps
             vd[b, b0:b0 + n] = ps
-            vd[b, b0 + n - 1] = c - (n - 1) * ps
+            if c > 0:
+                dl[b, b0:b0 + n] = b0 * ps
+                vd[b, b0 + n - 1] = c - (n - 1) * ps
             b0 += n
-        bt[b, b0:b0 + fresh] = perm[b, b0:b0 + fresh]
-        vd[b, b0:b0 + fresh] = ps
-        lens.append(b0 * ps + 1 + (7 * b + 3) % (fresh * ps))
+        lens.append((b0 - fresh) * ps + 1 + (7 * b + 3) % (fresh * ps))
     lens = torch.tensor(lens, dtype=torch.int32)
     return [q, kp, vp] + [t.cuda() for t in (bt, lens, dl, vd)]
 
@@ -547,8 +600,27 @@ def check_spliced(fd, ref, case, frac, label, theta=500_000.0):
           f"{kp.dtype} ps={kp.shape[1]} rope_fraction={frac} table "
           f"{tuple(case[3].shape)} lengths {case[4].tolist()[:4]} "
           f"max_abs_err={err:.3e} (atol=rtol=2e-3), equal bits twice"
-          + (", = flash_decode_paged" if fresh else ""))
+          + (", = flash_decode_paged" if fresh else "") + "; "
+          + splice_paths(fd, case, frac))
     return err
+
+
+def splice_paths(fd, case, frac) -> str:
+    """Which paths of the spliced kernel ``case`` takes: its chunks by
+    mode, the angle-table runs against the table's room, and the partner
+    exchange (the wrapper's plan)."""
+    q, kp, bt = case[0], case[1], case[3]
+    Dh, ps = q.shape[3], kp.shape[1]
+    rot = int(Dh * frac) // 2 * 2
+    dist, runs_max, _ = fd._splice_plan(Dh, kp.dtype == torch.bfloat16, rot)
+    mode, runs = fd.spliced_chunks(bt, case[4], case[5], case[6], ps, rot)
+    rotated = mode == fd.ROTATED
+    inline = int((rotated & (runs > runs_max)).sum())
+    return (f"chunks fresh {int((mode == fd.FRESH).sum())}, masked "
+            f"{int((mode == fd.MASKED).sum())}, rotated {int(rotated.sum())} "
+            f"({inline} with more runs than the table's {runs_max}); rot={rot}, "
+            + (f"partners by shuffle (lane distance {dist})" if dist else
+               "partners from shared memory" if rot else "no rotation"))
 
 
 # kernel 1's timing shapes: (lengths, MB, iters) at the serve, mid and long
@@ -557,41 +629,81 @@ PAGED_TIMING = {"serve": ([128, 97, 40, 7], 8, 200), "mid": (MID_LENGTHS, 128, 1
                 "long": (LONG_LENGTHS, 512, 100)}
 
 
+def spliced_check_cases(dtype):
+    """(label, rope fraction, case) of the spliced kernel's check phase in
+    ``dtype`` (made one at a time: the long ones are large)."""
+    yield "all-fresh table", 1.0, spliced_case(4, 8, 4, 128, 16, [[]] * 4, 8, 41, dtype)
+    yield "one chunk a row", 1.0, spliced_case(4, 8, 4, 128, 16, [[21], [9], [33], [16]], 8, 42, dtype)
+    yield ("several chunks, partial last pages", 1.0,
+           spliced_case(4, 8, 4, 128, 16, [[21, 9, 40], [3], [17, 17], [1]], 8, 43, dtype))
+    yield ("different spliced leads and -1 tails", 1.0,
+           spliced_case(3, 2, 2, 64, 16, [[70], [], [5, 5, 5]], 2, 44, dtype, tail=5))
+    yield "page size 48", 1.0, spliced_case(3, 2, 8, 64, 48, [[50, 100], [7], [150]], 3, 45, dtype)
+    yield "rope_fraction 0.5", 0.5, spliced_case(3, 2, 2, 128, 16, [[21, 9], [5, 5, 5], []], 3, 46, dtype)
+    yield ("a dead tail across a 64-position chunk", 1.0,
+           spliced_case(2, 8, 4, 128, 16, [[65, 3], [129]], 4, 47, dtype))
+    # fresh chunks beside spliced ones inside one split (2048 positions,
+    # 32 rows: 128-position splits of two chunks)
+    yield ("fresh and spliced chunks in one split", 1.0, spliced_case(
+        4, 8, 4, 128, 16, [[-4, 20, 20, -4, 9, -4, 40, -8], [20] * 6 + [-8],
+                           [-12, 33, -4], [5, -4, 64, -4]], 2, 49, dtype, tail=100))
+    for frac, rot in ((1.0, 64), (0.5, 32), (0.25, 16), (0.375, 24), (0.0, 0)):
+        yield (f"Dh=64, rot={rot}", frac, spliced_case(
+            3, 2, 4, 64, 16, [[21, 9, 40], [17, 17], [3, -2, 30]], 3, 50 + rot, dtype))
+    yield ("Dh=128, rot=48 (partners from shared memory)", 0.375, spliced_case(
+        2, 4, 4, 128, 16, [[21, 9, 40], [17, 17, 5]], 3, 51, dtype))
+    yield ("page size 2, chunks of 1-3 tokens (more runs than the table holds)", 1.0,
+           spliced_case(2, 2, 4, 128, 2, [[1, 2, 3] * 12, [3, 1] * 20], 4, 52, dtype))
+    for G in (1, 3, 5, 8):
+        yield (f"G={G}", 1.0, spliced_case(
+            3, 2, G, 128, 16, [[21, 9, 40], [5, 5], [33]], 4, 60 + G, dtype))
+    for i, (ctx, (lengths, _, _)) in enumerate(PAGED_TIMING.items()):
+        yield (f"{ctx} context (chunks of 20 tokens)", 1.0, spliced_case(
+            4, 8, 4, 128, 16, chunk_rows(lengths), 2, 80 + i, dtype))
+
+
 def spliced_checks(fd, ref) -> float:
-    """Every case of the spliced kernel's check phase; the largest error."""
+    """Every case of the spliced kernel's check phase; the largest error.
+    The fresh-beside-spliced case must put a fresh and a rotated chunk in
+    one split of the kernel's plan."""
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "fp32"
-        cases = [
-            ("all-fresh table", 1.0, spliced_case(4, 8, 4, 128, 16, [[]] * 4, 8, 41, dtype)),
-            ("one chunk a row", 1.0, spliced_case(4, 8, 4, 128, 16, [[21], [9], [33], [16]], 8, 42, dtype)),
-            ("several chunks, partial last pages", 1.0,
-             spliced_case(4, 8, 4, 128, 16, [[21, 9, 40], [3], [17, 17], [1]], 8, 43, dtype)),
-            ("different spliced leads and -1 tails", 1.0,
-             spliced_case(3, 2, 2, 64, 16, [[70], [], [5, 5, 5]], 2, 44, dtype, tail=5)),
-            ("page size 48", 1.0, spliced_case(3, 2, 8, 64, 48, [[50, 100], [7], [150]], 3, 45, dtype)),
-            ("rope_fraction 0.5", 0.5, spliced_case(3, 2, 2, 128, 16, [[21, 9], [5, 5, 5], []], 3, 46, dtype)),
-            ("a dead tail across a 64-position chunk", 1.0,
-             spliced_case(2, 8, 4, 128, 16, [[65, 3], [129]], 4, 47, dtype)),
-        ]
-        for ctx, (lengths, _, _) in PAGED_TIMING.items():
-            cases.append((f"{ctx} context (chunks of 20 tokens)", 1.0, spliced_case(
-                4, 8, 4, 128, 16, chunk_rows(lengths), 2, 48 + len(cases), dtype)))
-        for label, frac, case in cases:
+        for label, frac, case in spliced_check_cases(dtype):
+            if label.startswith("fresh and spliced"):
+                need_mixed_split(fd, case)
             errs.append(check_spliced(fd, ref, case, frac, f"{label}, {dn}"))
             del case
     torch.cuda.empty_cache()
     return max(errs)
 
 
+def need_mixed_split(fd, case) -> None:
+    """Fail unless some split of the kernel's plan for ``case`` holds a
+    fresh chunk and a rotated one."""
+    q, kp, bt = case[0], case[1], case[3]
+    B, KVH = q.shape[:2]
+    S = bt.shape[1] * kp.shape[1]
+    split, _ = fd._splits(B * KVH, S, fd._sm_count(q.device.index))
+    mode, _ = fd.spliced_chunks(bt, case[4], case[5], case[6], kp.shape[1],
+                                q.shape[3])
+    per = split // 64
+    for row in mode.tolist():
+        for s0 in range(0, len(row), per):
+            if {fd.FRESH, fd.ROTATED} <= set(row[s0:s0 + per]):
+                return
+    fail(f"no split of {split} positions holds a fresh and a rotated chunk")
+
+
 def spliced_timing(fd, ref, smi: str) -> dict:
     """The spliced kernel beside flash_decode_paged on an all-fresh table
     of kernel 1's timing lengths (the same bytes, so the same bound) at
     the serve, mid and long contexts: the three times of ``three_times``,
-    flash_decode_paged's event mean in the same process, the plain
-    version's event mean, and the event mean on a table of 20-token
-    spliced chunks (the rotation and the masks at work).  No library
-    call computes this function."""
+    flash_decode_paged's event mean and device time a call in the same
+    process, the plain version's event mean, and the event mean and
+    device time a call on a table of 20-token spliced chunks (the
+    rotation and the masks at work).  No library call computes this
+    function."""
     t = {}
     for shape, (lengths, MB, iters) in PAGED_TIMING.items():
         q, kp, vp, bt, lens = decode_case(4, 8, 4, 128, 16, MB, lengths, seed=1)
@@ -604,21 +716,85 @@ def spliced_timing(fd, ref, smi: str) -> dict:
         r["bound_ms"], r["bound_by"] = bound(*spliced_work(args))
         r["plain_ms"] = time_ms(lambda: ref.flash_decode_spliced_ref(*args, **kw),
                                 max(iters // 10, 5))
-        r["paged_ms"] = time_ms(lambda: fd.flash_decode_paged(q, kp, vp, bt, lens),
-                                iters)
+        paged = lambda: fd.flash_decode_paged(q, kp, vp, bt, lens)
+        r["paged_ms"], r["paged_device_ms"] = time_ms(paged, iters), device_ms(paged)
         sp = spliced_case(4, 8, 4, 128, 16, chunk_rows(lengths), 2, 60)
-        r["spliced_table_ms"] = time_ms(lambda: fd.flash_decode_spliced(*sp, **kw), iters)
+        spliced = lambda: fd.flash_decode_spliced(*sp, **kw)
+        r["spliced_table_ms"] = time_ms(spliced, iters)
+        r["spliced_table_device_ms"] = device_ms(spliced)
         r["spliced_table_bound_ms"] = bound(*spliced_work(sp))[0]
         r["library_ms"], r["lengths"] = None, lengths
         t[shape] = r
         phase("time", f"flash_decode_spliced {shape} (all-fresh table, lengths "
               f"{lengths}): " + describe(r) + f"; flash_decode_paged "
-              f"{r['paged_ms']:.4f} ms in the same process; on a table of "
-              f"20-token spliced chunks {r['spliced_table_ms']:.4f} ms (bound "
-              f"{r['spliced_table_bound_ms']:.5f} ms); no library call; on {smi}")
+              f"{r['paged_ms']:.4f} ms ({r['paged_device_ms']:.4f} device) in the "
+              f"same process; on a table of 20-token spliced chunks "
+              f"{r['spliced_table_ms']:.4f} ms ({r['spliced_table_device_ms']:.4f} "
+              f"device; bound {r['spliced_table_bound_ms']:.5f} ms); no library "
+              f"call; on {smi}")
         del q, kp, vp, bt, lens, dl, vd, args, sp
     torch.cuda.empty_cache()
     return t
+
+
+def spliced_aims(t: dict, parent: dict = None) -> list:
+    """(aim, met, numbers) for the spliced timings ``t`` (as
+    ``spliced_timing`` returns them): against flash_decode_paged in the
+    same process, at the long context on both tables and at the serve
+    shape by device time; with ``parent`` (the parent tree's timings),
+    faster than the parent's kernel at the long context on both tables
+    (device time a call)."""
+    lg, sv = t["long"], t["serve"]
+    aims = [
+        (f"flash_decode_spliced, all-fresh table, long context: <= "
+         f"{AIM_SPLICED_FRESH_OVER_PAGED}x flash_decode_paged, >= "
+         f"{AIM_SPLICED_FRESH_BOUND_SHARE:.0%} of the byte bound",
+         lg["ms"] <= AIM_SPLICED_FRESH_OVER_PAGED * lg["paged_ms"]
+         and lg["bound_ms"] / lg["ms"] >= AIM_SPLICED_FRESH_BOUND_SHARE,
+         f"{lg['ms']:.4f} ms, flash_decode_paged {lg['paged_ms']:.4f} ms "
+         f"({lg['ms'] / lg['paged_ms']:.3f}x), {lg['bound_ms'] / lg['ms']:.1%} "
+         "of the bound"),
+        (f"flash_decode_spliced, 20-token chunks, long context: <= "
+         f"{AIM_SPLICED_CHUNKS_OVER_PAGED}x flash_decode_paged",
+         lg["spliced_table_ms"] <= AIM_SPLICED_CHUNKS_OVER_PAGED * lg["paged_ms"],
+         f"{lg['spliced_table_ms']:.4f} ms, flash_decode_paged "
+         f"{lg['paged_ms']:.4f} ms ({lg['spliced_table_ms'] / lg['paged_ms']:.3f}x)"),
+        (f"flash_decode_spliced at the serve shape: device time a call <= "
+         f"{AIM_SPLICED_SERVE_OVER_PAGED}x flash_decode_paged's",
+         sv["device_ms"] <= AIM_SPLICED_SERVE_OVER_PAGED * sv["paged_device_ms"],
+         f"{sv['device_ms']:.4f} ms against {sv['paged_device_ms']:.4f} ms "
+         f"({sv['device_ms'] / sv['paged_device_ms']:.3f}x)")]
+    if parent:
+        for key, table in (("device_ms", "all-fresh table"),
+                           ("spliced_table_device_ms", "20-token chunks")):
+            mine, theirs = t["long"][key], parent["long"][key]
+            aims.append((f"flash_decode_spliced, {table}, long context: device "
+                         "time a call lower than the parent's", mine < theirs,
+                         f"{mine:.4f} ms against {theirs:.4f} ms"))
+    return aims
+
+
+def spliced_bits(fd) -> dict:
+    """The spliced kernel's output on every check case (bf16 and fp32)
+    and both timing tables at the three contexts, by label: the same
+    seeded inputs whichever tree's kernel runs them."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, frac, case in spliced_check_cases(dtype):
+            out[f"{label}, {dtype}"] = fd.flash_decode_spliced(
+                *case, rope_fraction=frac, rope_theta=500_000.0).cpu()
+            del case
+    for shape, (lengths, MB, _) in PAGED_TIMING.items():
+        q, kp, vp, bt, lens = decode_case(4, 8, 4, 128, 16, MB, lengths, seed=1)
+        fresh = (q, kp, vp, bt, lens, torch.zeros_like(bt),
+                 torch.where(bt >= 0, 16, 0).to(torch.int32))
+        sp = spliced_case(4, 8, 4, 128, 16, chunk_rows(lengths), 2, 60)
+        for table, case in (("all-fresh", fresh), ("20-token chunks", sp)):
+            out[f"timing {shape}, {table}"] = fd.flash_decode_spliced(
+                *case, rope_theta=500_000.0).cpu()
+        del q, kp, vp, bt, lens, fresh, sp
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- kernel 5: centroid_scores --------------------------------------------------
@@ -644,38 +820,133 @@ def centroid_work(case):
     return (q.numel() * 4 + Nc + nv * d * 4 + B * Nc * 4), 2 * B * nv * d
 
 
-def check_centroid(ops, ref, case, nprobe, label):
+def check_centroid(cp, ops, ref, case, nprobe, label):
+    """Kernel 5 against its plain version: the scores within rtol=1e-4
+    (fp32 dots summed in another order; atol=1e-6 sqrt(d) for the scores
+    near 0), -inf where invalid, and through ops.centroid_probe the plain
+    version's top-``nprobe`` ids and their scores (rtol=1e-4,
+    atol=1e-6)."""
     q, cent, valid = case
+    before = cp.centroid_scores.launches
+    got = cp.centroid_scores(q, cent, valid)
+    want = ref.centroid_probe_ref(cent, q, valid)
     gs, gi = ops.centroid_probe(cent, q, nprobe, valid=valid)
-    ws, wi = torch.topk(ref.centroid_probe_ref(cent, q, valid), nprobe, dim=-1)
+    ws, wi = torch.topk(want, nprobe, dim=-1)
     torch.cuda.synchronize()
+    if cp.centroid_scores.launches != before + 2:
+        fail(f"centroid_scores {label}: {cp.centroid_scores.launches - before} "
+             "launches for two calls")
     if not torch.equal(gi, wi):
         fail(f"centroid_scores {label}: top-{nprobe} ids differ\n{gi}\n{wi}")
-    try:
+    try:   # a score near 0 keeps the rounding of its d products: atol 1e-6 sqrt(d)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * q.shape[1] ** 0.5)
         torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-6)
     except AssertionError as e:
         fail(f"centroid_scores {label}: {e}")
-    err = (gs - ws).abs().max().item()
-    phase("check", f"centroid_scores {label}: B={q.shape[0]} d={q.shape[1]} "
-          f"Nc={cent.shape[0]} ({int((~valid).sum())} invalid) nprobe={nprobe}:"
-          f" top-k ids equal, max_abs_err={err:.3e} (rtol=1e-4)")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    B, d = q.shape
+    plan = cp._plan(B, d, cent.shape[0], cp._sm_count(q.device.index),
+                    q.data_ptr() % 16 == 0 and cent.data_ptr() % 16 == 0)
+    nv = cent.shape[0] if valid is None else int(valid.sum())
+    phase("check", f"centroid_scores {label}: B={B} d={d} Nc={cent.shape[0]} "
+          f"({cent.shape[0] - nv} invalid{', valid=None' if valid is None else ''}) "
+          f"nprobe={nprobe}: top-k ids equal, max_abs_err={err:.3e} (rtol=1e-4); "
+          f"{'16-byte' if plan.vec else '4-byte'} loads, groups of <= "
+          f"{plan.group}, {plan.blocks} blocks of {plan.warps} warps, "
+          f"{plan.qb} queries staged at once")
     return err
 
 
-def time_centroid(cp, ref, case, smi, iters=200):
-    """Kernel 5 beside its bound, its plain version and the library call
-    (q @ c.T then masked_fill, full fp32; the port never calls it)."""
-    q, cent, valid = case
-    ms = time_ms(lambda: cp.centroid_scores(q, cent, valid), iters)
-    plain = time_ms(lambda: ref.centroid_probe_ref(cent, q, valid), iters)
-    lib = lambda: (q @ cent.T).masked_fill_(~valid[None, :], float("-inf"))
-    lib_ms = time_ms(lib, iters)
-    lo, by = bound(*centroid_work(case))
-    phase("time", f"centroid_scores: {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"q @ c.T + masked_fill {lib_ms:.4f} ms, bound {lo:.5f} ms ({by}) "
-          f"on {smi}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": lo, "bound_by": by,
-            "library_ms": lib_ms}
+def centroid_checks(cp, ops, ref) -> float:
+    """Every case of kernel 5's check phase; the largest error."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    flat = torch.randn((4 * 768 + 1,), generator=g, device="cuda")
+    sliced = (flat[1:].view(4, 768), *centroid_case(1, 768, 1024, 0.1, 32)[1:])
+    q, cent, _ = centroid_case(3, 256, 500, 0.0, 33)
+    cases = [
+        ("serve probe shape", centroid_case(4, 768, 1024, 0.0, 20), 64),
+        ("odd shape", centroid_case(5, 30, 203, 0.15, 21), 9),
+        ("d=770 (4-byte loads)", centroid_case(4, 770, 1024, 0.1, 22), 64),
+        ("d=12288", centroid_case(2, 12_288, 300, 0.1, 23), 16),
+        ("B=1", centroid_case(1, 768, 1024, 0.1, 24), 64),
+        ("B=5", centroid_case(5, 768, 1024, 0.1, 25), 64),
+        ("B=33", centroid_case(33, 768, 1024, 0.1, 26), 64),
+        ("Nc=1", centroid_case(4, 768, 1, 0.0, 27), 1),
+        ("Nc=1000", centroid_case(4, 768, 1000, 0.1, 28), 64),
+        ("Nc=4096 (the paper's scale)", centroid_case(4, 768, 4096, 0.05, 29), 256),
+        ("every centroid invalid", centroid_case(4, 768, 64, 1.0, 30), 8),
+        ("a sliced query off a 16-byte boundary", sliced, 64),
+        ("valid=None", (q, cent, None), 32),
+    ]
+    return max(check_centroid(cp, ops, ref, case, nprobe, label)
+               for label, case, nprobe in cases)
+
+
+def centroid_timing(cp, ref, smi: str) -> dict:
+    """Kernel 5 at B=4, d=768 over Nc=1024 (the serve probe) and 4096
+    (the paper's scale), every centroid valid: the three times of
+    ``three_times``, the cold device time a call (L2 flushed before each
+    call), the bound, the plain version's event mean, and the library
+    call (q @ c.T then masked_fill_, full fp32; the port never calls it)
+    timed the same three ways.  Returns {shape: numbers}."""
+    flush = torch.empty((FLUSH_BYTES // 4,), device="cuda")
+    t = {}
+    for shape, Nc in CENTROID_TIMING.items():
+        case = centroid_case(4, 768, Nc, 0.0, seed=20)
+        q, cent, valid = case
+        fn = lambda: cp.centroid_scores(q, cent, valid)
+        r = three_times(fn, cp.centroid_scores, 200)
+        r["cold_ms"] = cold_ms(fn, flush)
+        r["bound_ms"], r["bound_by"] = bound(*centroid_work(case))
+        r["plain_ms"] = time_ms(lambda: ref.centroid_probe_ref(cent, q, valid), 200)
+        lib = lambda: (q @ cent.T).masked_fill_(~valid[None, :], float("-inf"))
+        r["library_ms"] = time_ms(lib, 200)
+        r["library_device_ms"] = device_ms(lib)
+        r["library_cold_ms"] = cold_ms(lib, flush)
+        r["shape"] = [4, 768, Nc]
+        t[shape] = r
+        phase("time", f"centroid_scores {shape} (B=4, d=768, Nc={Nc}): "
+              + describe(r) + f", cold {r['cold_ms']:.4f} ms device a call "
+              f"({r['bound_ms'] / r['cold_ms']:.1%} of the bound); q @ c.T + "
+              f"masked_fill_ {r['library_ms']:.4f} ms (events), "
+              f"{r['library_device_ms']:.4f} device, {r['library_cold_ms']:.4f} "
+              f"cold; on {smi}")
+        del case, q, cent, valid
+    del flush
+    torch.cuda.empty_cache()
+    return t
+
+
+def centroid_aims(t: dict, parent: list = None) -> list:
+    """(aim, met, numbers) for kernel 5's timings ``t``: no slower than
+    the library call in every mode (event mean, device time, cold) at
+    both shapes; cold at the paper's scale at least 40% of the bound;
+    with ``parent`` (the parent's timings, one per run), faster than the
+    parent's kernel in every mode at both shapes, in every run."""
+    modes = (("ms", "library_ms", "event mean"),
+             ("device_ms", "library_device_ms", "device time a call"),
+             ("cold_ms", "library_cold_ms", "cold device time a call"))
+    aims = []
+    for shape, r in t.items():
+        for mine, lib, what in modes:
+            aims.append((f"centroid_scores {shape}: {what} no slower than q @ c.T "
+                         "+ masked_fill_", r[mine] <= r[lib],
+                         f"{r[mine]:.4f} ms against {r[lib]:.4f} ms"))
+    pp = t["paper"]
+    aims.append((f"centroid_scores paper scale, cold: >= "
+                 f"{AIM_CENTROID_COLD_BOUND_SHARE:.0%} of the bound",
+                 pp["bound_ms"] / pp["cold_ms"] >= AIM_CENTROID_COLD_BOUND_SHARE,
+                 f"{pp['cold_ms']:.4f} ms, bound {pp['bound_ms']:.5f} ms "
+                 f"({pp['bound_ms'] / pp['cold_ms']:.1%})"))
+    for shape in (t if parent else ()):
+        for mine, _, what in modes:
+            theirs = [p[shape][mine] for p in parent]
+            aims.append((f"centroid_scores {shape}: {what} lower than the "
+                         "parent's in every run", t[shape][mine] < min(theirs),
+                         f"{t[shape][mine]:.4f} ms against "
+                         + ", ".join(f"{x:.4f}" for x in theirs)))
+    return aims
 
 
 # -- kernel 2: probe_topk_fused -----------------------------------------------
@@ -1199,8 +1470,10 @@ def need_card() -> None:
         sys.exit(1)
 
 
-def decode_timing_main(root: Path) -> None:
-    """Phase 7's decode timing alone, on the port under ``root``/src."""
+def decode_timing_main(root: Path, bits: Path) -> None:
+    """Phase 7's decode timing alone (kernels 1, 4 and the spliced one),
+    on the port under ``root``/src; the spliced kernel's outputs on the
+    seeded inputs of ``spliced_bits`` are saved to ``bits``."""
     need_card()
     if not (root / "src" / "repro_torch").is_dir():
         fail(f"{root} holds no src/repro_torch")
@@ -1209,37 +1482,56 @@ def decode_timing_main(root: Path) -> None:
     from repro_torch.kernels import ref
     smi = card_line()
     t = decode_timing(fd, ref, smi)
+    t["flash_decode_spliced"] = spliced_timing(fd, ref, smi)
+    torch.save(spliced_bits(fd), bits)
     print(json.dumps({"root": str(root), "card": smi, "timing": t}))
+
+
+def unchanged(parent: list, change: list) -> tuple:
+    """(met, allowance): the change's mean within the larger of either
+    side's spread (max - min over its runs) and 2% of the parent's mean."""
+    pm, cm = float(np.mean(parent)), float(np.mean(change))
+    allow = max(max(parent) - min(parent), max(change) - min(change), 0.02 * pm)
+    return abs(cm - pm) <= allow, allow
 
 
 def decode_ab_main(parent: Path) -> None:
     """The decode timing of ``parent``, this checkout, this checkout and
     ``parent``, one process each, side by side, with the aims: those at
-    the long context judged on this checkout's mean, the serve-shape
-    aim against the parent's mean device time."""
+    the long context judged on this checkout's mean, the serve-shape and
+    the spliced kernel's aims against the parent's mean device time,
+    kernels 1 and 4 against the parent's within the runs' spread; then
+    the spliced kernel's output bits of each run against the parent's."""
     need_card()
+    out = ROOT / "chiprun_out" / "decode_ab"
+    out.mkdir(parents=True, exist_ok=True)
     runs = []
     for i, root in enumerate((parent, ROOT, ROOT, parent), 1):
         proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--decode-timing", str(root)],
+                               "--decode-timing", str(root),
+                               str(out / f"bits_run{i}.pt")],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode:
             fail(f"decode timing of {root}: exit {proc.returncode}\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         phase("ab", f"run {i}: {root} on {runs[-1]['card']}")
-    keys = ("ms", "device_ms", "grids_per_call", "host_us", "library_ms")
+    names = ("flash_decode", "flash_decode_paged", "flash_decode_spliced")
+    extra = ("paged_ms", "paged_device_ms", "spliced_table_ms",
+             "spliced_table_device_ms")
     mean = lambda rs, name, shape, key: float(np.mean(
         [r["timing"][name][shape][key] for r in rs]))
     sides = {"parent": [runs[0], runs[3]], "change": [runs[1], runs[2]]}
-    avg = {side: {name: {shape: {k: mean(rs, name, shape, k) for k in keys
-                                 if rs[0]["timing"][name][shape][k] is not None}
+    avg = {side: {name: {shape: {k: mean(rs, name, shape, k)
+                                 for k in rs[0]["timing"][name][shape]
+                                 if isinstance(rs[0]["timing"][name][shape][k], float)}
                          for shape in ("serve", "mid", "long")}
-                  for name in ("flash_decode", "flash_decode_paged")}
+                  for name in names}
            for side, rs in sides.items()}
-    for name in ("flash_decode", "flash_decode_paged"):
+    for name in names:
         for shape in ("serve", "mid", "long"):
-            for key in ("ms", "device_ms", "grids_per_call", "host_us"):
+            for key in ("ms", "device_ms", "grids_per_call", "host_us") + (
+                    extra if name == "flash_decode_spliced" else ()):
                 vals = " | ".join(f"{r['timing'][name][shape][key]:.4f}" for r in runs)
                 phase("ab", f"{name} {shape} {key}: runs 1-4 (parent, change, "
                       f"change, parent) {vals}")
@@ -1248,9 +1540,37 @@ def decode_ab_main(parent: Path) -> None:
         for name in t:
             for shape in t[name]:
                 t[name][shape]["bound_ms"] = runs[1]["timing"][name][shape]["bound_ms"]
-    for aim, met, numbers in decode_aims(avg["change"], avg["parent"]):
+    card = runs[1]["card"]
+    aims = decode_aims(avg["change"], avg["parent"]) + spliced_aims(
+        avg["change"]["flash_decode_spliced"], avg["parent"]["flash_decode_spliced"])
+    for name in ("flash_decode", "flash_decode_paged"):
+        for shape in ("serve", "mid", "long"):
+            dev = [r["timing"][name][shape]["device_ms"] for r in runs]
+            met, allow = unchanged([dev[0], dev[3]], [dev[1], dev[2]])
+            aims.append((f"{name} {shape}: device time a call unchanged", met,
+                         f"change {np.mean(dev[1:3]):.4f} ms, parent "
+                         f"{np.mean([dev[0], dev[3]]):.4f} ms, allowed "
+                         f"difference {allow:.4f} ms (the larger side's spread "
+                         "or 2%)"))
+    for aim, met, numbers in aims:
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; means "
-              f"of runs 2-3 against runs 1 and 4; {runs[1]['card']})")
+              f"of runs 2-3 against runs 1 and 4; {card})")
+    bits = [torch.load(out / f"bits_run{i}.pt") for i in range(1, 5)]
+    for i in (1, 2):
+        same, worst = 0, (0.0, None)
+        for label, want in bits[0].items():
+            got = bits[i][label]
+            if torch.equal(got, want):
+                same += 1
+            else:
+                d = (got - want).abs().max().item()
+                worst = max(worst, (d, label), key=lambda w: w[0])
+        phase("ab", f"flash_decode_spliced output bits, run {i + 1} against run 1 "
+              f"(the parent): {same} of {len(bits[0])} cases equal"
+              + (f"; largest difference {worst[0]:.3e} ({worst[1]})" if worst[1] else ""))
+    phase("ab", "flash_decode_spliced output bits, run 4 against run 1 (parent "
+          f"twice): {sum(torch.equal(bits[3][k], v) for k, v in bits[0].items())} "
+          f"of {len(bits[0])} cases equal")
     print(json.dumps({"decode_ab": runs}))
 
 
@@ -1320,6 +1640,53 @@ def retrieval_ab_main(parent: Path) -> None:
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; means "
               f"of runs 2-3, against runs 1 and 4; {runs[1]['card']})")
     print(json.dumps({"retrieval_ab": runs}))
+
+
+def centroid_timing_main(root: Path) -> None:
+    """Phase 5's timing of kernel 5 alone, on the port under ``root``/src."""
+    need_card()
+    if not (root / "src" / "repro_torch").is_dir():
+        fail(f"{root} holds no src/repro_torch")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import centroid_probe as cp
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = card_line()
+    print(json.dumps({"root": str(root), "card": smi,
+                      "timing": centroid_timing(cp, ref, smi)}))
+
+
+def centroid_ab_main(parent: Path) -> None:
+    """``--centroid-timing`` of ``parent``, this checkout, this checkout
+    and ``parent``, one process each, side by side, with the aims on the
+    means of this checkout's runs, against the parent's every run."""
+    need_card()
+    runs = []
+    for i, root in enumerate((parent, ROOT, ROOT, parent), 1):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--centroid-timing", str(root)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            fail(f"centroid timing of {root}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        phase("ab", f"run {i}: {root} on {runs[-1]['card']}")
+    keys = ("ms", "device_ms", "host_us", "cold_ms", "library_ms",
+            "library_device_ms", "library_cold_ms")
+    for shape in CENTROID_TIMING:
+        for key in keys:
+            vals = " | ".join(f"{r['timing'][shape][key]:.4f}" for r in runs)
+            phase("ab", f"centroid_scores {shape} {key}: runs 1-4 (parent, "
+                  f"change, change, parent) {vals}")
+    change = [runs[1]["timing"], runs[2]["timing"]]
+    avg = {shape: {**change[0][shape], **{k: float(np.mean([c[shape][k] for c in change]))
+                                          for k in keys}}
+           for shape in CENTROID_TIMING}
+    for aim, met, numbers in centroid_aims(
+            avg, parent=[runs[0]["timing"], runs[3]["timing"]]):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; means "
+              f"of runs 2-3, against runs 1 and 4; {runs[1]['card']})")
+    print(json.dumps({"centroid_ab": runs}))
 
 
 def main() -> None:
@@ -1429,21 +1796,19 @@ def main() -> None:
     del serve_ret, serve_ivf
 
     # kernel 5 against its plain version
-    serve_cent = centroid_case(4, 768, 1024, 0.0, seed=20)
-    err_cent = max(
-        check_centroid(ops, ref, serve_cent, 64, "serve probe shape"),
-        check_centroid(ops, ref, centroid_case(5, 30, 203, 0.15, seed=21), 9,
-                       "odd shape"))
+    err_cent = centroid_checks(cp, ops, ref)
 
     # the spliced-decode kernel against its plain version
     err_spl = spliced_checks(fd, ref)
 
     check_model(ttf, get_arch)
 
-    # 5) timing of kernel 5 (kernels 2 and 3 come after the serves)
-    cent_t = time_centroid(cp, ref, serve_cent, smi)
-    del serve_cent
-    torch.cuda.empty_cache()
+    # 5) timing of kernel 5, warm and cold (kernels 2 and 3 come after the serves)
+    cent_t = centroid_timing(cp, ref, smi)
+    for aim, met, numbers in centroid_aims(cent_t):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
+    phase("aim", "centroid_scores: faster than the parent's in every mode: "
+          "judged by --centroid-ab PARENT")
 
     # 6) serving through the port's entry point: one build, two serves,
     #    each path's launch counts set to 0 just before it and read after
@@ -1527,8 +1892,12 @@ def main() -> None:
     for aim, met, numbers in decode_aims(decode_t):
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
     spliced_t = spliced_timing(fd, ref, smi)
+    for aim, met, numbers in spliced_aims(spliced_t):
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
     phase("aim", "each decode kernel at the serve shape: device time a call no "
-          "higher than the parent's: judged by --decode-ab PARENT")
+          "higher than the parent's; kernels 1 and 4 unchanged; the spliced "
+          "kernel faster than the parent's at the long context: judged by "
+          "--decode-ab PARENT")
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -1566,7 +1935,8 @@ def main() -> None:
          "launches": launches["dense"]["centroid_scores"],
          "launches_by_path": {p: c["centroid_scores"]
                               for p, c in launches.items()},
-         "max_abs_err": err_cent, **cent_t, "shape": [4, 768, 1024]},
+         "max_abs_err": err_cent, **cent_t["serve"],
+         "paper_scale": cent_t["paper"]},
         {"name": "flash_decode_spliced", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode_spliced.cu",
          "replaces": "none: no TPU kernel; the reference runs its jnp oracle "
@@ -1584,16 +1954,21 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--decode-timing":
-        decode_timing_main(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 4 and sys.argv[1] == "--decode-timing":
+        decode_timing_main(Path(sys.argv[2]).resolve(), Path(sys.argv[3]))
     elif len(sys.argv) == 3 and sys.argv[1] == "--decode-ab":
         decode_ab_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-timing":
         retrieval_timing_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-ab":
         retrieval_ab_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 3 and sys.argv[1] == "--centroid-timing":
+        centroid_timing_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 3 and sys.argv[1] == "--centroid-ab":
+        centroid_ab_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 1:
         main()
     else:
-        fail(f"usage: {sys.argv[0]} [--decode-timing DIR | --decode-ab PARENT"
-             " | --retrieval-timing DIR | --retrieval-ab PARENT]")
+        fail(f"usage: {sys.argv[0]} [--decode-timing DIR BITS | --decode-ab "
+             "PARENT | --retrieval-timing DIR | --retrieval-ab PARENT | "
+             "--centroid-timing DIR | --centroid-ab PARENT]")

@@ -13,16 +13,48 @@ reference runs ``lax.top_k`` outside its kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode import _sm_count
 from repro_torch.kernels.ref import centroid_probe_ref
 
 _SOURCE = "centroid_scores"
-_MAX_DIM = 12_288           # one query row must fit the kernel's 48 KB stage
+_MAX_DIM = 12_288           # the widest d the kernel's checks cover
+_ROWS = 2                   # centroid rows a warp takes (csrc kRows)
+_SLICES = 8                 # vectors a lane holds of a row segment (kSlices)
+_QUERY_BYTES = 48 * 1024    # shared memory for staged query segments
 _fn = None
+
+
+class Plan(NamedTuple):
+    """How one launch covers [B, d] queries against Nc centroids."""
+    vec: bool       # 16-byte loads (d % 4 == 0, both pointers aligned)
+    seg: int        # floats of a row segment a warp holds in registers
+    group: int      # largest query group summed at once: 8, 4, 2 or 1
+    warps: int      # warps a block
+    blocks: int     # block b takes rows [b * Nc // blocks, (b+1) * Nc // blocks)
+    qb: int         # queries staged in shared memory at once
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(B: int, d: int, Nc: int, sms: int, aligned: bool) -> Plan:
+    """The kernel's plan: one block per SM (a multiple of the SM count
+    where a block would take more than 8 warps x _ROWS rows; never more
+    blocks than rows), each a contiguous share of the rows, one warp a
+    row where the share allows (at most _ROWS); a row segment of 1024
+    floats (256 on the scalar path); the queries staged as many as fit
+    48 KB, summed in groups of at most 8."""
+    vec = aligned and d % 4 == 0
+    seg = 32 * _SLICES * (4 if vec else 1)
+    blocks = max(1, min(Nc, sms * -(-Nc // (sms * 8 * _ROWS))))
+    warps = max(1, min(8, -(-Nc // blocks)))
+    group = 1 << min(3, max(B, 1).bit_length() - 1)
+    return Plan(vec, seg, group, warps, blocks,
+                max(1, min(B, _QUERY_BYTES // (seg * 4))))
 
 
 def _kernel():
@@ -31,7 +63,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load(_SOURCE).centroid_scores
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 4 + [I] * 3 + [P]
+        fn.argtypes = [P] * 4 + [I] * 8 + [P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -78,10 +110,14 @@ def centroid_scores(queries: torch.Tensor, centroids: torch.Tensor,
     out = torch.empty((B, Nc), dtype=torch.float32, device=queries.device)
     if B == 0 or Nc == 0:
         return out                                # nothing to launch
+    dev = queries.device.index
+    plan = _plan(B, d, Nc, _sm_count(dev), (queries.data_ptr() % 16 == 0
+                                            and centroids.data_ptr() % 16 == 0))
     err = _kernel()(
         queries.data_ptr(), centroids.data_ptr(),
         None if valid is None else valid.data_ptr(), out.data_ptr(), B, d,
-        Nc, torch.cuda.current_stream(queries.device).cuda_stream)
+        Nc, int(plan.vec), plan.group, plan.warps, plan.blocks, plan.qb,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"centroid_scores kernel launch failed: "
                            f"cudaError {err}")

@@ -7,9 +7,15 @@
 // and hands decode_block a functor from position to the element offset
 // of that position's row.  The spliced kernel also hands it a splice
 // policy (kOn = true): a position may be dead (never copied, scored
-// -inf, left out of P V), and a live row's K is rotated on its read
-// from shared memory; the other two pass NoSplice, which compiles to
-// the same code as before the policy existed.
+// -inf, left out of P V), and a live row's K is rotated in shared memory
+// before the scores.  Such a policy describes each chunk in shared
+// memory of its own, two chunks ahead of the scores (pol.fetch issues
+// the table reads as cp.async copies, one group ahead of the K/V copy in
+// flight; pol.store waits for them and writes the descriptors;
+// pol.angles fills a chunk's angle table; pol.use selects the chunk of
+// the score loop), and stages rows from its descriptors; the other two
+// kernels pass NoSplice, which compiles to the same code as before the
+// policy existed.
 //
 // One grid a call: blockIdx.x is the split (whole kChunk-position chunks,
 // `split` positions each), blockIdx.y the kv-head, blockIdx.z the batch
@@ -111,8 +117,15 @@ struct Tile {
 // chunk's scores [GM][kChunk], then m and l [GM] and a flag.  After the
 // loop the stages hold the accumulator's per-warp partials [kWarps][GM][Dh].
 template <typename KT, int Dh, int GM>
-constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes() {
   return 4 * Tile<KT, Dh>::kStage * (int)sizeof(KT) + (GM * kChunk + 2 * GM + 4) * 4;
+}
+
+// Where a splice policy's shared memory starts: after smem_bytes, on a
+// 16-byte boundary.
+template <typename KT, int Dh, int GM>
+__host__ __device__ constexpr int splice_offset() {
+  return (smem_bytes<KT, Dh, GM>() + 15) & ~15;
 }
 
 struct Args {
@@ -133,22 +146,36 @@ struct Args {
 // Every position in [lo, hi) is live and K is used as stored.
 struct NoSplice {
   static constexpr bool kOn = false;
-  __device__ __forceinline__ bool live(int) const { return true; }
 };
 
 // Copy the live positions of [c0, c0 + n) of the chunk into stage buffers
-// ks, vs (a dead position's slot keeps stale data; it is never used).
-template <typename KT, int Dh, typename RowFn, typename Splice>
+// ks, vs (a dead position's slot keeps stale data; it is never used).  A
+// splice policy gives liveness and row offsets from its descriptors of
+// chunk ci, written before the barrier that precedes this copy, or for
+// the first chunk (kFirst: no barrier before it) from the tables.
+template <typename KT, int Dh, bool kFirst, typename RowFn, typename Splice>
 __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict__ k,
                                             const KT* __restrict__ v, const RowFn& row,
-                                            const Splice& pol, int c0, int n) {
+                                            const Splice& pol, int ci, int c0, int n) {
   using T = Tile<KT, Dh>;
 #pragma unroll
   for (int i = 0; i < T::kCopies; ++i) {
     const int piece = threadIdx.x + i * kThreads;
     const int j = piece / T::kLanes;
     const int col = (piece % T::kLanes) * T::kVec;
-    if (j < n && pol.live(c0 + j)) {
+    if constexpr (Splice::kOn && kFirst) {
+      long long off;
+      if (j < n && pol.direct(c0 + j, off)) {
+        cp_async16(ks + j * Dh + col, k + off + col);
+        cp_async16(vs + j * Dh + col, v + off + col);
+      }
+    } else if constexpr (Splice::kOn) {
+      if (pol.staged(ci, j)) {
+        const long long off = pol.offset(ci, j) + col;
+        cp_async16(ks + j * Dh + col, k + off);
+        cp_async16(vs + j * Dh + col, v + off);
+      }
+    } else if (j < n) {
       const long long off = row(c0 + j) + col;
       cp_async16(ks + j * Dh + col, k + off);
       cp_async16(vs + j * Dh + col, v + off);
@@ -159,9 +186,15 @@ __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict
 
 // The block's work for row rid = b * KVH + h, whose positions are
 // [lo, hi); row(t) is the element offset of position t's K/V row.  With
-// a splice policy (Splice::kOn), pol.live(t) says whether position t is
-// live and pol.rotate(...) rotates a live K row slice in registers; the
-// block's copy of the policy may keep per-thread state (its angles).
+// a splice policy (Splice::kOn), row is unused: the policy describes
+// chunk c in its shared memory (after this block's, from byte
+// splice_offset) by the barrier before chunk c - 1's scores, so its copy
+// can be issued at the top of that iteration (chunk 0, copied before any
+// barrier, by the first barrier of the loop); pol.live(j, ok) says
+// whether row j of the chunk in use is live, and where pol.rotating() a
+// pass before the scores has each thread rotate, in shared memory, the
+// K row slices it then reads (pol.rotate), so the score loop itself is
+// the unspliced one with a liveness test.
 template <typename QT, typename KT, int Dh, int GM, typename RowFn,
           typename Splice = NoSplice>
 __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int hi,
@@ -196,7 +229,18 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   const KT* k = static_cast<const KT*>(a.k);
   const KT* v = static_cast<const KT*>(a.v);
   const int nchunks = (s1 - s0 + kChunk - 1) / kChunk;
-  stage_chunk<KT, Dh>(stages, stages + T::kStage, k, v, row, pol, s0, min(kChunk, s1 - s0));
+  if constexpr (Splice::kOn) {   // chunks 0 and 1's table entries in flight
+    pol.bind(smem + splice_offset<KT, Dh, GM>());
+    pol.fetch(0, s0, min(kChunk, s1 - s0));
+    if (nchunks > 1) pol.fetch(1, s0 + kChunk, min(kChunk, s1 - s0 - kChunk));
+  }
+  stage_chunk<KT, Dh, true>(stages, stages + T::kStage, k, v, row, pol, 0, s0,
+                            min(kChunk, s1 - s0));
+  if constexpr (Splice::kOn) {   // warp 0: chunk 0's descriptor and angles, chunk 1's
+    pol.store(0, s0, min(kChunk, s1 - s0), nchunks > 1 ? 2 : 1);
+    pol.angles(0, 32);
+    if (nchunks > 1) pol.store(1, s0 + kChunk, min(kChunk, s1 - s0 - kChunk), 1);
+  }
 
   // this thread's head dims [sub * V, sub * V + V) of rows slot, slot + kSlots, ...
   const int sub = lane % T::kLanes;
@@ -223,13 +267,29 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     const int n = min(kChunk, s1 - c0);
     cp_async_wait_all();
     __syncthreads();   // chunk c is in; everyone is done with chunk c - 1
+    if constexpr (Splice::kOn) {   // chunk c + 2's table reads, ahead of c + 1's copy
+      if (c + 2 < nchunks) pol.fetch(c + 2, c0 + 2 * kChunk, min(kChunk, s1 - c0 - 2 * kChunk));
+    }
     if (c + 1 < nchunks) {
       KT* nx = stages + ((c + 1) & 1) * 2 * T::kStage;
-      stage_chunk<KT, Dh>(nx, nx + T::kStage, k, v, row, pol, c0 + kChunk,
-                          min(kChunk, s1 - c0 - kChunk));
+      stage_chunk<KT, Dh, false>(nx, nx + T::kStage, k, v, row, pol, c + 1, c0 + kChunk,
+                                 min(kChunk, s1 - c0 - kChunk));
     }
-    const KT* ks = stages + (c & 1) * 2 * T::kStage;
+    if constexpr (Splice::kOn) {
+      if (c + 1 < nchunks) pol.angles(c + 1, kThreads);
+      pol.use(c);
+    }
+    KT* ks = stages + (c & 1) * 2 * T::kStage;
     const KT* vs = ks + T::kStage;
+    if constexpr (Splice::kOn) {   // a rotated chunk's K rows, in place, by their readers
+      if (pol.rotating()) {
+#pragma unroll 1
+        for (int it = 0; it < kChunk / T::kSlots; ++it) {
+          const int j = slot + it * T::kSlots;
+          pol.template rotate<KT, V>(ks + j * Dh, sub * V, j);
+        }
+      }
+    }
 
     // 1) scores, kLanes lanes a row; rows >= n (and dead rows) hold stale
     //    data and are masked
@@ -240,10 +300,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       float kf[V];
       load16(ks + j * Dh + sub * V, kf);
       bool ok = j < n;
-      if constexpr (Splice::kOn) {
-        ok = ok && pol.live(c0 + j);
-        if (ok) pol.template rotate<KT, V>(ks + j * Dh, sub * V, c0 + j, kf);
-      }
+      if constexpr (Splice::kOn) ok = pol.live(j, ok);
       live_row[it] = ok;
       float part[GM];
 #pragma unroll
@@ -301,6 +358,10 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
           for (int e = 0; e < V; ++e) acc[g][e] += p * vf[e];
         }
       }
+    }
+    if constexpr (Splice::kOn) {   // every warp is past chunk c - 1's rows
+      if (c + 2 < nchunks)
+        pol.store(c + 2, c0 + 2 * kChunk, min(kChunk, s1 - c0 - 2 * kChunk), 1);
     }
   }
 

@@ -32,13 +32,15 @@ from repro_torch.models.layers import rope_frequencies
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
            (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
 _CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
+_TAB = 256              # cos/sin pairs of a chunk's angle table (spliced kTab)
+FRESH, MASKED, ROTATED = 0, 1, 2   # the spliced kernel's chunk modes
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "flash_decode_paged": [_P, _I, _P, _P, _I, _P, _P] + [_P] * 5 + [_I] * 9
                           + [ctypes.c_float, _P],
     "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 8
                     + [ctypes.c_float, _P],
-    "flash_decode_spliced": [_P, _I, _P, _P, _I] + [_P] * 10 + [_I] * 9
+    "flash_decode_spliced": [_P, _I, _P, _P, _I] + [_P] * 10 + [_I] * 12
                             + [ctypes.c_float, _P],
 }
 _fns = {}
@@ -259,6 +261,59 @@ def _rope_table(dev: torch.device, Dh: int, fraction: float,
     return t
 
 
+@functools.lru_cache(maxsize=256)
+def _splice_plan(Dh: int, kv_bf16: bool, rot: int) -> Tuple[int, int, int]:
+    """The spliced kernel's plan for Dh, the page dtype and ``rot``
+    rotated dims: (partner lane distance, angle-table runs a chunk, fresh
+    path).  A lane holds V = 8 (bf16) or 4 (fp32) dims of a row, Dh / V
+    lanes a row; the rotate-half partner of dim i (i +- rot/2) is in lane
+    ``lane ^ dist`` when rot/2 is a multiple of V and dist = rot/2 / V is
+    a power of two below the row's lanes, else 0 (partners read from
+    shared memory).  The table holds _TAB cos/sin pairs, rot/2 a run; 1:
+    a chunk whose every position is fresh skips the splice code."""
+    V = 8 if kv_bf16 else 4
+    half = rot // 2
+    dist = half // V if half and half % V == 0 else 0
+    if dist & (dist - 1) or dist >= Dh // V:
+        dist = 0
+    return dist, min(_TAB // half, _CHUNK) if half else 0, 1
+
+
+def spliced_chunks(block_table: torch.Tensor, lengths: torch.Tensor,
+                   page_delta: torch.Tensor, page_valid: torch.Tensor,
+                   ps: int, rot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """How the spliced kernel takes each 64-position chunk of each row
+    (chunks start at multiples of 64 whatever the split, every split
+    being whole chunks): (mode [B, C], runs [B, C]) over C = ceil(MB * ps
+    / 64) chunks.  Mode ``FRESH``: every position below the row's length
+    is live with delta 0, so the chunk runs the unspliced code;
+    ``MASKED``: some position is dead (past its page's valid count), none
+    rotated; ``ROTATED``: some live position has a nonzero delta (and
+    rot > 0); -1: the chunk starts at or past the row's length.  Runs:
+    the rotated chunk's runs of one nonzero delta over consecutive rotated
+    positions, the angle-table entries it needs.  Computed on the host
+    from the tables, as the kernel's warp 0 computes it."""
+    bt = block_table.cpu()
+    B, MB = bt.shape
+    C = -(-MB * ps // _CHUNK)
+    pos = torch.arange(C * _CHUNK)
+    pg = (pos // ps).clamp(max=MB - 1)
+    inlen = pos[None, :] < lengths.cpu().long().clamp(0, MB * ps)[:, None]
+    live = inlen & ((pos % ps)[None, :] < page_valid.cpu().long()[:, pg])
+    dl = torch.where(live, page_delta.cpu().long()[:, pg], 0)
+    rt = live & (dl != 0) & (rot > 0)
+    first = (pos % _CHUNK == 0)[None, :]
+    prev_rt = torch.nn.functional.pad(rt, (1, 0))[:, :-1]
+    prev_dl = torch.nn.functional.pad(dl, (1, 0))[:, :-1]
+    start = rt & (first | ~prev_rt | (prev_dl != dl))
+    view = lambda t: t.reshape(B, C, _CHUNK)
+    mode = torch.where(view(rt).any(-1), ROTATED,
+                       torch.where((view(live) == view(inlen)).all(-1), FRESH,
+                                   MASKED))
+    mode = torch.where(view(inlen)[..., 0], mode, -1)
+    return mode, view(start).sum(-1)
+
+
 def flash_decode_spliced(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
                          lengths: torch.Tensor, page_delta: torch.Tensor,
@@ -301,7 +356,8 @@ def flash_decode_spliced(q: torch.Tensor, k_pages: torch.Tensor,
                   (block_table.data_ptr(), lengths.data_ptr(),
                    page_delta.data_ptr(), page_valid.data_ptr(),
                    freq.data_ptr()),
-                  (B, KVH, G, Dh, ps, MB, rot))
+                  (B, KVH, G, Dh, ps, MB, rot,
+                   *_splice_plan(Dh, k_pages.dtype == torch.bfloat16, rot)))
     flash_decode_spliced.launches += 1
     return out
 

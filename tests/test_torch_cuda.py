@@ -397,8 +397,13 @@ def test_probe_topk_kernel_edge_cases(case, B, d, Nc, P, ps, nprobe, k):
     (4, 768, 1024, 64, 0.0),        # serve probe shape, all valid
     (1, 64, 96, 8, 0.2),            # Nc not a multiple of 32
     (3, 128, 128, 16, 0.2),
-    (20, 2048, 70, 10, 0.1),        # queries staged in chunks of 6
-    (900, 30, 100, 10, 0.1),        # d = 30; chunks of 409 queries
+    (20, 2048, 70, 10, 0.1),        # two row segments
+    (900, 30, 100, 10, 0.1),        # d = 30; queries staged in turns of 48
+    (33, 768, 1024, 64, 0.1),       # groups of 8, 8, 8, 8 and 1
+    (1, 12_288, 300, 16, 0.1),      # twelve row segments
+    (4, 768, 1, 1, 0.0),            # Nc = 1
+    (4, 768, 4096, 256, 0.05),      # the paper's scale
+    (5, 770, 1000, 64, 0.1),        # d % 4: 4-byte loads
 ])
 def test_centroid_scores_kernel_matches_plain(B, d, Nc, nprobe, invalid):
     dev = _card()
@@ -692,3 +697,147 @@ def test_serve_step_paged_spliced_on_card_matches_cpu():
     assert tfd.flash_decode_spliced.launches == before + cfg.num_layers
     torch.testing.assert_close(gk.cpu(), wk, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["query", "centroids", "both"])
+def test_centroid_scores_off_a_16_byte_boundary(what):
+    """Tensors sliced off a 16-byte boundary take the 4-byte loads and
+    give the plain version's top-k ids and scores."""
+    dev = _card()
+    B, d, Nc = 4, 768, 1024
+    rng = np.random.default_rng(5)
+    flat_q = torch.from_numpy(rng.standard_normal(B * d + 1).astype(np.float32)).to(dev)
+    flat_c = torch.from_numpy(rng.standard_normal(Nc * d + 3).astype(np.float32)).to(dev)
+    q = flat_q[1:].view(B, d) if what != "centroids" else flat_q[:-1].view(B, d)
+    cents = flat_c[3:].view(Nc, d) if what != "query" else flat_c[:-3].view(Nc, d)
+    valid = torch.from_numpy(rng.random(Nc) > 0.1).to(dev)
+    assert (q.data_ptr() % 16 != 0) or (cents.data_ptr() % 16 != 0)
+    got = tcp.centroid_scores(q, cents, valid)
+    want = tref.centroid_probe_ref(cents, q, valid)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    gs, gi = tops.centroid_probe(cents, q, 64, valid=valid)
+    assert torch.equal(gi, torch.topk(want, 64, dim=-1).indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d", [(4, 768), (33, 1024), (2, 3000)])
+def test_centroid_scores_scalar_path_matches_vector_path(B, d, monkeypatch):
+    """The 4-byte loads on aligned data (the plan told the inputs are
+    unaligned) agree with the 16-byte loads: the same top-k ids, scores
+    within rtol=1e-4 (another summation order)."""
+    dev = _card()
+    rng = np.random.default_rng(B + d)
+    cents = torch.from_numpy(rng.standard_normal((1000, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32)).to(dev)
+    vec = tcp.centroid_scores(q, cents)
+    plan = tcp._plan
+    monkeypatch.setattr(tcp, "_plan", lambda B, d, Nc, sms, aligned:
+                        plan(B, d, Nc, sms, False))
+    scalar = tcp.centroid_scores(q, cents)
+    torch.testing.assert_close(scalar, vec, rtol=1e-4, atol=1e-4)
+    assert torch.equal(torch.topk(scalar, 32, dim=-1).indices,
+                       torch.topk(vec, 32, dim=-1).indices)
+    assert not torch.equal(scalar, vec) or d < 128
+
+
+# (seed, B, KVH, G, Dh, ps, rows, fresh pages, -1 tail columns, rope
+# fraction): rows with fresh runs (-k: k fresh pages) among chunks
+SPLICED_PATHS = {
+    # 130 table columns at 32 rows: splits of two 64-position chunks
+    "fresh and spliced chunks in one split": (
+        11, 4, 8, 4, 128, 16, [[-4, 20, 20, -4, 9, -4, 40, -8],
+                               [20] * 6 + [-8], [-12, 33, -4], [5, -4, 64, -4]],
+        2, 100, 1.0),
+    "long deltas": (12, 2, 4, 4, 128, 16, [[20] * 250, [-3, 40] * 60], 2, 2, 1.0),
+    "Dh 64, rot 32, page size 48": (13, 3, 2, 4, 64, 48,
+                                    [[50, -1, 100], [-1, 7], [-2, 150]], 3, 2,
+                                    0.5),
+}
+
+
+def _path_inputs(seed, B, KVH, G, Dh, ps, rows, fresh, tail, dtype):
+    """Spliced inputs on the card: row b holds ``rows[b]`` at page
+    boundaries, a positive entry a chunk of that many tokens (its pages'
+    delta the chunk's first layout position, valid its live tokens), a
+    negative entry -k k fresh pages (delta 0, valid ps), then ``fresh``
+    fresh pages holding the new token, then ``tail`` -1 columns."""
+    rng = np.random.default_rng(seed)
+    npages = lambda c: -c if c < 0 else -(-c // ps)
+    MB = max(sum(map(npages, row)) for row in rows) + fresh + tail
+    NP = B * MB + 3
+    q = rng.standard_normal((B, KVH, G, Dh)).astype(np.float32)
+    kp = rng.standard_normal((NP, ps, KVH, Dh)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, KVH, Dh)).astype(np.float32)
+    perm = rng.permutation(NP)[:B * MB].reshape(B, MB).astype(np.int32)
+    bt = np.full((B, MB), -1, np.int32)
+    delta = np.zeros((B, MB), np.int32)
+    valid = np.zeros((B, MB), np.int32)
+    lengths = []
+    for b, row in enumerate(rows):
+        b0 = 0
+        for c in row + [-fresh]:
+            n = npages(c)
+            bt[b, b0:b0 + n] = perm[b, b0:b0 + n]
+            valid[b, b0:b0 + n] = ps
+            if c > 0:
+                delta[b, b0:b0 + n] = b0 * ps
+                valid[b, b0 + n - 1] = c - (n - 1) * ps
+            b0 += n
+        lengths.append((b0 - fresh) * ps + 1 + int(rng.integers(0, fresh * ps)))
+    t = [torch.from_numpy(x).cuda() for x in
+         (q, kp, vp, bt, np.asarray(lengths, np.int32), delta, valid)]
+    t[0], t[1], t[2] = t[0].to(dtype), t[1].to(dtype), t[2].to(dtype)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(SPLICED_PATHS))
+def test_flash_decode_spliced_paths_give_the_same_bits(name, dtype,
+                                                       monkeypatch):
+    """The fresh chunks' unspliced code against the general code, partners
+    by shuffle against reads from shared memory, the angle table against
+    angles computed where they are used: every other plan gives the
+    default plan's bits, which match the plain version."""
+    dev = _card()
+    *shape, frac = SPLICED_PATHS[name]
+    args = _path_inputs(*shape, dtype)
+    Dh, ps = args[0].shape[3], args[1].shape[1]
+    rot = int(Dh * frac) // 2 * 2
+    mode, _ = tfd.spliced_chunks(*args[3:], ps, rot)
+    assert (mode == tfd.FRESH).any() and (mode == tfd.ROTATED).any()
+    kw = dict(rope_fraction=frac, rope_theta=500_000.0)
+    want = tfd.flash_decode_spliced(*args, **kw)
+    torch.testing.assert_close(
+        want, tref.flash_decode_spliced_ref(*args, **kw), atol=2e-3, rtol=2e-3)
+    dist, runs, fresh = tfd._splice_plan(Dh, dtype == torch.bfloat16, rot)
+    assert dist > 0 and runs > 0 and fresh == 1    # the default's fast paths
+    for alt in ((dist, runs, 0), (0, runs, 1), (dist, 0, 1), (0, 0, 0)):
+        monkeypatch.setattr(tfd, "_splice_plan", lambda *a, alt=alt: alt)
+        assert torch.equal(tfd.flash_decode_spliced(*args, **kw), want), alt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPLICED_PATHS))
+def test_flash_decode_spliced_mixed_tables_replay_in_a_cuda_graph(name):
+    """Fresh and spliced chunks side by side: equal bits from two calls,
+    and the eager call's bits from every replay of a captured call."""
+    dev = _card()
+    *shape, frac = SPLICED_PATHS[name]
+    args = _path_inputs(*shape, torch.bfloat16)
+    kw = dict(rope_fraction=frac, rope_theta=500_000.0)
+    want = tfd.flash_decode_spliced(*args, **kw)
+    assert torch.equal(tfd.flash_decode_spliced(*args, **kw), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfd.flash_decode_spliced(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = tfd.flash_decode_spliced(*args, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
