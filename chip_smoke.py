@@ -65,9 +65,13 @@ Phases, one line each, every one fatal on failure:
      splice, the doc ids must equal the twin's, the kv and chunk_kv
      ledgers must drain to 0, and flash_decode_spliced and
      flash_decode_paged must launch 32 times per step of the spliced and
-     the other waves.  Then one observation: one retrieval round fused
-     against unfused, in alternating pairs, and each path's kernel alone
-     on that buffer state;
+     the other waves.  Each serve's flight-recorder stream (the chunk
+     serve's twin's too) replays through the port's happens-before
+     checker, repro_torch.analysis.check_recorder(drained=True; the
+     chunk serve with kv and chunk_kv required to drain to 0): one line
+     of counts each, any violation fatal.  Then one observation: one
+     retrieval round fused against unfused, in alternating pairs, and
+     each path's kernel alone on that buffer state;
   7. kernel timing, after the serves, so that its CUDA graphs and
      8k-position inputs cannot touch their timing: probe_topk_fused and
      ivf_topk at the serve shapes, and both decode kernels at the serve,
@@ -79,7 +83,24 @@ Phases, one line each, every one fatal on failure:
      grids a call (profiler); then whether the aims are met; then
      flash_decode_spliced on an all-fresh table of kernel 1's lengths,
      beside flash_decode_paged in the same process and on a table of
-     20-token spliced chunks, and its aims.
+     20-token spliced chunks, and its aims;
+  8. training, with the serves' state freed, through the training entry
+     point repro_torch.launch.train.main: the "full" preset (Llama-3-8B
+     at full width and depth, random bf16 weights from seed 0, the bf16
+     AdamW moments its memory check picks) trains 4 steps (remat) on one
+     repeated TokenStream batch of 2 x 512 tokens: one line a step
+     (loss, grad norm, lr, ms, tokens/s), then ms/step, tokens/s and the
+     peak of torch.cuda.max_memory_allocated; every loss finite and the
+     last below the first.  Then where a step's time goes, on a model of
+     its own built as main builds it (the update alone, a profiled
+     step's device ms by aten op, one step each in turn at main's
+     attention/loss chunks and at make_train_step's defaults).  Then the "100m" preset through main
+     with --ckpt-dir: 4 steps uninterrupted, and a resume from the
+     step-2 checkpoint alone; the resumed steps' metrics and the step-4
+     checkpoints equal to the bit; and that checkpoint restored into a
+     fresh state (in place) and saved again, equal to the bit.
+     Training runs no hand-written kernel (the reference trains through
+     jnp attention, with no Pallas kernel).
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -109,9 +130,12 @@ with the retrieval aims, the device-time aim judged on every run.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -163,6 +187,20 @@ AIM_FUSED_OVER_UNFUSED_MS = 0.05  # fused alone - unfused alone, one state
 # 8192 pages' worth (1.6 GB) of room for chunk pages, so neither serve
 # stalls on the pool and the two form the same waves
 CHUNK_POOL_PAGES = POOL_PAGES + 8192
+
+# the train phase: launch/train's "full" preset (Llama-3-8B at full width
+# and depth, bf16 weights and moments, remat), TRAIN_STEPS steps on one
+# repeated batch of TRAIN_BATCH x TRAIN_SEQ tokens from the TokenStream
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 512
+TRAIN_ARGS = ["--preset", "full", "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup", "1",
+              "--repeat-batch", "--log-every", "1", "--device", "cuda"]
+
+# the checkpoint round trip: launch/train's "100m" preset, CKPT_STEPS
+# steps with a checkpoint every CKPT_STEPS // 2
+CKPT_STEPS = 4
+CKPT_BATCH, CKPT_SEQ = 4, 256
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -1401,6 +1439,8 @@ def chunk_serve(serve, setup, fused: dict, counted: dict) -> dict:
         fail(f"chunk serve: no wave spliced ({summary['spliced_waves']} waves)")
     if summary["ledger_after_drain"] != {"kv": 0, "chunk_kv": 0}:
         fail(f"chunk serve: ledger after draining {summary['ledger_after_drain']}")
+    check_invariants("chunk-less twin", base)
+    check_invariants("chunk", summary, must_drain=("kv", "chunk_kv"))
     if not summary["retrieval_gap"] < 1e-2:
         fail(f"chunk serve disagrees with the exact host search: score gap "
              f"{summary['retrieval_gap']}")
@@ -1454,6 +1494,245 @@ def check_model(ttf, get_arch):
     err = (got.cpu() - want).abs().max().item()
     phase("check", f"serve_step_paged (reduced {cfg.name}, fp32) card vs CPU: "
           f"logits {tuple(got.shape)} max_abs_err={err:.3e} (atol=rtol=2e-3)")
+
+
+def check_invariants(path: str, summary: dict, **must) -> None:
+    """Replay the ``path`` serve's flight-recorder stream through the
+    port's happens-before checker in drained mode (``must``: owner
+    categories that must end at zero); fails on any violation."""
+    from repro_torch.analysis import check_recorder
+    rep = check_recorder(summary["recorder"], drained=True, **must)
+    phase("invariants", json.dumps({
+        "path": path, "events": rep.checked_events,
+        "violations": len(rep.violations), **rep.stats,
+        "outstanding": rep.outstanding, **must}))
+    if not rep.ok:
+        fail(f"{path} serve: {rep.summary()}")
+
+
+def train_phase(smi: str) -> dict:
+    """launch/train's ``main`` at the ``full`` preset (TRAIN_ARGS): one
+    line a logged step (loss, grad norm, lr, ms, tokens/s), then the
+    peak memory.  Fails unless the memory check picked bf16 moments,
+    every loss and grad norm is finite and the last loss is below the
+    first."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main, moment_dtype, preset_config
+    cfg = preset_config(get_arch("llama3-8b"), "full")
+    moments = moment_dtype(cfg, torch.device("cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    phase("train", f"python -m repro_torch.launch.train {' '.join(TRAIN_ARGS)}"
+          f": {cfg.name}, {cfg.num_layers} layers (no cut), d_model "
+          f"{cfg.d_model}, {moments} moments; {held / 1e9:.3f} GB held from "
+          "the earlier phases")
+    t0 = time.perf_counter()
+    rows = main(TRAIN_ARGS)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        phase("train", json.dumps(r))
+    losses = [r["loss"] for r in rows]
+    steady = [r["ms"] for r in rows[1:]]
+    out = {"layers": cfg.num_layers, "moments": moments, "losses": losses,
+           "ms": [r["ms"] for r in rows], "steady_ms": sum(steady) / len(steady),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3
+           * len(steady) / sum(steady),
+           "peak_bytes": peak, "main_s": wall_s}
+    phase("train", f"{out['steady_ms']:.1f} ms/step after the first "
+          f"({rows[0]['ms']:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, main {wall_s:.1f} s "
+          f"with the build; on {smi}")
+    if moments != "bfloat16" or len(rows) != TRAIN_STEPS:
+        fail(f"train: {moments} moments, {len(rows)} logged steps")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in rows):
+        fail(f"train: a loss or grad norm is not finite: {rows}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall on the repeated batch: {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(train_breakdown(smi))
+    return out
+
+
+def _device_ms(prof) -> tuple:
+    """(device ms of every kernel, device ms by the aten op that launched
+    it) from a profile; both 0 / empty when the profiler saw no device
+    activity."""
+    busy, by_op = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(e, "device_time_total", 0.0) / 1e3
+        elif e.key.startswith("aten::"):
+            ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+            if ms > 0:
+                by_op[e.key] = ms
+    return busy, by_op
+
+
+def train_breakdown(smi: str) -> dict:
+    """Where a train step's time goes: the full preset's model, state and
+    step built as launch/train's ``main`` builds them for TRAIN_ARGS, one
+    step (gradients allocated), then the global norm and the AdamW update
+    alone on its gradients (one more update), then one step under
+    torch.profiler (device busy ms, by the aten op that launched each
+    kernel), then one step each in turn at main's attention and loss
+    chunks (256, 128) and at make_train_step's defaults (1024, 512)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.training import (OptConfig, adamw_update, global_norm,
+                                      init_training, make_train_step)
+    cfg = get_arch("llama3-8b")
+    opt = OptConfig(warmup_steps=1, total_steps=TRAIN_STEPS,
+                    moment_dtype="bfloat16")
+    model, state = init_training(cfg, opt,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        seed=0)).next_batch().items()}
+    step = make_train_step(cfg, opt, attn_chunk=min(256, TRAIN_SEQ),
+                           loss_chunk=128)
+    step(model, state, batch)
+    params = dict(model.named_parameters())
+    grads = {n: p.grad for n, p in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    global_norm(grads.values())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(params, grads, state, opt)
+    torch.cuda.synchronize()
+    out = {"global_norm_ms": 1e3 * (t1 - t0),
+           "update_ms": 1e3 * (time.perf_counter() - t1)}
+    del grads          # else the next step's gradients come on top of these
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, state, batch)
+        torch.cuda.synchronize()
+        out["profiled_ms"] = 1e3 * (time.perf_counter() - t0)
+    busy, by_op = _device_ms(prof)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    out.update(device_busy_ms=busy, device_ms_by_op=dict(top))
+    phase("train", f"breakdown: update alone {out['update_ms']:.1f} ms "
+          f"(global norm {out['global_norm_ms']:.1f} ms of it); one profiled "
+          f"step {out['profiled_ms']:.1f} ms wall, "
+          + (f"device busy {busy:.1f} ms" if busy else
+             "device time not measured (the profiler saw no kernel)")
+          + f"; on {smi}")
+    phase("train", json.dumps({"device_ms_by_op": out["device_ms_by_op"]}))
+    # main's chunks (the reference's launch/train: attention 256, loss 128)
+    # against make_train_step's defaults (1024, 512), one step each in turn
+    chunk_ms = {"256/128": [], "1024/512": []}
+    for attn_chunk, loss_chunk in [(256, 128), (1024, 512)] * 2:
+        other = make_train_step(cfg, opt, attn_chunk=min(attn_chunk, TRAIN_SEQ),
+                                loss_chunk=loss_chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        other(model, state, batch)
+        torch.cuda.synchronize()
+        chunk_ms[f"{attn_chunk}/{loss_chunk}"].append(
+            1e3 * (time.perf_counter() - t0))
+    out["ms_by_chunks"] = chunk_ms
+    phase("train", "one step in turn with attention/loss chunks "
+          + "; ".join(f"{k}: {', '.join(f'{v:.1f}' for v in ms)} ms"
+                      for k, ms in chunk_ms.items()) + f"; on {smi}")
+    del model, state, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_files(d: str, step: int) -> tuple:
+    """(manifest, {file: array}) of checkpoint ``step`` in ``d``."""
+    path = Path(d) / f"step_{step:08d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    return manifest, {f.name: np.load(f) for f in sorted(path.glob("*.npy"))}
+
+
+def _files_differ(a: tuple, b: tuple) -> list:
+    (ma, xa), (mb, xb) = a, b
+    if ma != mb or sorted(xa) != sorted(xb):
+        return ["manifest"]
+    return [f for f in xa if not np.array_equal(xa[f], xb[f])]
+
+
+def checkpoint_phase() -> dict:
+    """launch/train's ``main`` at the ``100m`` preset with --ckpt-dir:
+    CKPT_STEPS steps uninterrupted (a checkpoint every CKPT_STEPS // 2),
+    then a second run that finds only the uninterrupted run's middle
+    checkpoint (as after a stop there) and resumes from it.  The resumed
+    steps' loss, lr and grad norm equal the uninterrupted run's, and the
+    two final checkpoints (weights, moments, step, data cursor) are
+    equal to the bit.  Then the final checkpoint restored into a fresh
+    state (in place: the template's own tensors come back) and saved
+    again, equal to the bit.  Fails otherwise."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main, preset_config
+    from repro_torch.training import (OptConfig, init_training,
+                                      restore_checkpoint, save_checkpoint)
+    cfg = preset_config(get_arch("llama3-8b"), "100m")
+    mid = CKPT_STEPS // 2
+    args = ["--preset", "100m", "--steps", str(CKPT_STEPS), "--batch",
+            str(CKPT_BATCH), "--seq", str(CKPT_SEQ), "--ckpt-every",
+            str(mid), "--log-every", "1", "--warmup", "1",
+            "--device", "cuda"]
+    drop = lambda rows: [{k: r[k] for k in ("step", "loss", "lr", "grad_norm")}
+                         for r in rows]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        a, b, c = (str(Path(d) / x) for x in "abc")
+        whole = main(args + ["--ckpt-dir", a])
+        name = f"step_{mid:08d}"
+        shutil.copytree(Path(a) / name, Path(b) / name)
+        (Path(b) / "LATEST").write_text(name)
+        resumed = main(args + ["--ckpt-dir", b])
+        if drop(resumed) != drop(whole[mid:]):
+            fail(f"checkpoint: the resumed steps differ: {drop(resumed)} "
+                 f"against {drop(whole[mid:])}")
+        final = _step_files(a, CKPT_STEPS)
+        differ = _files_differ(final, _step_files(b, CKPT_STEPS))
+        if differ:
+            fail(f"checkpoint: the resumed run's step-{CKPT_STEPS} checkpoint "
+                 f"differs from the uninterrupted run's: {differ[:5]}")
+        model, state = init_training(
+            cfg, OptConfig(), torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, back = restore_checkpoint(a, {"params": model, "opt": state,
+                                            "data": {"step": 0, "seed": 0}})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if back["params"] is not model or back["opt"] is not state:
+            fail("checkpoint: restore_checkpoint did not restore in place")
+        t0 = time.perf_counter()
+        save_checkpoint(c, step, back)
+        save_s = time.perf_counter() - t0
+        differ = _files_differ(final, _step_files(c, CKPT_STEPS))
+        if differ:
+            fail(f"checkpoint: save(restore(x)) differs from x: {differ[:5]}")
+        nbytes = sum(x.nbytes for x in final[1].values())
+        del model, state, back
+    out = {"preset": cfg.name, "tensors": len(final[1]), "bytes": nbytes,
+           "save_s": save_s, "restore_s": restore_s,
+           "losses": [r["loss"] for r in whole],
+           "resumed_losses": [r["loss"] for r in resumed]}
+    phase("checkpoint", f"{cfg.name} ({cfg.param_count() / 1e6:.1f}M "
+          f"parameters) through launch/train with --ckpt-dir: steps "
+          f"{mid + 1}-{CKPT_STEPS} resumed from the step-{mid} checkpoint "
+          f"equal to the uninterrupted run's (losses {out['resumed_losses']}),"
+          f" the step-{CKPT_STEPS} checkpoints ({len(final[1])} files, "
+          f"{nbytes / 1e6:.1f} MB) equal to the bit; restored in place in "
+          f"{restore_s:.2f} s and saved again in {save_s:.2f} s, equal to "
+          "the bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def card_line() -> str:
@@ -1847,6 +2126,7 @@ def main() -> None:
                               else "flash_decode_paged", setup, summary,
                               launches[path])
         phase("kernels", json.dumps({"path": path, **launches[path]}))
+        check_invariants(path, summary)
     want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
             "unfused": ("flash_decode_paged", "ivf_topk"),
             "dense": ("flash_decode", "probe_topk_fused")}
@@ -1898,6 +2178,13 @@ def main() -> None:
           "higher than the parent's; kernels 1 and 4 unchanged; the spliced "
           "kernel faster than the parent's at the long context: judged by "
           "--decode-ab PARENT")
+
+    # 8) training on one card, with the serves' state freed
+    del setup
+    train = train_phase(smi)
+    ckpt = checkpoint_phase()
+    phase("train", json.dumps({"train": train, "checkpoint": ckpt,
+                               "card": smi}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [

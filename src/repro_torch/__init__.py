@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the TeleRAG serving stack.
+"""PyTorch/CUDA port of the TeleRAG serving stack (and its single-card
+training).
 
 Mirrors the module paths of the JAX package ``repro`` (which stays the
 reference it is tested against) and imports nothing of it.  Every entry
@@ -7,8 +8,9 @@ without a card instead of carrying on on the CPU.  Kernel wrappers
 dispatch by the tensor's device alone: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor launches the hand-written kernel.
 
-Subpackages keep their ``__init__`` free of imports, so importing one
-module never drags in (or cycles through) the others.
+Subpackage ``__init__``s import only their own leaf modules (``analysis``,
+``configs``, ``data``, ``training``) or nothing, so importing one module
+never drags in (or cycles through) the serving stack.
 """
 
 from __future__ import annotations

@@ -242,7 +242,8 @@ def serve(setup: Setup, *, chunk_store: Optional[ChunkKVStore] = None,
     time; the host-clock phase times below are still measured), so two
     serves that differ only in how they decode form the same waves and
     draw the same query rewrites.  Prints a report and returns a summary
-    dict (``chip_smoke.py`` reads it)."""
+    dict (``chip_smoke.py`` reads it; ``recorder`` is the server's
+    flight recorder)."""
     args, dev, index = setup.args, setup.device, setup.index
     say = (lambda *a: None) if args.quiet else print
     clock = SystemClock()
@@ -355,7 +356,7 @@ def serve(setup: Setup, *, chunk_store: Optional[ChunkKVStore] = None,
         "spliced_waves": runner.stats["spliced_waves"],
         "spliced_steps": spliced_steps,
         "chunk_kv": dict(telemetry.replicas[0].chunk_kv),
-        "ledger_after_drain": drained,
+        "ledger_after_drain": drained, "recorder": srv.recorder,
     }
 
 

@@ -2,9 +2,10 @@
 
 Numerics follow the reference's ``models/layers.py`` exactly: RMSNorm in
 fp32 with a ``(1 + scale)`` gain, rotary embedding over split halves with
-fp32 angles, the gated MLP as ``act(x @ w_gate) * (x @ w_up)``, and the
+fp32 angles, the gated MLP as ``act(x @ w_gate) * (x @ w_up)``, the
 prefill's causal ``chunked_attention`` (fp32 scores, probabilities cast
-to the K/V dtype before P·V).
+to the K/V dtype before P·V), and the token-mean ``cross_entropy_loss``
+in fp32.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ def mlp_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     return h @ p["w_down"]
 
 
-def _best_chunk(n: int, target: int) -> int:
+def largest_divisor(n: int, target: int) -> int:
     """Largest divisor of n that is <= target (>= 1)."""
     c = min(target, n)
     while n % c:
@@ -104,8 +105,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, KVH, G, Dh = q.shape
     Skv = k.shape[1]
     scale = 1.0 / math.sqrt(Dh)
-    kv_c = _best_chunk(Skv, chunk)
-    q_c = _best_chunk(Sq, q_chunk)
+    kv_c = largest_divisor(Skv, chunk)
+    q_c = largest_divisor(Sq, q_chunk)
     outs = []
     for q0 in range(0, Sq, q_c):
         q32 = q[:, q0:q0 + q_c].float() * scale        # [B, q_c, KVH, G, Dh]
@@ -133,3 +134,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp(l[..., None], min=1e-20)
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood in fp32: logits [..., V],
+    labels [...] -> [...]."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean causal LM loss in fp32. logits [..., V]; labels [...];
+    ``mask`` [...] weights each token (the mean is over its sum, at
+    least 1)."""
+    nll = token_nll(logits, labels)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -12,23 +12,27 @@ slab and attends with the ``flash_decode_paged`` kernel;
 ``serve_step_paged_spliced`` does the same over a table that also holds
 spliced chunk-KV pages and attends with the ``flash_decode_spliced``
 kernel; ``serve_step`` writes it into a dense ``init_cache`` cache and
-attends with the ``flash_decode`` kernel.  MoE, MLA and SSM are not
-ported yet.
+attends with the ``flash_decode`` kernel.  Training runs through the
+same ``forward`` (``remat`` recomputes groups of layers in backward)
+and ``loss_fn``; a model is trainable only after ``set_trainable()``,
+so serving stays gradient-free.  MoE, MLA and SSM are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import mlp_forward, rms_norm, softcap
+from repro_torch.models.layers import (largest_divisor, mlp_forward,
+                                      rms_norm, softcap, token_nll)
 
 # flat parameter name -> its path in the reference pytree
 _JAX_PATHS = {
@@ -71,7 +75,8 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 class Transformer(nn.Module):
-    """Decoder weights (no gradients) plus the paged decode step."""
+    """Decoder weights plus the paged decode step.  The parameters take
+    no gradients until ``set_trainable()``."""
 
     def __init__(self, cfg: ArchConfig, tensors: Mapping[str, torch.Tensor]):
         super().__init__()
@@ -95,9 +100,26 @@ class Transformer(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
+    def set_trainable(self, on: bool = True) -> "Transformer":
+        """Let every parameter take gradients (or stop them); returns
+        the model."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        return self
+
     def layer(self, l: int) -> Dict[str, torch.Tensor]:
         """Layer ``l``'s parameters (views into the stacked tensors)."""
         return {name: getattr(self, name)[l] for name in _LAYER_PARAMS}
+
+    def layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's parameters, for a full-sequence pass: each
+        stacked parameter taken apart once by ``unbind``, whose backward
+        is one ``stack`` into a gradient allocated once.  Backward of a
+        ``layer(l)`` index a layer would instead allocate a zero tensor
+        the size of the whole stack for every layer (3.8 GB for
+        Llama-3-8B's stacked MLP weights)."""
+        stacks = [getattr(self, name).unbind(0) for name in _LAYER_PARAMS]
+        return [dict(zip(_LAYER_PARAMS, parts)) for parts in zip(*stacks)]
 
     def forward(self, k_slab, v_slab, block_table, lengths, tokens):
         """``serve_step_paged`` on this model."""
@@ -158,34 +180,94 @@ def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return softcap(x @ model.unembed, model.cfg.final_logit_softcap)
 
 
+def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: ArchConfig,
+           positions: torch.Tensor, attn_chunk: int,
+           ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One decoder layer over a whole sequence: (x out, (k, v))."""
+    a_out, kv = attn.attn_forward(
+        lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+        positions=positions, attn_chunk=attn_chunk)
+    x = x + a_out
+    m_in = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated), kv
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
-            attn_chunk: int = 1024, want_cache: bool = False,
+            attn_chunk: int = 1024, remat: bool = False,
+            remat_group: int = 4, want_cache: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor,
                        Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence forward of the GQA family: tokens [B, S] at positions
     0..S-1.  Returns (hidden [B, S, d] after the final norm, aux loss (0:
     no MoE), cache or None); ``want_cache`` gives {"k", "v"} [L, B, S,
     KVH, Dh], k rotated, in the model's dtype, as the reference's
-    ``forward`` lays out its attention cache."""
+    ``forward`` lays out its attention cache.
+
+    ``remat=True`` (without ``want_cache``, as the reference's grouped
+    path) runs the layers in groups of ``remat_group`` (the largest
+    divisor of L not above it) under ``torch.utils.checkpoint``: backward
+    recomputes each group from its input, so only L/g residuals are
+    kept.  The values are the same either way."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)                      # [B, S, d]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    layers = model.layers()
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        lp = model.layer(l)
-        a_out, (k, v) = attn.attn_forward(
-            lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
-            positions=positions, attn_chunk=attn_chunk)
-        x = x + a_out
-        m_in = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated)
-        if want_cache:
-            ks.append(k)
-            vs.append(v)
+    if remat and not want_cache:
+        g = largest_divisor(cfg.num_layers, remat_group)
+
+        def group(h, lps):
+            for lp in lps:
+                h, _ = _block(h, lp, cfg, positions, attn_chunk)
+            return h
+
+        for i in range(0, cfg.num_layers, g):
+            x = checkpoint(group, x, layers[i:i + g], use_reentrant=False)
+    else:
+        for lp in layers:
+            x, (k, v) = _block(x, lp, cfg, positions, attn_chunk)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
     cache = ({"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache
              else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
+
+
+def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
+            attn_chunk: int = 1024, remat: bool = True, remat_group: int = 4,
+            loss_chunk: int = 512,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-mean LM loss of ``batch`` {"tokens", "labels"} [B, S] (and an
+    optional "loss_mask" [B, S]): ``forward``, then the unembedding and
+    the fp32 NLL over sequence chunks of S/n positions (n the largest
+    divisor of S not above S // loss_chunk, at least 1), each chunk
+    under ``torch.utils.checkpoint``, so backward recomputes its [B, c, V]
+    logits and the whole sequence's are never kept, as the reference's
+    ``loss_fn`` does.  Returns (loss, {"ce", "aux", "tokens"}), all fp32
+    scalars."""
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    x, aux, _ = forward(model, batch["tokens"], attn_chunk=attn_chunk,
+                        remat=remat, remat_group=remat_group)
+    S = x.shape[1]
+    c = S // largest_divisor(S, max(S // loss_chunk, 1))
+
+    def chunk_loss(xc, lc, mc):
+        nll = token_nll(unembed(model, xc), lc)
+        return torch.sum(nll * mc), torch.sum(mc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, c):
+        lc = labels[:, i:i + c]
+        mc = (torch.ones(lc.shape[:2], dtype=torch.float32, device=x.device)
+              if mask is None else mask[:, i:i + c].float())
+        t, n = checkpoint(chunk_loss, x[:, i:i + c], lc, mc,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    ce = tot / torch.clamp(cnt, min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,

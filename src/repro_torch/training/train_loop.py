@@ -1,0 +1,97 @@
+"""The single-card train step: the reference's SPMD ``make_train_step``
+(``training/train_loop.py``) on one device, with autograd in place of
+``jax.value_and_grad`` and the update in place.
+
+The reference's ``make_manual_dp_train_step`` (an explicit data-parallel
+all-reduce, optionally int8-compressed) and its ``act_spec`` activation
+sharding wait for the distributed slice, with ``distributed/``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+from repro_torch import DeviceLike
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tf
+from repro_torch.training.optimizer import (OptConfig, adamw_update,
+                                            init_opt_state)
+
+Batch = Mapping[str, torch.Tensor]
+
+
+def make_loss_fn(cfg: ArchConfig, *, attn_chunk: int = 1024,
+                 remat: bool = True, remat_group: int = 4,
+                 loss_chunk: int = 512) -> Callable:
+    """(model, batch) -> (loss, {"ce", "aux", "tokens"}) for ``cfg``."""
+    tf.check_supported(cfg)
+
+    def loss_fn(model: tf.Transformer, batch: Batch):
+        return tf.loss_fn(model, batch, attn_chunk=attn_chunk, remat=remat,
+                          remat_group=remat_group, loss_chunk=loss_chunk)
+    return loss_fn
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
+                    attn_chunk: int = 1024, remat: bool = True,
+                    remat_group: int = 4, loss_chunk: int = 512,
+                    accum_steps: int = 1) -> Callable:
+    """Train step: (model, opt_state, batch) -> (model, opt_state,
+    metrics), the model's parameters and the state updated in place.
+
+    ``accum_steps > 1`` splits the batch into that many microbatches
+    along its first dim, one backward each, and scales the summed
+    gradients, loss, ce and aux by 1/accum_steps (tokens stay summed), as
+    the reference's scan does: activation memory scales 1/accum.  Metrics
+    are fp32 scalars on the device: loss, ce, aux, tokens, lr, grad_norm.
+    """
+    loss_fn = make_loss_fn(cfg, attn_chunk=attn_chunk, remat=remat,
+                           remat_group=remat_group, loss_chunk=loss_chunk)
+
+    def train_step(model: tf.Transformer, opt_state: Dict[str, object],
+                   batch: Batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        if accum_steps <= 1:
+            loss, aux = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            B = next(iter(batch.values())).shape[0]
+            mb = B // accum_steps
+            loss, aux = 0.0, {"ce": 0.0, "aux": 0.0, "tokens": 0.0}
+            for i in range(accum_steps):
+                l, a = loss_fn(model, {k: v[i * mb:(i + 1) * mb]
+                                       for k, v in batch.items()})
+                l.backward()
+                loss = loss + l.detach()
+                aux = {k: aux[k] + a[k].detach() for k in aux}
+            inv = 1.0 / accum_steps
+            with torch.no_grad():
+                for p in params.values():
+                    p.grad.mul_(inv)
+            loss = loss * inv
+            aux = {"ce": aux["ce"] * inv, "aux": aux["aux"] * inv,
+                   "tokens": aux["tokens"]}
+        grads = {n: p.grad for n, p in params.items()}
+        _, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics = {"loss": loss, **{k: v.detach() for k, v in aux.items()},
+                   **om}
+        return model, opt_state, metrics
+
+    return train_step
+
+
+def init_training(cfg: ArchConfig, opt_cfg: OptConfig,
+                  generator: torch.Generator, device: DeviceLike = "cuda",
+                  dtype: torch.dtype = torch.bfloat16,
+                  ) -> Tuple[tf.Transformer, Dict[str, object]]:
+    """A trainable ``init_params`` model (weights drawn from
+    ``generator``, which must live on ``device``) and its zero
+    optimizer state."""
+    model = tf.init_params(cfg, generator, device=device,
+                           dtype=dtype).set_trainable()
+    return model, init_opt_state(dict(model.named_parameters()), opt_cfg)

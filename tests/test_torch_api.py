@@ -6,7 +6,8 @@ the deterministic event clock with the H100 timing profile and no decode
 hook, at a tiny size.  Doc ids must be equal, round telemetry and the
 ``ServerTelemetry`` snapshot equal within 1e-6, the flight-recorder
 streams equal, and the port's stream must replay clean through the
-reference's invariant checker.  Cases: all six pipelines under both
+reference's invariant checker and, to the same report, through the
+port's own (``repro_torch.analysis``).  Cases: all six pipelines under both
 dispatch disciplines, two replicas with the cache-aware scheduler,
 open-loop arrivals with SLO deadlines and tenants, unfused retrieval,
 and the deprecated shims.  The port's paged ``DecodeRunner`` is checked
@@ -40,6 +41,7 @@ from repro.serving import pipelines as jpipe
 from repro.serving.engine import EngineConfig as JConfig
 from repro.serving.engine import TeleRAGEngine as JEngine
 from repro.serving.trace import make_traces as jmake_traces
+from repro_torch.analysis import check_recorder as tcheck_recorder
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.core import datastore as tds
 from repro_torch.core import ivf as tivf
@@ -126,6 +128,18 @@ def _stream(recorder):
     return out
 
 
+def _replay(recorder):
+    """The stream through the reference's invariant checker and the
+    port's: equal reports, no violation; returns the reference's."""
+    rep, trep = check_recorder(recorder), tcheck_recorder(recorder)
+    assert (trep.summary(), trep.stats, trep.outstanding,
+            [vars(v) for v in trep.violations]) == \
+        (rep.summary(), rep.stats, rep.outstanding,
+         [vars(v) for v in rep.violations])
+    assert not rep.violations, [v.render() for v in rep.violations]
+    return rep
+
+
 def _assert_same(ref, port, jresp, tresp):
     assert len(tresp) == len(jresp) > 0
     for a, b in zip(jresp, tresp):
@@ -149,9 +163,7 @@ def _assert_same(ref, port, jresp, tresp):
     assert [dataclasses.asdict(d) for d in port.wave_log] == \
         [dataclasses.asdict(d) for d in ref.wave_log]
     assert _stream(port.recorder) == _stream(ref.recorder)
-    rep = check_recorder(port.recorder)
-    assert rep.checked_events > 0
-    assert not rep.violations, [v.render() for v in rep.violations]
+    assert _replay(port.recorder).checked_events > 0
     assert port.telemetry().summary() == ref.telemetry().summary()
 
 
@@ -288,8 +300,7 @@ def test_decode_runner_events_reach_the_runtime(world):
     assert all(len(v) > 0 for v in runner.generated.values())
     assert not [l for l in srv.engines[0].pool.leases.values()
                 if l.owner == "kv"]
-    rep = check_recorder(srv.recorder)
-    assert not rep.violations, [v.render() for v in rep.violations]
+    _replay(srv.recorder)
 
 
 def test_decode_runner_serves_dense_decode(world):
@@ -308,8 +319,7 @@ def test_decode_runner_serves_dense_decode(world):
     runner._kv[0].drop_all()
     assert not [l for l in srv.engines[0].pool.leases.values()
                 if l.owner == "kv"]
-    rep = check_recorder(srv.recorder)
-    assert not rep.violations, [v.render() for v in rep.violations]
+    _replay(srv.recorder)
 
 
 def _decode_servers(w, **engine):
