@@ -29,9 +29,15 @@ Phases, one line each, every one fatal on failure:
      (checked against the kernel's split plan), rot = 64, 32, 16, 24
      and 0 at Dh=64 and 48 at Dh=128 (partners by shuffle or from
      shared memory), G = 1, 3, 5 and 8, and the serve, mid and long
-     contexts, each line naming the paths it took; all atol=rtol=2e-3
+     contexts, each line naming the paths it took; then all three at the
+     new configs' G (3, 6, 7 and 48; 9 and 64 at the tiles' edges; past
+     8 in bf16 and fp32): the serve lengths, an all-fresh and a spliced
+     table, and granite-20b's G=48 at the long context and with a window
+     across split boundaries; all atol=rtol=2e-3
      (fp32 output from bf16 K/V, sums in another order), one grid launch
-     a call, equal bits from a second spliced call;
+     a call, equal bits from a second spliced call; then one reduced
+     Llama-3 decode step and one full-width granite-moe MoE layer (4 and
+     64 tokens) on the card against the CPU (equal experts kept);
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes, at a small shape and at their edges (every page dead,
      one live page, every live page in one cluster, B=9, page sizes 48
@@ -71,7 +77,18 @@ Phases, one line each, every one fatal on failure:
      chunk serve with kv and chunk_kv required to drain to 0): one line
      of counts each, any violation fatal.  Then one observation: one
      retrieval round fused against unfused, in alternating pairs, and
-     each path's kernel alone on that buffer state;
+     each path's kernel alone on that buffer state.  Then, Llama-3-8B's
+     weights freed, the other families on the same datastore and index,
+     one model at a time: granite-moe-3b (MoE, full depth), granite-20b
+     (MQA G=48, full depth; paged, then dense), nemotron-4-15b and
+     internvl2-1b (full depth) and arctic-480b (full width, 2 of 35
+     layers), each fused with paged decode: one decode grid per layer
+     per step, probe_topk_fused launched, the exact-search check, 0
+     invariant violations, ms/step and tokens/s printed; and
+     musicgen-large (not served: it decodes codebook tokens) for one
+     wave of 33 serve_step_paged steps at full width from serve-like
+     contexts, logits [B, 4, 2048] finite, flash_decode_paged alone
+     launched, one grid per layer per step;
   7. kernel timing, after the serves, so that its CUDA graphs and
      8k-position inputs cannot touch their timing: probe_topk_fused and
      ivf_topk at the serve shapes, and both decode kernels at the serve,
@@ -83,7 +100,9 @@ Phases, one line each, every one fatal on failure:
      grids a call (profiler); then whether the aims are met; then
      flash_decode_spliced on an all-fresh table of kernel 1's lengths,
      beside flash_decode_paged in the same process and on a table of
-     20-token spliced chunks, and its aims;
+     20-token spliced chunks, and its aims; then kernels 1, 4 and the
+     spliced one at granite-20b's shape (KVH=1, G=48, Dh=128) at the
+     serve and long contexts, flash_decode beside SDPA;
   8. training, with the serves' state freed, through the training entry
      point repro_torch.launch.train.main: the "full" preset (Llama-3-8B
      at full width and depth, random bf16 weights from seed 0, the bf16
@@ -112,14 +131,14 @@ outside the repository (it imports the port from ./src).
 
 --decode-timing DIR BITS runs phase 7's decode timing alone (kernels 1
 and 4 and the spliced kernel) on the port under DIR/src (any checkout of
-this repository), saves the spliced kernel's outputs on seeded inputs
+this repository), saves the decode kernels' outputs on seeded inputs
 to BITS and prints the timing as one JSON line; --decode-ab PARENT runs
 it four times in turn, on PARENT, this checkout, this checkout and
 PARENT, one process each (BITS under chiprun_out/decode_ab/), and
 prints the numbers of each kernel and shape side by side with the aims
 (the serve-shape and spliced aims judged against PARENT's device time,
 kernels 1 and 4 unchanged within the runs' spread) and how many of the
-spliced kernel's outputs equal PARENT's bit for bit.
+decode kernels' outputs equal PARENT's bit for bit.
 --centroid-timing DIR and --centroid-ab PARENT do the same for
 centroid_scores: phase 5's timing, warm and cold, with its aims.
 --retrieval-timing DIR and --retrieval-ab PARENT do the same for
@@ -130,6 +149,8 @@ with the retrieval aims, the device-time aim judged on every run.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -145,6 +166,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_TC_FLOPS = 989e12           # H100 SXM bf16 on the tensor cores, dense
 
 # the serve phase's pool: 4096 prefetch pages + 342 pages' worth of the
 # batch-4, 128-token KV lease (67,108,864 bytes / 196,608)
@@ -201,6 +223,36 @@ TRAIN_ARGS = ["--preset", "full", "--steps", str(TRAIN_STEPS), "--batch",
 # steps with a checkpoint every CKPT_STEPS // 2
 CKPT_STEPS = 4
 CKPT_BATCH, CKPT_SEQ = 4, 256
+
+# the decode kernels' checks at the new configs' G and past 8 (phase 3):
+# (label, KVH, G, Dh, rope fraction): granite-moe's 24/8 heads, nemotron's
+# 48/8 with half rotary, internvl2's 14/2, granite-20b's MQA 48/1, and
+# the edges of the tiles (a last tile of one row; 64 rows, the most)
+G_CASES = [("granite-moe G=3", 8, 3, 64, 1.0), ("nemotron G=6", 8, 6, 128, 0.5),
+           ("internvl2 G=7", 2, 7, 64, 1.0), ("granite-20b G=48", 1, 48, 128, 1.0),
+           ("G=9, a last tile of one row", 2, 9, 32, 1.0), ("G=64", 1, 64, 64, 1.0)]
+# granite-20b's decode shape (KVH, G, Dh), timed at the serve and long
+# contexts in phase 7
+G48 = (1, 48, 128)
+
+# the other families' serves in phase 6, on the same datastore and index,
+# each model built after the one before is freed: (arch, --layers cut or
+# None for full depth, EngineConfig overrides of each serve).  arctic's
+# 35 layers of 27.3 GB do not fit one card: 2 layers do (54.6 GB).
+FAMILY_SERVES = [
+    ("granite-moe-3b-a800m", None, [{}]),
+    ("granite-20b", None, [{}, {"paged_decode": False}]),
+    ("nemotron-4-15b", None, [{}]),
+    ("internvl2-1b", None, [{}]),
+    ("arctic-480b", 2, [{}]),
+]
+# musicgen (not served: the server decodes [n] tokens, it decodes [n, 4]):
+# a wave as the serves run one, at full width: MUSICGEN_STEPS timed
+# serve_step_paged steps (a wave's most) after one untimed step, for a
+# batch of 4 rows whose contexts start at MUSICGEN_LENGTHS and end at
+# kernel 1's serve lengths (128/97/40, and 33)
+MUSICGEN_STEPS = 32
+MUSICGEN_LENGTHS = [95, 64, 7, 0]
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -356,23 +408,40 @@ def decode_case(B, KVH, G, Dh, ps, MB, lengths, seed, dtype=torch.bfloat16):
     return q, kp, vp, bt, lens
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms, what bounds it): bytes over the memory rate against
-    fp32 flops over the fp32 rate (the kernels do fp32 math on CUDA cores)."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0):
+    """(least ms, what bounds it): bytes over the memory rate against the
+    operations over the peak rate for their operands' type: ``flops``
+    with an fp32 operand over the fp32 rate, ``bf16_flops`` (products of
+    two bf16 operands, exact in an fp32 sum) over the tensor cores' bf16
+    rate; the two units run side by side, so the larger of their times."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_f = max(flops / FP32_FLOPS, bf16_flops / BF16_TC_FLOPS)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def attn_flops(q, k, rows: int):
+    """(fp32 flops, bf16 flops) of decode attention over ``rows`` live
+    (position, kv-head) K/V rows: q.K and P.V, 2 * G * Dh each a row.
+    q.K is a bf16 product where q and K are both bf16; P (fp32
+    probabilities) makes P.V an fp32 one."""
+    _, _, G, Dh = q.shape
+    half = 2 * rows * G * Dh
+    if q.dtype == k.dtype == torch.bfloat16:
+        return half, half
+    return 2 * half, 0
+
+
 def decode_work(q, kp, bt, lens, window):
-    """(bytes, flops) this input needs: each live K/V row, q, the table
-    and the lengths read once, the fp32 output written once."""
+    """(bytes, fp32 flops, bf16 flops) this input needs: each live K/V
+    row, q, the table and the lengths read once, the fp32 output written
+    once."""
     B, KVH, G, Dh = q.shape
     ps = kp.shape[1]
     lens = lens.clamp(max=bt.shape[1] * ps)
     live = (lens.clamp(max=window) if window > 0 else lens).sum().item()
     nbytes = (2 * live * KVH * Dh * kp.element_size() + q.numel() * q.element_size()
               + bt.numel() * 4 + lens.numel() * 4 + q.numel() * 4)
-    return nbytes, 4 * live * KVH * G * Dh
+    return (nbytes, *attn_flops(q, kp, live * KVH))
 
 
 def check_decode(fd, ref, case, window, label):
@@ -411,8 +480,8 @@ def dense_case(B, S, KVH, G, Dh, pos, seed, dtype=torch.bfloat16,
 
 
 def dense_work(case, window):
-    """(bytes, flops) this input needs: each live K/V row, q and pos read
-    once, the fp32 output written once."""
+    """(bytes, fp32 flops, bf16 flops) this input needs: each live K/V
+    row, q and pos read once, the fp32 output written once."""
     q, k, _, pos = case
     B, KVH, G, Dh = q.shape
     S = k.shape[1]
@@ -422,7 +491,7 @@ def dense_work(case, window):
         live += max(0, hi - lo)
     nbytes = (2 * live * KVH * Dh * k.element_size()
               + q.numel() * q.element_size() + pos.numel() * 4 + q.numel() * 4)
-    return nbytes, 4 * live * KVH * G * Dh
+    return (nbytes, *attn_flops(q, k, live * KVH))
 
 
 def check_dense(fd, ref, case, window, label):
@@ -592,20 +661,25 @@ def spliced_case(B, KVH, G, Dh, ps, chunks, fresh, seed, dtype=torch.bfloat16,
 
 
 def spliced_work(case):
-    """(bytes, flops) this input needs: each live K/V row (causal and
-    inside its page's valid count), q and the four tables read once, the
-    fp32 output written once; the dot, the P V and the rotation of every
-    live K element (6 flops)."""
-    q, kp, _, bt, lens, _, vd = case
+    """(bytes, fp32 flops, bf16 flops) this input needs: each live K/V
+    row (causal and inside its page's valid count), q and the four tables
+    read once, the fp32 output written once; attention over every live
+    row (``attn_flops``), where a row of a rotated page (delta != 0)
+    also takes the rotation of its K (6 flops an element) and its q.K
+    an fp32 operand."""
+    q, kp, _, bt, lens, dl, vd = case
     B, KVH, G, Dh = q.shape
     ps = kp.shape[1]
     pos = torch.arange(bt.shape[1] * ps, device="cuda")
     live = ((pos[None, :] % ps < vd.repeat_interleave(ps, 1))
-            & (pos[None, :] < lens[:, None])).sum().item()
+            & (pos[None, :] < lens[:, None]))
+    rot = (live & (dl.repeat_interleave(ps, 1) != 0)).sum().item()
+    live = live.sum().item()
     nbytes = (2 * live * KVH * Dh * kp.element_size()
               + q.numel() * q.element_size() + 3 * bt.numel() * 4
               + lens.numel() * 4 + q.numel() * 4)
-    return nbytes, (4 * G + 6) * live * KVH * Dh
+    f32, bf16 = attn_flops(q, kp, (live - rot) * KVH)
+    return (nbytes, f32 + (4 * G + 6) * rot * KVH * Dh, bf16)
 
 
 def check_spliced(fd, ref, case, frac, label, theta=500_000.0):
@@ -814,9 +888,25 @@ def spliced_aims(t: dict, parent: dict = None) -> list:
 
 def spliced_bits(fd) -> dict:
     """The spliced kernel's output on every check case (bf16 and fp32)
-    and both timing tables at the three contexts, by label: the same
-    seeded inputs whichever tree's kernel runs them."""
+    and both timing tables at the three contexts, and kernels 1 and 4's
+    at their timing shapes and at G = 1..8 (bf16 and fp32), by label: the
+    same seeded inputs whichever tree's kernels run them."""
     out = {}
+    for shape, (lengths, MB, _) in PAGED_TIMING.items():
+        out[f"flash_decode_paged timing {shape}"] = fd.flash_decode_paged(
+            *decode_case(4, 8, 4, 128, 16, MB, lengths, seed=1)).cpu()
+    for shape, (S, pos) in (("serve", (128, SERVE_POS)), ("mid", (2048, MID_POS)),
+                            ("long", (8192, LONG_POS))):
+        out[f"flash_decode timing {shape}"] = fd.flash_decode(
+            *dense_case(4, S, 8, 4, 128, pos, seed=11)).cpu()
+    for G in range(1, 9):
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"flash_decode_paged G={G}, {dtype}"] = fd.flash_decode_paged(
+                *decode_case(3, 2, G, 64, 16, 40, [600, 97, 7], seed=G, dtype=dtype),
+                window=0 if G % 2 else 300).cpu()
+            out[f"flash_decode G={G}, {dtype}"] = fd.flash_decode(
+                *dense_case(3, 700, 2, G, 64, [699, 96, 7], seed=G, dtype=dtype),
+                window=0 if G % 2 else 300).cpu()
     for dtype in (torch.bfloat16, torch.float32):
         for label, frac, case in spliced_check_cases(dtype):
             out[f"{label}, {dtype}"] = fd.flash_decode_spliced(
@@ -833,6 +923,296 @@ def spliced_bits(fd) -> dict:
         del q, kp, vp, bt, lens, fresh, sp
     torch.cuda.empty_cache()
     return out
+
+
+# -- the decode kernels at the new configs' G, past 8 in tiles ----------------
+
+
+def g_checks(fd, ref) -> tuple:
+    """Kernels 1, 4 and the spliced kernel against their plain versions at
+    each G of G_CASES (bf16; fp32 too past 8 rows): the serve shape with
+    ragged lengths, an all-fresh spliced table (flash_decode_paged's bits)
+    and one of spliced chunks; then granite-20b's G=48 at the long
+    context, with a window across split boundaries, and on 20-token
+    chunks.  atol=rtol=2e-3, one grid a call.  Returns the largest error
+    of each kernel."""
+    errs = {"paged": [], "dense": [], "spliced": []}
+    for i, (label, KVH, G, Dh, frac) in enumerate(G_CASES):
+        for dtype in ((torch.bfloat16, torch.float32) if G > 8
+                      else (torch.bfloat16,)):
+            tag = f"{label}, {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            errs["paged"].append(check_decode(fd, ref, decode_case(
+                4, KVH, G, Dh, 16, 8, [128, 97, 40, 7], seed=90 + i, dtype=dtype),
+                0, f"{tag}, serve lengths"))
+            errs["dense"].append(check_dense(fd, ref, dense_case(
+                4, 128, KVH, G, Dh, RAGGED_POS, seed=110 + i, dtype=dtype), 0,
+                f"{tag}, ragged positions"))
+            for table, chunks in (("all-fresh table", [[]] * 3),
+                                  ("spliced chunks", [[21, 9, 40], [5, 5], [33]])):
+                errs["spliced"].append(check_spliced(fd, ref, spliced_case(
+                    3, KVH, G, Dh, 16, chunks, 4, 130 + i, dtype), frac,
+                    f"{tag}, {table}"))
+    KVH, G, Dh = G48
+    errs["paged"] += [
+        check_decode(fd, ref, decode_case(4, KVH, G, Dh, 16, 512, LONG_LENGTHS,
+                                          seed=97), 0, "granite-20b G=48 long context"),
+        check_decode(fd, ref, decode_case(4, KVH, G, Dh, 16, 128, MID_LENGTHS,
+                                          seed=98), 300,
+                     "G=48, window across split boundaries")]
+    errs["dense"] += [
+        check_dense(fd, ref, dense_case(4, 8192, KVH, G, Dh, LONG_POS, seed=99), 0,
+                    "granite-20b G=48 long context"),
+        check_dense(fd, ref, dense_case(4, 2048, KVH, G, Dh, MID_POS, seed=100), 300,
+                    "G=48, window across split boundaries")]
+    errs["spliced"].append(check_spliced(fd, ref, spliced_case(
+        4, KVH, G, Dh, 16, chunk_rows(LONG_LENGTHS), 2, 101), 1.0,
+        "granite-20b G=48 long context, 20-token chunks"))
+    torch.cuda.empty_cache()
+    return tuple(max(errs[k]) for k in ("paged", "dense", "spliced"))
+
+
+def g48_timing(fd, ref, smi: str) -> dict:
+    """Kernels 1, 4 and the spliced kernel (all-fresh table) at
+    granite-20b's decode shape (B=4, KVH=1, G=48, Dh=128, page size 16)
+    at the serve and long contexts: the three times of ``three_times``,
+    the bound (at the long context P.V's fp32 operations, q.K counted at
+    the tensor cores' bf16 rate), the plain version's
+    event mean and, for flash_decode, SDPA's.  Returns {kernel: {shape:
+    numbers}}."""
+    KVH, G, Dh = G48
+    t = {"flash_decode_paged": {}, "flash_decode": {}, "flash_decode_spliced": {}}
+    for shape in ("serve", "long"):
+        lengths, MB, iters = PAGED_TIMING[shape]
+        q, kp, vp, bt, lens = decode_case(4, KVH, G, Dh, 16, MB, lengths, seed=1)
+        fresh = (q, kp, vp, bt, lens, torch.zeros_like(bt),
+                 torch.where(bt >= 0, 16, 0).to(torch.int32))
+        for name, fn, plain, work in (
+                ("flash_decode_paged", lambda: fd.flash_decode_paged(q, kp, vp, bt, lens),
+                 lambda: ref.flash_decode_paged_ref(q, kp, vp, bt, lens),
+                 decode_work(q, kp, bt, lens, 0)),
+                ("flash_decode_spliced", lambda: fd.flash_decode_spliced(*fresh),
+                 lambda: ref.flash_decode_spliced_ref(*fresh), spliced_work(fresh))):
+            r = three_times(fn, getattr(fd, name), iters)
+            r["bound_ms"], r["bound_by"] = bound(*work)
+            r["plain_ms"] = time_ms(plain, max(iters // 10, 5))
+            r["library_ms"], r["lengths"] = None, lengths
+            t[name][shape] = r
+            phase("time", f"{name} granite-20b {shape} (KVH=1, G=48, lengths "
+                  f"{lengths}{', all-fresh table' if 'spliced' in name else ''}): "
+                  + describe(r) + f" on {smi}")
+        del q, kp, vp, bt, lens, fresh
+    for shape, (S, pos, iters) in (("serve", (128, SERVE_POS, 200)),
+                                   ("long", (8192, LONG_POS, 100))):
+        case = dense_case(4, S, KVH, G, Dh, pos, seed=11)
+        r = three_times(lambda: fd.flash_decode(*case), fd.flash_decode, iters)
+        r["bound_ms"], r["bound_by"] = bound(*dense_work(case, 0))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*case), max(iters // 10, 5))
+        lib = sdpa(case)
+        r["library_ms"] = time_ms(lib, iters)
+        want = ref.flash_decode_ref(*case)
+        r["library_err"] = (lib().float().reshape(want.shape) - want).abs().max().item()
+        r["pos"] = pos
+        t["flash_decode"][shape] = r
+        phase("time", f"flash_decode granite-20b {shape} (KVH=1, G=48, S={S}, pos "
+              f"{pos}): " + describe(r) + f", sdpa {r['library_ms']:.4f} ms (bf16, "
+              f"max_abs_err {r['library_err']:.2e}) on {smi}")
+        del case, lib, want
+    torch.cuda.empty_cache()
+    return t
+
+
+# -- the MoE layer and the other families ---------------------------------------
+
+
+def check_moe_layer(get_arch) -> None:
+    """One MoE layer of granite-moe at full width (d 1536, 40 experts
+    top-8, d_ff 512; fp32 weights at the reference's init scales) on the
+    card against the same function on CPU tensors, for a decode step's 4
+    rows (capacity 1) and a 64-token group (capacity 16): equal selected
+    experts and kept (token, expert) pairs, the output within 1e-4 of
+    its scale (fp32 products in another order), the aux loss within
+    1e-5."""
+    from repro_torch.models import moe
+    cfg = get_arch("granite-moe-3b-a800m")
+    d, E, F = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    g = torch.Generator().manual_seed(12)
+    p = {"router": torch.randn(d, E, generator=g) / math.sqrt(d),
+         "w_up": torch.randn(E, d, F, generator=g) / math.sqrt(E),
+         "w_gate": torch.randn(E, d, F, generator=g) / math.sqrt(E),
+         "w_down": torch.randn(E, F, d, generator=g) / math.sqrt(E)}
+    pc = {k: v.cuda() for k, v in p.items()}
+    for T in (4, 64):
+        x = torch.randn(T, d, generator=g)
+        want, waux = moe.moe_forward(p, x, cfg)
+        rw = moe.route(p["router"], x, cfg)
+        got, gaux = moe.moe_forward(pc, x.cuda(), cfg)
+        rg = moe.route(pc["router"], x.cuda(), cfg)
+        torch.cuda.synchronize()
+        if not (torch.equal(rg.experts.cpu(), rw.experts)
+                and torch.equal(rg.keep.cpu(), rw.keep)):
+            fail(f"MoE layer, {T} tokens: the card selects or keeps other "
+                 "experts than the CPU")
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        if err > 1e-4 * scale or abs(gaux.item() - waux.item()) > 1e-5:
+            fail(f"MoE layer, {T} tokens: card vs CPU max_abs_err {err:.3e} "
+                 f"(scale {scale:.3e}), aux {gaux.item()} vs {waux.item()}")
+        phase("check", f"MoE layer (granite-moe full width, fp32) card vs CPU, "
+              f"{T} tokens, capacity {rw.capacity}: equal experts "
+              f"({int(rw.keep.sum())} of {rw.keep.numel()} picks kept), "
+              f"max_abs_err {err:.3e} of scale {scale:.3e} (<= 1e-4 of it), "
+              f"aux {gaux.item():.6f}")
+
+
+SERVE_FIELDS = ("device", "arch", "layers", "retrieval", "decode", "continuous",
+                "requests", "hits", "misses", "rounds_with_hits", "decode_tokens",
+                "decode_steps", "decode_s", "tokens_per_s", "lookahead",
+                "decode_waves", "retrievals", "latency_s", "copy_ms",
+                "copy_bytes", "wall_s", "index_s", "bytes_h2d",
+                "retrieval_gap", "pressure_stall_s")
+
+
+def check_serve(path: str, summary: dict) -> None:
+    """What every serve of phase 6 must show: 3 doc ids a round for
+    every request, retrieval equal to the exact host search (bf16 pages
+    allow a score gap below 1e-2) and a round with device hits."""
+    for rid, rows in summary["doc_ids"].items():
+        if not rows or any(len(row) != 3 or min(row) < 0 for row in rows):
+            fail(f"{path} serve, request {rid}: doc ids per round {rows}, "
+                 "want 3 each")
+    if not summary["retrieval_gap"] < 1e-2:
+        fail(f"{path} serve disagrees with the exact host search: score "
+             f"gap {summary['retrieval_gap']} (bf16 pages allow < 1e-2)")
+    if summary["rounds_with_hits"] < 1:
+        fail(f"{path} serve: no round had device hits")
+
+
+def family_serves(serve, setup, counted: dict, smi: str) -> dict:
+    """Phase 6's serves of the other families (FAMILY_SERVES) through the
+    port's entry point, on ``setup``'s datastore and index: each model
+    built (random bf16 weights from seed 0, at full width; a depth cut
+    printed) after the one before is freed, then served fused with paged
+    decode (and granite-20b again with dense decode).  Each serve must
+    pass ``check_serve``, launch its decode kernel exactly one grid per
+    layer per step and ``probe_topk_fused``, and no kernel of another
+    path, and replay through the happens-before checker with 0
+    violations; it prints ms/step and tokens/s.  Frees the last model
+    and ``setup.model``.  Returns the launches by path."""
+    launches = {}
+    setup.model = None
+    for arch, layers, engines in FAMILY_SERVES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        args = argparse.Namespace(**{**vars(setup.args), "arch": arch,
+                                     "layers": layers})
+        cfg, model = serve.build_model(args, setup.device)
+        fam = dataclasses.replace(setup, args=args, arch=cfg, model=model)
+        del model
+        torch.cuda.synchronize()
+        cfg = fam.arch
+        phase("serve", f"{arch}: {cfg.num_layers} layers"
+              + (f" (cut from {serve.get_arch(arch).num_layers})" if layers else "")
+              + f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+              f"heads of {cfg.resolved_head_dim}, "
+              + (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
+                 f"{cfg.moe.d_ff_expert}" if cfg.moe else
+                 f"{'gated' if cfg.mlp_gated else 'plain'} {cfg.mlp_act} MLP "
+                 f"d_ff {cfg.d_ff}")
+              + f", vocab {cfg.vocab_size}: {sum(p.numel() for p in fam.model.parameters()) / 1e9:.3f} B "
+              f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
+              f"card, built in {time.perf_counter() - t0:.1f} s")
+        for engine in engines:
+            dense = engine.get("paged_decode") is False
+            path = arch + (" dense" if dense else "")
+            for fn in counted.values():
+                fn.launches = 0
+            summary = serve.serve(fam, **engine)
+            launches[path] = {n: fn.launches for n, fn in counted.items()}
+            phase("serve", json.dumps({"path": path, **{k: summary[k] for k in
+                                                        SERVE_FIELDS}}))
+            check_serve(path, summary)
+            kernel = "flash_decode" if dense else "flash_decode_paged"
+            check_decode_launches(path, kernel, fam, summary, launches[path])
+            other = ("flash_decode_paged" if dense else "flash_decode", "ivf_topk",
+                     "centroid_scores", "flash_decode_spliced")
+            if launches[path]["probe_topk_fused"] < 1 or any(
+                    launches[path][n] for n in other):
+                fail(f"the {path} serve launched {launches[path]}: want "
+                     f"probe_topk_fused and {kernel} only")
+            phase("kernels", json.dumps({"path": path, **launches[path]}))
+            check_invariants(path, summary)
+            steps = summary["decode_steps"]
+            phase("serve", f"{path}: {1e3 * summary['decode_s'] / steps:.2f} ms/step, "
+                  f"{summary['tokens_per_s']:.1f} tokens/s ({summary['decode_tokens']} "
+                  f"tokens in {steps} steps, {cfg.num_layers} layers), wall "
+                  f"{summary['wall_s']:.2f} s on {smi}")
+            del summary
+        fam.model = None
+        del fam
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def musicgen_steps(ttf, get_arch, counted: dict, smi: str) -> dict:
+    """musicgen-large at full width (48 layers, MHA: G = 1, 4 codebooks of
+    2048): 1 + MUSICGEN_STEPS greedy ``serve_step_paged`` steps for a
+    batch of 4 rows over a page slab of random bf16 K/V, the rows'
+    contexts starting at MUSICGEN_LENGTHS, tokens [B, 4]; ms/step over
+    the last MUSICGEN_STEPS.  The logits must be finite of shape [B, 4,
+    2048], flash_decode_paged must launch one grid per layer per step and
+    no other kernel may launch.  Returns the launches of every kernel in
+    ``counted``, all counts set to 0 just before the steps and read just
+    after."""
+    cfg = get_arch("musicgen-large")
+    model = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    B, ps = len(MUSICGEN_LENGTHS), 16
+    steps = 1 + MUSICGEN_STEPS
+    MB = -(-(max(MUSICGEN_LENGTHS) + steps) // ps)
+    nc = ttf.codebooks(cfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shape = (cfg.num_layers, B * MB, ps, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    bt = torch.arange(B * MB, dtype=torch.int32, device="cuda").reshape(B, MB)
+    lens = torch.tensor(MUSICGEN_LENGTHS, dtype=torch.int32, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (B, nc), device="cuda", generator=g,
+                        dtype=torch.int32)
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, _, _ = ttf.serve_step_paged(model, k, v, bt, lens, {"token": tok})
+        lens += 1
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / MUSICGEN_STEPS
+    launches = {name: fn.launches for name, fn in counted.items()}
+    n = launches["flash_decode_paged"]
+    want = (B, nc, cfg.vocab_size)
+    if tuple(logits.shape) != want or not torch.isfinite(logits).all():
+        fail(f"musicgen: logits {tuple(logits.shape)} (want {want}), finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if n != steps * cfg.num_layers:
+        fail(f"musicgen: flash_decode_paged made {n} grid launches in "
+             f"{steps} steps, want {steps * cfg.num_layers}")
+    if any(c for name, c in launches.items() if name != "flash_decode_paged"):
+        fail(f"musicgen launched {launches}: want flash_decode_paged only")
+    phase("serve", f"musicgen-large ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads: G=1, {nc} codebooks of "
+          f"{cfg.vocab_size}): {steps} serve_step_paged steps of batch {B} "
+          f"from contexts {MUSICGEN_LENGTHS}, logits {tuple(logits.shape)} "
+          f"finite, {n} grid launches = {steps} x {cfg.num_layers}, "
+          f"{ms:.2f} ms/step over the last {MUSICGEN_STEPS} on {smi}")
+    del model, k, v, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- kernel 5: centroid_scores --------------------------------------------------
@@ -1751,7 +2131,7 @@ def need_card() -> None:
 
 def decode_timing_main(root: Path, bits: Path) -> None:
     """Phase 7's decode timing alone (kernels 1, 4 and the spliced one),
-    on the port under ``root``/src; the spliced kernel's outputs on the
+    on the port under ``root``/src; the decode kernels' outputs on the
     seeded inputs of ``spliced_bits`` are saved to ``bits``."""
     need_card()
     if not (root / "src" / "repro_torch").is_dir():
@@ -1780,7 +2160,7 @@ def decode_ab_main(parent: Path) -> None:
     the long context judged on this checkout's mean, the serve-shape and
     the spliced kernel's aims against the parent's mean device time,
     kernels 1 and 4 against the parent's within the runs' spread; then
-    the spliced kernel's output bits of each run against the parent's."""
+    the decode kernels' output bits of each run against the parent's."""
     need_card()
     out = ROOT / "chiprun_out" / "decode_ab"
     out.mkdir(parents=True, exist_ok=True)
@@ -1844,10 +2224,10 @@ def decode_ab_main(parent: Path) -> None:
             else:
                 d = (got - want).abs().max().item()
                 worst = max(worst, (d, label), key=lambda w: w[0])
-        phase("ab", f"flash_decode_spliced output bits, run {i + 1} against run 1 "
+        phase("ab", f"decode kernels' output bits, run {i + 1} against run 1 "
               f"(the parent): {same} of {len(bits[0])} cases equal"
               + (f"; largest difference {worst[0]:.3e} ({worst[1]})" if worst[1] else ""))
-    phase("ab", "flash_decode_spliced output bits, run 4 against run 1 (parent "
+    phase("ab", "decode kernels' output bits, run 4 against run 1 (parent "
           f"twice): {sum(torch.equal(bits[3][k], v) for k, v in bits[0].items())} "
           f"of {len(bits[0])} cases equal")
     print(json.dumps({"decode_ab": runs}))
@@ -2080,7 +2460,13 @@ def main() -> None:
     # the spliced-decode kernel against its plain version
     err_spl = spliced_checks(fd, ref)
 
+    # the three decode kernels at the new configs' G, past 8 in tiles
+    g_dec, g_dense, g_spl = g_checks(fd, ref)
+    err_dec, err_dense, err_spl = (max(err_dec, g_dec), max(err_dense, g_dense),
+                                   max(err_spl, g_spl))
+
     check_model(ttf, get_arch)
+    check_moe_layer(get_arch)
 
     # 5) timing of kernel 5, warm and cold (kernels 2 and 3 come after the serves)
     cent_t = centroid_timing(cp, ref, smi)
@@ -2089,8 +2475,9 @@ def main() -> None:
     phase("aim", "centroid_scores: faster than the parent's in every mode: "
           "judged by --centroid-ab PARENT")
 
-    # 6) serving through the port's entry point: one build, two serves,
-    #    each path's launch counts set to 0 just before it and read after
+    # 6) serving through the port's entry point: one build, Llama-3-8B's
+    #    serves, then the other families' models on the same index, each
+    #    path's launch counts set to 0 just before it and read after
     counted = {"flash_decode_paged": fd.flash_decode_paged,
                "probe_topk_fused": pt.probe_topk_fused, "ivf_topk": it.ivf_topk,
                "flash_decode": fd.flash_decode,
@@ -2105,23 +2492,9 @@ def main() -> None:
             fn.launches = 0
         summary = summaries[path] = serve.serve(setup, **engine)
         launches[path] = {n: fn.launches for n, fn in counted.items()}
-        phase("serve", json.dumps({"path": path, **{k: summary[k] for k in (
-            "device", "arch", "layers", "retrieval", "decode", "continuous",
-            "requests",
-            "hits", "misses", "rounds_with_hits", "decode_tokens",
-            "decode_steps", "decode_s", "tokens_per_s", "lookahead",
-            "decode_waves", "retrievals", "latency_s", "copy_ms",
-            "copy_bytes", "wall_s", "index_s", "bytes_h2d",
-            "retrieval_gap", "pressure_stall_s")}}))
-        for rid, rows in summary["doc_ids"].items():
-            if not rows or any(len(row) != 3 or min(row) < 0 for row in rows):
-                fail(f"{path} serve, request {rid}: doc ids per round {rows}, "
-                     "want 3 each")
-        if not summary["retrieval_gap"] < 1e-2:
-            fail(f"{path} serve disagrees with the exact host search: score "
-                 f"gap {summary['retrieval_gap']} (bf16 pages allow < 1e-2)")
-        if summary["rounds_with_hits"] < 1:
-            fail(f"{path} serve: no round had device hits")
+        phase("serve", json.dumps({"path": path, **{k: summary[k] for k in
+                                                    SERVE_FIELDS}}))
+        check_serve(path, summary)
         check_decode_launches(path, "flash_decode" if path == "dense"
                               else "flash_decode_paged", setup, summary,
                               launches[path])
@@ -2157,6 +2530,9 @@ def main() -> None:
           f"{alone['probe_topk_fused_device']:.4f}), ivf_topk "
           f"{alone['ivf_topk']:.4f} ms (device {alone['ivf_topk_device']:.4f}); "
           f"on {smi}")
+    # the other families, Llama-3-8B's weights freed first
+    launches.update(family_serves(serve, setup, counted, smi))
+    launches["musicgen"] = musicgen_steps(ttf, get_arch, counted, smi)
 
     # 7) the retrieval and decode kernels' three times, after the serves
     ret_t = retrieval_timing(pt, it, ref, smi)
@@ -2174,6 +2550,7 @@ def main() -> None:
     spliced_t = spliced_timing(fd, ref, smi)
     for aim, met, numbers in spliced_aims(spliced_t):
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
+    g48_t = g48_timing(fd, ref, smi)
     phase("aim", "each decode kernel at the serve shape: device time a call no "
           "higher than the parent's; kernels 1 and 4 unchanged; the spliced "
           "kernel faster than the parent's at the long context: judged by "
@@ -2194,7 +2571,8 @@ def main() -> None:
          "launches": launches["fused"]["flash_decode_paged"],
          "launches_by_path": {p: c["flash_decode_paged"]
                               for p, c in launches.items()},
-         "max_abs_err": err_dec, **decode_json(decode_t["flash_decode_paged"])},
+         "max_abs_err": err_dec, **decode_json(decode_t["flash_decode_paged"]),
+         "granite20b": g48_t["flash_decode_paged"]},
         {"name": "probe_topk_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/probe_topk.cu",
          "replaces": "src/repro/kernels/probe_topk.py:172",
@@ -2215,7 +2593,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_decode.py:88",
          "launches": launches["dense"]["flash_decode"],
          "launches_by_path": {p: c["flash_decode"] for p, c in launches.items()},
-         "max_abs_err": err_dense, **decode_json(decode_t["flash_decode"])},
+         "max_abs_err": err_dense, **decode_json(decode_t["flash_decode"]),
+         "granite20b": g48_t["flash_decode"]},
         {"name": "centroid_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/centroid_scores.cu",
          "replaces": "src/repro/kernels/centroid_probe.py:42",
@@ -2232,7 +2611,8 @@ def main() -> None:
          "launches": launches["chunk"]["flash_decode_spliced"],
          "launches_by_path": {p: c["flash_decode_spliced"]
                               for p, c in launches.items()},
-         "max_abs_err": err_spl, **decode_json(spliced_t)},
+         "max_abs_err": err_spl, **decode_json(spliced_t),
+         "granite20b": g48_t["flash_decode_spliced"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

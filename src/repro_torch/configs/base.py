@@ -260,5 +260,9 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    # import the ported arch modules for registration side effects
-    from repro_torch.configs import llama3_8b  # noqa: F401
+    # import the ported arch modules for registration side effects (the
+    # window/softcap, MLA and SSM families wait for their slices)
+    from repro_torch.configs import (  # noqa: F401
+        granite_20b, nemotron4_15b, granite_moe_3b, arctic_480b,
+        internvl2_1b, musicgen_large, llama3_8b,
+    )

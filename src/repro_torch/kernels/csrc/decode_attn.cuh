@@ -18,8 +18,9 @@
 // policy existed.
 //
 // One grid a call: blockIdx.x is the split (whole kChunk-position chunks,
-// `split` positions each), blockIdx.y the kv-head, blockIdx.z the batch
-// row.  A block of kThreads serves the G query rows of its (b, kv-head):
+// `split` positions each), blockIdx.y the kv-head (times the G tiles,
+// below), blockIdx.z the batch row.  A block of kThreads serves the G
+// query rows of its (b, kv-head):
 //   * a split with no live position returns at once (split 0 writes the
 //     zero output of a row with none);
 //   * K/V rows are copied chunk by chunk into shared memory with 16-byte
@@ -39,8 +40,12 @@
 //     order, so the result does not depend on which block came last),
 //     writes the output and resets the counter to 0 for the next launch.
 //     A row with one live split writes its output directly.
-// Takes G = 1..kMaxG (compiled for 1, 2, 4 and 8 rows) and Dh in
-// {32, 64, 128}; K/V in bf16 or fp32; rows 16-byte aligned.
+// Takes G = 1..kMaxRows query rows in ngt = ceil(G / kMaxG) tiles:
+// blockIdx.y is kv-head * ngt + tile, each tile a block of its own over
+// at most kMaxG query rows (compiled for 1, 2, 4 and 8), which reads the
+// (b, kv-head)'s K/V rows once for its rows; the tiles' splits combine apart, each under its own counter, in
+// the scratch of the G rows.  Dh in {32, 64, 128}; K/V in bf16 or fp32;
+// rows 16-byte aligned.
 
 #pragma once
 
@@ -53,7 +58,8 @@ namespace decode_attn {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 8;      // query rows a block holds
+constexpr int kMaxRows = 64;  // query rows a kv-head may have (G), in tiles
 constexpr int kChunk = 64;   // positions per softmax step; splits are whole chunks
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -136,12 +142,16 @@ struct Args {
   float* part_m;      // [rows, nsplit, G]
   float* part_l;      // [rows, nsplit, G]
   float* part_acc;    // [rows, nsplit, G, Dh]
-  int* count;         // [rows], 0 between launches
-  int G;
+  int* count;         // [rows * ngt], 0 between launches
+  int G;              // query rows a kv-head (the stride of q and out)
+  int ngt;            // G tiles: ceil(G / kMaxG)
   int split;          // positions per split, a multiple of kChunk
   int nsplit;
   float scale;
 };
+
+// The block's kv-head: blockIdx.y over the ngt G tiles.
+__device__ __forceinline__ int kv_head(int ngt) { return (int)blockIdx.y / ngt; }
 
 // Every position in [lo, hi) is live and K is used as stored.
 struct NoSplice {
@@ -185,7 +195,8 @@ __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict
 }
 
 // The block's work for row rid = b * KVH + h, whose positions are
-// [lo, hi); row(t) is the element offset of position t's K/V row.  With
+// [lo, hi); row(t) is the element offset of position t's K/V row.  The
+// block serves tile blockIdx.y % ngt of the row's G query rows.  With
 // a splice policy (Splice::kOn), row is unused: the policy describes
 // chunk c in its shared memory (after this block's, from byte
 // splice_offset) by the barrier before chunk c - 1's scores, so its copy
@@ -205,8 +216,13 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int G = a.G;
-  const long long obase = (long long)rid * G * Dh;
+  // this block's query rows [g0, g0 + G) of the kv-head's a.G, and the
+  // counter its splits share
+  const int tile = (int)blockIdx.y % a.ngt;
+  const int g0 = tile * kMaxG;
+  const int G = min(kMaxG, a.G - g0);
+  const int crow = rid * a.ngt + tile;
+  const long long obase = ((long long)rid * a.G + g0) * Dh;
   if (hi <= lo) {                                  // no live position: 0 out
     if (sp == 0)
       for (int e = tid; e < G * Dh; e += kThreads) a.out[obase + e] = 0.f;
@@ -392,7 +408,11 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   }
   __syncthreads();
 
+  // split s's partials of query row g: m and l at pm(s) + g, acc at
+  // pa(s) + g * Dh (a.G rows a split; this block's from g0)
   const long long pbase = (long long)rid * a.nsplit;   // this row's first split slot
+  auto pm = [&](int s) { return (pbase + s) * a.G + g0; };
+  auto pa = [&](int s) { return ((pbase + s) * a.G + g0) * Dh; };
   for (int e = tid; e < G * Dh; e += kThreads) {
     float t = 0.f;
 #pragma unroll
@@ -400,16 +420,16 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     if (nlive == 1)
       a.out[obase + e] = t / fmaxf(sm_l[e / Dh], 1e-20f);
     else
-      a.part_acc[(pbase + sp) * G * Dh + e] = t;
+      a.part_acc[pa(sp) + e] = t;
   }
   if (nlive == 1) return;
   if (tid < G) {
-    a.part_m[(pbase + sp) * G + tid] = sm_m[tid];
-    a.part_l[(pbase + sp) * G + tid] = sm_l[tid];
+    a.part_m[pm(sp) + tid] = sm_m[tid];
+    a.part_l[pm(sp) + tid] = sm_l[tid];
   }
   __threadfence();
   __syncthreads();
-  if (tid == 0) *flag = atomicAdd(a.count + rid, 1) == nlive - 1;
+  if (tid == 0) *flag = atomicAdd(a.count + crow, 1) == nlive - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();
@@ -418,16 +438,16 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   for (int e = tid; e < G * Dh; e += kThreads) {
     const int g = e / Dh;
     float mx = -INFINITY;
-    for (int s = first; s <= last; ++s) mx = fmaxf(mx, __ldcg(a.part_m + (pbase + s) * G + g));
+    for (int s = first; s <= last; ++s) mx = fmaxf(mx, __ldcg(a.part_m + pm(s) + g));
     float l = 0.f, o = 0.f;
     for (int s = first; s <= last; ++s) {
-      const float w = expf(__ldcg(a.part_m + (pbase + s) * G + g) - mx);
-      l += __ldcg(a.part_l + (pbase + s) * G + g) * w;
-      o += __ldcg(a.part_acc + (pbase + s) * G * Dh + e) * w;
+      const float w = expf(__ldcg(a.part_m + pm(s) + g) - mx);
+      l += __ldcg(a.part_l + pm(s) + g) * w;
+      o += __ldcg(a.part_acc + pa(s) + e) * w;
     }
     a.out[obase + e] = o / fmaxf(l, 1e-20f);
   }
-  if (tid == 0) a.count[rid] = 0;
+  if (tid == 0) a.count[crow] = 0;
 }
 
 // Launch kernel<<<grid, kThreads, smem>>> on the stream, after raising

@@ -5,7 +5,12 @@
 // Replaces: src/repro/kernels/flash_decode.py, flash_decode (Pallas body
 //           _kernel).
 //
-// Bound on an H100: bytes.  A decode step reads each live K/V row once
+// Bound on an H100: bytes up to G of about 40 with bf16 q and K/V,
+// operations past it: q . K on two bf16 operands counts at the tensor
+// cores' rate, P . V (fp32 probabilities) at the fp32 rate, which at
+// granite-20b's G = 48 takes 1.2x the bytes' time.  The products run on
+// CUDA cores here (a tensor-core design is later work).  A decode step
+// reads each live K/V row once
 // (2 * live * Dh * 2 bytes per (b, kv-head) in bf16) and does 4 * G * Dh
 // flops per row, far below the ~295 flop/byte at which the tensor cores
 // become the limit, so the design reads each live row once, 16 bytes a
@@ -25,8 +30,10 @@
 // Layouts: q [B, KVH, G, Dh] and k/v [B, S, KVH, Dh], as bf16/bf16,
 // fp32/bf16 or fp32/fp32 (q/kv); pos [B] int32; out [B, KVH, G, Dh] fp32;
 // scratch [B, KVH, nsplit, G] m and l, [B, KVH, nsplit, G, Dh] acc, fp32;
-// count [B, KVH] int32, zero before the first launch (each launch leaves
-// it zero).  Takes G = 1..8, Dh in {32, 64, 128}, any S >= 1.
+// count [B, KVH, ngt] int32 (ngt = ceil(G / 8) G tiles), zero before the
+// first launch (each launch leaves it zero).  Takes G = 1..64 (past 8 in
+// tiles of 8 query rows, a block each, decode_attn.cuh), Dh in {32, 64,
+// 128}, any S >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +47,7 @@ using namespace decode_attn;
 template <typename QT, typename KT, int Dh, int GM>
 __global__ void __launch_bounds__(kThreads)
 dense_kernel(Args a, const int* __restrict__ pos, int S, int KVH, int window) {
-  const int h = blockIdx.y;
+  const int h = kv_head(a.ngt);
   const int b = blockIdx.z;
   const int p = pos[b];
   const int hi = min(p + 1, S);
@@ -54,8 +61,8 @@ dense_kernel(Args a, const int* __restrict__ pos, int S, int KVH, int window) {
 template <typename QT, typename KT, int Dh, int GM>
 int launch_g(const Args& a, dim3 grid, const int* pos, int S, int KVH, int window,
              cudaStream_t stream) {
-  return launch_kernel<dense_kernel<QT, KT, Dh, GM>>(smem_bytes<KT, Dh, GM>(), grid, stream,
-                                                      a, pos, S, KVH, window);
+  return launch_kernel<dense_kernel<QT, KT, Dh, GM>>(
+      smem_bytes<KT, Dh, GM>(), grid, stream, a, pos, S, KVH, window);
 }
 
 template <typename QT, typename KT, int Dh>
@@ -64,7 +71,7 @@ int launch_dh(const Args& a, dim3 grid, const int* pos, int S, int KVH, int wind
   if (a.G <= 1) return launch_g<QT, KT, Dh, 1>(a, grid, pos, S, KVH, window, stream);
   if (a.G <= 2) return launch_g<QT, KT, Dh, 2>(a, grid, pos, S, KVH, window, stream);
   if (a.G <= 4) return launch_g<QT, KT, Dh, 4>(a, grid, pos, S, KVH, window, stream);
-  return launch_g<QT, KT, Dh, 8>(a, grid, pos, S, KVH, window, stream);
+  return launch_g<QT, KT, Dh, kMaxG>(a, grid, pos, S, KVH, window, stream);
 }
 
 template <typename QT, typename KT>
@@ -88,14 +95,15 @@ extern "C" int flash_decode(const void* q, int q_bf16, const void* k, const void
                             float* part_l, float* part_acc, int* count, int B, int S,
                             int KVH, int G, int Dh, int window, int split, int nsplit,
                             float scale, void* stream) {
-  if (G < 1 || G > decode_attn::kMaxG || S < 1 || split < 1 ||
+  const int ngt = (G + decode_attn::kMaxG - 1) / decode_attn::kMaxG;
+  if (G < 1 || G > decode_attn::kMaxRows || S < 1 || split < 1 ||
       split % decode_attn::kChunk || nsplit < 1 || (long long)split * nsplit < S ||
-      KVH > 65535 || B > 65535)
+      KVH * ngt > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || KVH == 0) return 0;
-  const decode_attn::Args a{q, k, v, out, part_m, part_l, part_acc, count, G, split, nsplit,
-                            scale};
-  const dim3 grid(nsplit, KVH, B);
+  const decode_attn::Args a{q, k, v, out, part_m, part_l, part_acc, count, G, ngt, split,
+                            nsplit, scale};
+  const dim3 grid(nsplit, KVH * ngt, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16 && kv_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, Dh, grid, pos, S, KVH,
                                                                      window, s);

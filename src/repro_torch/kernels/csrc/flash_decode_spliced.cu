@@ -66,7 +66,8 @@
 // fp32/bf16 or fp32/fp32 (q/kv); block_table, page_delta, page_valid
 // [B, MB] int32; lengths [B] int32 layout positions; freq [rot/2] fp32;
 // out [B, KVH, G, Dh] fp32; scratch and count as in flash_decode.cu.
-// Takes G = 1..8, Dh in {32, 64, 128}, any ps >= 1, rot even in [0, Dh].
+// Takes G = 1..64 (past 8 in tiles, as flash_decode.cu), Dh in {32, 64,
+// 128}, any ps >= 1, rot even in [0, Dh].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,14 +140,15 @@ struct SpliceArgs {
   const int* valid;    // [B, MB] page_valid
   const float* freq;   // [rot / 2]
   int KVH, ps, shift, MB, rot;   // shift = log2(ps) for a power of two, else -1
+  int ngt;             // G tiles on blockIdx.y
   int dist;            // partner lane distance, 0: partners from shared memory
   int runs_max;        // table entries a chunk may use
   int fresh_path;      // fresh chunks take the NoSplice code
 };
 
 // The splice policy of the block's batch row (blockIdx.z) and kv-head
-// (blockIdx.y), for rows of Dh elements: in shared memory the
-// descriptors of three chunks, the angle tables of two and the table
+// (blockIdx.y, over the G tiles), for rows of Dh elements: in shared
+// memory the descriptors of three chunks, the angle tables of two and the table
 // entries warp 0 has in flight; in registers only which chunk is in use,
 // its mode and live bits.
 template <int Dh>
@@ -155,11 +157,12 @@ struct Splice {
   static constexpr int kSmem =
       3 * (int)sizeof(ChunkDesc) + 2 * kTab * (int)sizeof(float2) + 2 * 3 * kChunk * 4;
   const SpliceArgs& p;
+  const int h;           // the block's kv-head, kv_head(p.ngt)
   unsigned char* base;   // this policy's shared memory
   int cidx, cmode;       // the chunk in use and its mode
   unsigned clive0, clive1;
 
-  __device__ __forceinline__ Splice(const SpliceArgs& args) : p(args) {}
+  __device__ __forceinline__ Splice(const SpliceArgs& args, int head) : p(args), h(head) {}
 
   __device__ __forceinline__ ChunkDesc* desc(int ci) const {
     return reinterpret_cast<ChunkDesc*>(base) + ci % 3;
@@ -288,7 +291,7 @@ struct Splice {
   }
   // the element offset of row j of chunk ci in this kv-head
   __device__ __forceinline__ long long offset(int ci, int j) const {
-    return (desc(ci)->off[j] * p.KVH + blockIdx.y) * Dh;
+    return (desc(ci)->off[j] * p.KVH + h) * Dh;
   }
 
   // Whether row j of the chunk in use is live (ok: j < n).
@@ -374,7 +377,7 @@ struct Splice {
   __device__ __forceinline__ bool direct(int t, long long& off) const {
     const long long pg = (long long)blockIdx.z * p.MB + page(t);
     const int sl = slot(t);
-    off = (((long long)max(p.bt[pg], 0) * p.ps + sl) * p.KVH + blockIdx.y) * Dh;
+    off = (((long long)max(p.bt[pg], 0) * p.ps + sl) * p.KVH + h) * Dh;
     return sl < p.valid[pg];
   }
 };
@@ -384,8 +387,9 @@ __global__ void __launch_bounds__(kThreads)
 spliced_kernel(Args a, const int* __restrict__ lengths, const __grid_constant__ SpliceArgs p) {
   const int len = min(max(lengths[blockIdx.z], 0), p.MB * p.ps);
   // rows are staged from the policy's descriptors: the functor is unused
-  decode_block<QT, KT, Dh, GM>(a, blockIdx.z * p.KVH + blockIdx.y, 0, len,
-                               [](int) { return 0LL; }, Splice<Dh>(p));
+  const int h = kv_head(p.ngt);
+  decode_block<QT, KT, Dh, GM>(a, blockIdx.z * p.KVH + h, 0, len,
+                               [](int) { return 0LL; }, Splice<Dh>(p, h));
 }
 
 template <typename QT, typename KT, int Dh, int GM>
@@ -401,7 +405,7 @@ int launch_dh(const Args& a, dim3 grid, const int* lengths, const SpliceArgs& p,
   if (a.G <= 1) return launch_g<QT, KT, Dh, 1>(a, grid, lengths, p, stream);
   if (a.G <= 2) return launch_g<QT, KT, Dh, 2>(a, grid, lengths, p, stream);
   if (a.G <= 4) return launch_g<QT, KT, Dh, 4>(a, grid, lengths, p, stream);
-  return launch_g<QT, KT, Dh, 8>(a, grid, lengths, p, stream);
+  return launch_g<QT, KT, Dh, kMaxG>(a, grid, lengths, p, stream);
 }
 
 template <typename QT, typename KT>
@@ -439,23 +443,24 @@ extern "C" int flash_decode_spliced(const void* q, int q_bf16, const void* k_pag
                                     int dist, int runs_max, int fresh_path, int split,
                                     int nsplit, float scale, void* stream) {
   const int V = kv_bf16 ? 8 : 4;
-  if (G < 1 || G > decode_attn::kMaxG || ps < 1 || MB < 1 || split < 1 ||
+  const int ngt = (G + decode_attn::kMaxG - 1) / decode_attn::kMaxG;
+  if (G < 1 || G > decode_attn::kMaxRows || ps < 1 || MB < 1 || split < 1 ||
       split % decode_attn::kChunk || nsplit < 1 || (long long)split * nsplit < (long long)MB * ps ||
-      (long long)MB * ps > 0x7fffffff || KVH > 65535 || B > 65535 || rot < 0 || rot > Dh ||
+      (long long)MB * ps > 0x7fffffff || KVH * ngt > 65535 || B > 65535 || rot < 0 || rot > Dh ||
       rot % 2 || (dist && !shuffle_ok(dist, rot, Dh, V)) || runs_max < 0 ||
       (long long)runs_max * (rot / 2) > kTab)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || KVH == 0) return 0;
   const decode_attn::Args a{q, k_pages, v_pages, out, part_m, part_l, part_acc, count, G,
-                            split, nsplit, scale};
+                            ngt, split, nsplit, scale};
   int shift = -1;   // page and slot by shift and mask when ps is a power of two
   if ((ps & (ps - 1)) == 0) {
     shift = 0;
     while ((1 << shift) < ps) ++shift;
   }
   const SpliceArgs p{block_table, page_delta, page_valid, freq, KVH, ps, shift, MB, rot,
-                     dist, runs_max, fresh_path};
-  const dim3 grid(nsplit, KVH, B);
+                     ngt, dist, runs_max, fresh_path};
+  const dim3 grid(nsplit, KVH * ngt, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16 && kv_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, Dh, grid, lengths, p, s);
   if (q_bf16) return (int)cudaErrorInvalidValue;   // bf16 q over fp32 K/V: no caller

@@ -12,7 +12,10 @@ tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref`` /
 use) or raises.  All three kernels split every sequence over positions
 (``_splits``: whole 64-position chunks, enough blocks for several per SM)
 and combine the splits inside the same launch, so each wrapper's
-``launches`` counts one grid launch a call.
+``launches`` counts one grid launch a call.  A kv-head's G query rows
+share a block up to ``_MAX_G``; past it (to ``_MAX_ROWS``: granite-20b's
+MQA has G = 48) they go in tiles of ``_MAX_G`` rows, a block each, on
+the grid's kv-head dimension (``_tiles``), in the same single launch.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from repro_torch.models.layers import rope_frequencies
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
            (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
 _CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
+_MAX_G = 8              # query rows a block holds (kMaxG)
+_MAX_ROWS = 64          # query rows a kv-head may have (kMaxRows)
 _TAB = 256              # cos/sin pairs of a chunk's angle table (spliced kTab)
 FRESH, MASKED, ROTATED = 0, 1, 2   # the spliced kernel's chunk modes
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -68,13 +73,13 @@ def _kernel(name: str):
 
 def _check_launch(q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
                   **ints: torch.Tensor) -> None:
-    """What both CUDA kernels take: G in 1..8, Dh in (32, 64, 128), q/kv
+    """What the CUDA kernels take: G in 1..64, Dh in (32, 64, 128), q/kv
     bf16/bf16, fp32/bf16 or fp32/fp32, int32 index tensors, and every
     tensor contiguous."""
     G, Dh = q.shape[2], q.shape[3]
-    if not 1 <= G <= 8 or Dh not in (32, 64, 128):
-        raise ValueError(f"kernel takes G in 1..8 and Dh in (32, 64, 128); "
-                         f"got G={G}, Dh={Dh}")
+    if not 1 <= G <= _MAX_ROWS or Dh not in (32, 64, 128):
+        raise ValueError(f"kernel takes G in 1..{_MAX_ROWS} and Dh in (32, "
+                         f"64, 128); got G={G}, Dh={Dh}")
     if (q.dtype, kv.dtype) not in _DTYPES or v.dtype != kv.dtype:
         raise ValueError(f"q {q.dtype}, k/v {kv.dtype}/{v.dtype}: kernel "
                          "takes q/kv bf16/bf16, fp32/bf16 or fp32/fp32")
@@ -97,6 +102,12 @@ def _splits(rows: int, S: int, sms: int) -> Tuple[int, int]:
     per = -(-S // n)
     split = -(-per // _CHUNK) * _CHUNK            # whole chunks
     return split, -(-S // split)
+
+
+def _tiles(G: int) -> int:
+    """Blocks a (b, kv-head) takes for its G query rows: ceil(G / _MAX_G)
+    tiles (csrc/decode_attn.cuh's ngt)."""
+    return -(-G // _MAX_G)
 
 
 def _sm_count(index: int) -> int:
@@ -130,14 +141,15 @@ def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
     the counters and (split, nsplit)."""
     B, KVH, G, Dh = q.shape
     rows = B * KVH
+    blocks = rows * _tiles(G)           # (b, kv-head, G tile) blocks a split
     dev = q.device
-    split, nsplit = _splits(rows, S, _sm_count(dev.index))
+    split, nsplit = _splits(blocks, S, _sm_count(dev.index))
     out = torch.empty((B, KVH, G, Dh), dtype=torch.float32, device=dev)
     # the current stream's handle, as torch.cuda.current_stream(dev)
     # .cuda_stream gives it, without building a Stream object a call
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     n = rows * nsplit * G if nsplit > 1 else 0
-    count, part = _workspace(dev, stream, rows, n * (Dh + 2))
+    count, part = _workspace(dev, stream, blocks, n * (Dh + 2))
     pm = part.data_ptr()
     err = _kernel(name)(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kv.data_ptr(),

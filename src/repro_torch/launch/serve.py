@@ -26,7 +26,13 @@ group-granular discipline.  ``serve`` may run several times over one
 ``build``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --pipeline irg \\
-        --requests 8 --batch 4 [--dense-decode] [--trace-out trace.json]
+        --requests 8 --batch 4 [--arch granite-moe-3b-a800m] [--layers N] \\
+        [--dense-decode] [--trace-out trace.json]
+
+``--arch`` takes any registered config whose decode is the paged GQA
+path (the Llama-3 family, the MoE family, the plain-MLP and vision
+configs), at full width; ``--layers N`` cuts the depth and prints the
+cut.
 """
 
 from __future__ import annotations
@@ -88,7 +94,11 @@ def make_queries(store, n: int, seed: int) -> np.ndarray:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="a registered config at its full width: llama3-8b, "
+                         "granite-moe-3b-a800m, arctic-480b, granite-20b, "
+                         "nemotron-4-15b, internvl2-1b (musicgen-large "
+                         "decodes codebooks and is not served)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model's depth (width is never cut)")
     ap.add_argument("--reduced", action="store_true",
@@ -151,6 +161,11 @@ def build(args: argparse.Namespace) -> Setup:
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     say = (lambda *a: None) if args.quiet else print
     clock = SystemClock()
+    if tf.codebooks(get_arch(args.arch)):
+        # the DecodeRunner starts every wave from [n] tokens, as the
+        # reference's does: no codebook model is served
+        raise ValueError(f"arch {args.arch!r} decodes codebook tokens; the "
+                         "server decodes [n] tokens only")
 
     t0 = clock.perf()
     store = synthetic_datastore(args.vectors, dim=args.dim, seed=args.seed)
@@ -165,6 +180,17 @@ def build(args: argparse.Namespace) -> Setup:
         f"{index.paged.total_pages} pages of {args.page_size} "
         f"({index_s:.1f} s)")
 
+    arch, model = build_model(args, dev)
+    return Setup(args=args, device=dev, card=card, store=store, index=index,
+                 arch=arch, model=model, index_s=index_s)
+
+
+def build_model(args: argparse.Namespace, dev: torch.device,
+                ) -> Tuple[ArchConfig, tf.Transformer]:
+    """``--arch`` (reduced with ``--reduced``, its depth cut to
+    ``--layers``, the cut printed) and its random weights from
+    ``--seed``."""
+    say = (lambda *a: None) if args.quiet else print
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -173,9 +199,7 @@ def build(args: argparse.Namespace) -> Setup:
             "layers (width unchanged)")
         arch = dataclasses.replace(arch, num_layers=args.layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = tf.init_params(arch, gen, device=dev)
-    return Setup(args=args, device=dev, card=card, store=store, index=index,
-                 arch=arch, model=model, index_s=index_s)
+    return arch, tf.init_params(arch, gen, device=dev)
 
 
 class _PhaseLog:

@@ -1,21 +1,27 @@
-"""Plain global-causal GQA decoder (the Llama-3 family) as an ``nn.Module``.
+"""Global-causal GQA decoders (the Llama-3 family, MoE, plain MLPs, a
+ViT or EnCodec front-end stub) as an ``nn.Module``.
 
 Parameters are stacked along a leading layer dim, exactly like the
 reference's pytree (``layers.attn.wq`` [L, d, H, Dh], ...), so
 ``from_jax_params`` carries a reference ``init_params`` tree across as
 is.  ``forward`` runs a whole sequence (causal ``attn_forward`` per
-layer) and ``prefill`` returns its last-token logits and its K/V cache.
-Three decode steps share one per-layer body (norm, attention, MLP) and
-differ only in the attention (``models/attention.py``):
+layer, an optional ``image_embeds`` prefix through ``vit_proj``) and
+``prefill`` returns its last-token logits and its K/V cache.
+Three decode steps share one per-layer body (norm, attention, MLP or
+MoE) and differ only in the attention (``models/attention.py``):
 ``serve_step_paged`` writes the new token's K/V into a block-table page
 slab and attends with the ``flash_decode_paged`` kernel;
 ``serve_step_paged_spliced`` does the same over a table that also holds
 spliced chunk-KV pages and attends with the ``flash_decode_spliced``
 kernel; ``serve_step`` writes it into a dense ``init_cache`` cache and
-attends with the ``flash_decode`` kernel.  Training runs through the
-same ``forward`` (``remat`` recomputes groups of layers in backward)
-and ``loss_fn``; a model is trainable only after ``set_trainable()``,
-so serving stays gradient-free.  MoE, MLA and SSM are not ported yet.
+attends with the ``flash_decode`` kernel.  The MLP is gated or plain
+(``mlp_gated``) or an MoE layer (``models/moe.py``); an EnCodec model
+(musicgen) sums its codebooks' embeddings and emits logits
+[..., codebooks, V].  Training runs through the same ``forward``
+(``remat`` recomputes groups of layers in backward) and ``loss_fn``; a
+model is trainable only after ``set_trainable()``, so serving stays
+gradient-free.  Sliding windows, attention softcaps, tied embeddings,
+MLA and the SSM families are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.layers import (largest_divisor, mlp_forward,
                                       rms_norm, softcap, token_nll)
 
-# flat parameter name -> its path in the reference pytree
+# flat parameter name -> its path in the reference pytree (the Llama
+# family's names; checkpoints key parameters by these paths)
 _JAX_PATHS = {
     "embed": ("embed",), "unembed": ("unembed",),
     "final_norm": ("final_norm",),
@@ -45,38 +53,82 @@ _JAX_PATHS = {
     "w_up": ("layers", "mlp", "w_up"), "w_gate": ("layers", "mlp", "w_gate"),
     "w_down": ("layers", "mlp", "w_down"),
 }
-_LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_up",
-                 "w_gate", "w_down")
+# the other families' parameters: the MoE router and dense residual, the
+# ViT stub's projection
+_FAMILY_PATHS = {
+    "router": ("layers", "mlp", "router"),
+    "dense_w_up": ("layers", "mlp", "dense", "w_up"),
+    "dense_w_gate": ("layers", "mlp", "dense", "w_gate"),
+    "dense_w_down": ("layers", "mlp", "dense", "w_down"),
+    "vit_proj": ("vit_proj",),
+}
+_LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router",
+                 "w_up", "w_gate", "w_down", "dense_w_up", "dense_w_gate",
+                 "dense_w_down")
+
+
+def family_kind(cfg: ArchConfig) -> str:
+    """The reference's decoder family: "rwkv6", "zamba2" or "attn"."""
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return "rwkv6"
+    if cfg.shared_attn_every:
+        return "zamba2"
+    return "attn"
+
+
+def codebooks(cfg: ArchConfig) -> int:
+    """EnCodec codebooks of an audio model (tokens [..., n], logits
+    [..., n, V]), else 0."""
+    fe = cfg.frontend
+    return fe.num_codebooks if fe is not None and fe.kind == "encodec_stub" else 0
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a plain global-causal GQA decoder with a
-    gated MLP and separate unembedding (what this module implements)."""
-    ok = (cfg.attn_kind == "gqa" and cfg.moe is None and cfg.ssm is None
-          and cfg.frontend is None and not cfg.shared_attn_every
-          and not cfg.sliding_window and not cfg.local_global_pattern
-          and cfg.attn_logit_softcap is None and cfg.mlp_gated
-          and not cfg.tie_embeddings)
+    """Raise unless ``cfg`` is a global-causal GQA decoder with separate
+    unembedding (what this module implements): gated or plain MLP or
+    MoE, any rotary fraction, a ViT or EnCodec front-end stub."""
+    ok = (cfg.attn_kind == "gqa" and cfg.ssm is None
+          and not cfg.shared_attn_every and not cfg.sliding_window
+          and not cfg.local_global_pattern
+          and cfg.attn_logit_softcap is None and not cfg.tie_embeddings)
     if not ok:
-        raise ValueError(f"arch {cfg.name!r} is not a plain global-causal GQA "
-                         "decoder; only that family is ported")
+        raise ValueError(f"arch {cfg.name!r} is not a global-causal GQA "
+                         "decoder; window, softcap, tied-embedding, MLA and "
+                         "SSM families are not ported yet")
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Shape of every parameter (layer params stacked along dim 0)."""
     d, L, V, F = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    return {
-        "embed": (V, d), "unembed": (d, V), "final_norm": (d,),
-        "attn_norm": (L, d), "wq": (L, d, H, Dh), "wk": (L, d, KVH, Dh),
-        "wv": (L, d, KVH, Dh), "wo": (L, H, Dh, d), "mlp_norm": (L, d),
-        "w_up": (L, d, F), "w_gate": (L, d, F), "w_down": (L, F, d),
-    }
+    nc = codebooks(cfg)
+    shapes = {"embed": (nc, V, d) if nc else (V, d),
+              "unembed": (nc, d, V) if nc else (d, V), "final_norm": (d,),
+              "attn_norm": (L, d), "wq": (L, d, H, Dh), "wk": (L, d, KVH, Dh),
+              "wv": (L, d, KVH, Dh), "wo": (L, H, Dh, d), "mlp_norm": (L, d)}
+    if cfg.moe is not None:
+        E, Fe, Fd = (cfg.moe.num_experts, cfg.moe.d_ff_expert,
+                     cfg.moe.dense_residual_d_ff)
+        shapes.update({"router": (L, d, E), "w_up": (L, E, d, Fe),
+                       "w_gate": (L, E, d, Fe), "w_down": (L, E, Fe, d)})
+        if Fd:
+            shapes.update({"dense_w_up": (L, d, Fd), "dense_w_gate": (L, d, Fd),
+                           "dense_w_down": (L, Fd, d)})
+    else:
+        shapes["w_up"] = (L, d, F)
+        if cfg.mlp_gated:
+            shapes["w_gate"] = (L, d, F)
+        shapes["w_down"] = (L, F, d)
+    if cfg.frontend is not None and cfg.frontend.kind == "vit_stub":
+        shapes["vit_proj"] = (cfg.frontend.embed_dim, d)
+    return shapes
 
 
 class Transformer(nn.Module):
     """Decoder weights plus the paged decode step.  The parameters take
     no gradients until ``set_trainable()``."""
+
+    layer_names: Tuple[str, ...]     # this config's per-layer parameters
 
     def __init__(self, cfg: ArchConfig, tensors: Mapping[str, torch.Tensor]):
         super().__init__()
@@ -91,6 +143,7 @@ class Transformer(nn.Module):
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
                                  f"{shapes[name]}")
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        self.layer_names = tuple(n for n in shapes if n in _LAYER_PARAMS)
 
     @property
     def device(self) -> torch.device:
@@ -109,7 +162,7 @@ class Transformer(nn.Module):
 
     def layer(self, l: int) -> Dict[str, torch.Tensor]:
         """Layer ``l``'s parameters (views into the stacked tensors)."""
-        return {name: getattr(self, name)[l] for name in _LAYER_PARAMS}
+        return {name: getattr(self, name)[l] for name in self.layer_names}
 
     def layers(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's parameters, for a full-sequence pass: each
@@ -118,8 +171,8 @@ class Transformer(nn.Module):
         ``layer(l)`` index a layer would instead allocate a zero tensor
         the size of the whole stack for every layer (3.8 GB for
         Llama-3-8B's stacked MLP weights)."""
-        stacks = [getattr(self, name).unbind(0) for name in _LAYER_PARAMS]
-        return [dict(zip(_LAYER_PARAMS, parts)) for parts in zip(*stacks)]
+        stacks = [getattr(self, name).unbind(0) for name in self.layer_names]
+        return [dict(zip(self.layer_names, parts)) for parts in zip(*stacks)]
 
     def forward(self, k_slab, v_slab, block_table, lengths, tokens):
         """``serve_step_paged`` on this model."""
@@ -133,8 +186,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Random weights drawn from ``generator`` (which must live on
     ``device``): truncated normal in [-2, 2] scaled by 1/sqrt(fan_in)
     (fan_in = the per-layer shape's first dim, as the reference's
-    ``InitMaker``), embedding scale 0.02, norms ones.  Layer tensors are
-    filled one layer at a time, so the fp32 scratch stays one layer big."""
+    ``InitMaker``: E for the [E, d, F] expert weights), embedding scale
+    0.02, norms ones.  Layer tensors are filled one layer at a time, and
+    expert tensors one expert at a time, so the fp32 scratch stays one
+    layer's matrix big (arctic's [128, 7168, 4864] w_up of a layer would
+    take 17.8 GB)."""
     dev = resolve_device(device)
     tensors: Dict[str, torch.Tensor] = {}
     for name, shape in param_shapes(cfg).items():
@@ -144,8 +200,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         else:
             per = shape[1:] if name in _LAYER_PARAMS else shape
             scale = 0.02 if name == "embed" else 1.0 / math.sqrt(max(per[0], 1))
-            for part in (t if name in _LAYER_PARAMS else [t]):
-                tmp = torch.empty(per, dtype=torch.float32, device=dev)
+            experts = cfg.moe is not None and name in ("w_up", "w_gate", "w_down")
+            parts = ([t] if name not in _LAYER_PARAMS
+                     else t.flatten(0, 1) if experts else t)
+            for part in parts:
+                tmp = torch.empty(part.shape, dtype=torch.float32, device=dev)
                 nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
                 part.copy_(tmp.mul_(scale))
@@ -160,10 +219,11 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig,
     stacked ``[L, ...]``) as a ``Transformer`` on ``device``; ``dtype``
     None keeps each array's own dtype."""
     dev = resolve_device(device)
+    paths = {**_JAX_PATHS, **_FAMILY_PATHS}
     tensors = {}
-    for name, path in _JAX_PATHS.items():
+    for name in param_shapes(cfg):
         node = np_tree
-        for key in path:
+        for key in paths[name]:
             node = node[key]
         t = torch.from_numpy(np.array(node))       # own, writable copy
         tensors[name] = t.to(device=dev, dtype=dtype or t.dtype)
@@ -171,37 +231,64 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig,
 
 
 def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [...] -> embeddings [..., d]."""
-    return model.embed[tokens.long()]
+    """tokens [...] (an audio model's [..., codebooks]) -> embeddings
+    [..., d]; the codebooks' embeddings summed in order, as the
+    reference sums them."""
+    tokens = tokens.long()
+    nc = codebooks(model.cfg)
+    if not nc:
+        return model.embed[tokens]
+    x = model.embed[0][tokens[..., 0]]
+    for c in range(1, nc):
+        x = x + model.embed[c][tokens[..., c]]
+    return x
 
 
 def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    """x: [..., d] -> logits [..., V]."""
-    return softcap(x @ model.unembed, model.cfg.final_logit_softcap)
+    """x: [..., d] -> logits [..., V] (an audio model's [..., codebooks,
+    V])."""
+    if codebooks(model.cfg):
+        logits = torch.einsum("...d,cdv->...cv", x, model.unembed)
+    else:
+        logits = x @ model.unembed
+    return softcap(logits, model.cfg.final_logit_softcap)
 
 
-def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: ArchConfig,
-           positions: torch.Tensor, attn_chunk: int,
-           ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One decoder layer over a whole sequence: (x out, (k, v))."""
+def _mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP or MoE on x [..., d]: (out, MoE aux loss or None)."""
+    if cfg.moe is not None:
+        return moe.moe_forward(lp, x, cfg)
+    return mlp_forward(lp, x, cfg.mlp_act, cfg.mlp_gated), None
+
+
+def _block(x: torch.Tensor, aux: torch.Tensor, lp: Dict[str, torch.Tensor],
+           cfg: ArchConfig, positions: torch.Tensor, attn_chunk: int,
+           ) -> Tuple[torch.Tensor, torch.Tensor,
+                      Tuple[torch.Tensor, torch.Tensor]]:
+    """One decoder layer over a whole sequence: (x out, aux plus the
+    layer's MoE aux loss, (k, v))."""
     a_out, kv = attn.attn_forward(
         lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
         positions=positions, attn_chunk=attn_chunk)
     x = x + a_out
-    m_in = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated), kv
+    m_out, a = _mlp(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
+    return x + m_out, aux if a is None else aux + a, kv
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
             attn_chunk: int = 1024, remat: bool = False,
             remat_group: int = 4, want_cache: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor,
                        Optional[Dict[str, torch.Tensor]]]:
-    """Full-sequence forward of the GQA family: tokens [B, S] at positions
-    0..S-1.  Returns (hidden [B, S, d] after the final norm, aux loss (0:
-    no MoE), cache or None); ``want_cache`` gives {"k", "v"} [L, B, S,
-    KVH, Dh], k rotated, in the model's dtype, as the reference's
-    ``forward`` lays out its attention cache.
+    """Full-sequence forward: tokens [B, S] (an audio model's [B, S,
+    codebooks]), after a vision model's ``image_embeds`` [B, P, e]
+    projected through ``vit_proj`` as a prefix, at positions 0..P+S-1.
+    Returns (hidden [B, P+S, d] after the final norm, the MoE aux loss
+    summed over layers (0 without MoE), cache or None); ``want_cache``
+    gives {"k", "v"} [L, B, P+S, KVH, Dh], k rotated, in the model's
+    dtype, as the reference's ``forward`` lays out its attention cache.
 
     ``remat=True`` (without ``want_cache``, as the reference's grouped
     path) runs the layers in groups of ``remat_group`` (the largest
@@ -210,28 +297,33 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     kept.  The values are the same either way."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)                      # [B, S, d]
+    if image_embeds is not None:
+        prefix = torch.einsum("bpe,ed->bpd", image_embeds.to(x.dtype),
+                              model.vit_proj)
+        x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     layers = model.layers()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     if remat and not want_cache:
         g = largest_divisor(cfg.num_layers, remat_group)
 
-        def group(h, lps):
+        def group(h, a, lps):
             for lp in lps:
-                h, _ = _block(h, lp, cfg, positions, attn_chunk)
-            return h
+                h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk)
+            return h, a
 
         for i in range(0, cfg.num_layers, g):
-            x = checkpoint(group, x, layers[i:i + g], use_reentrant=False)
+            x, aux = checkpoint(group, x, aux, layers[i:i + g],
+                                use_reentrant=False)
     else:
         for lp in layers:
-            x, (k, v) = _block(x, lp, cfg, positions, attn_chunk)
+            x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk)
             if want_cache:
                 ks.append(k)
                 vs.append(v)
     cache = ({"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache
              else None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
 
 
@@ -273,11 +365,13 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
             attn_chunk: int = 1024,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-prompt forward of ``inputs["tokens"]`` [B, S]: returns
-    (last-token logits [B, V], cache {"k", "v"} [L, B, S, KVH, Dh] at the
-    prompt's length)."""
-    x, _, cache = forward(model, inputs["tokens"], attn_chunk=attn_chunk,
-                          want_cache=True)
+    """Full-prompt forward of ``inputs["tokens"]`` [B, S] (after an
+    ``inputs["image_embeds"]`` [B, P, e] prefix, where given): returns
+    (last-token logits [B, V] (audio [B, codebooks, V]), cache {"k", "v"}
+    [L, B, P+S, KVH, Dh] at the prompt's length)."""
+    x, _, cache = forward(model, inputs["tokens"],
+                          image_embeds=inputs.get("image_embeds"),
+                          attn_chunk=attn_chunk, want_cache=True)
     return unembed(model, x[:, -1, :]), cache
 
 
@@ -286,8 +380,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """A zeroed dense decode cache for ``batch`` sequences of ``max_len``
     tokens: {"k", "v"} [L, B, S, KVH, Dh] in ``dtype``, as the
-    reference's ``init_cache`` lays out the GQA attention family (the
-    only family ported)."""
+    reference's ``init_cache`` lays out the GQA attention family (every
+    family ported)."""
     check_supported(cfg)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
@@ -299,16 +393,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def _decode(model: Transformer, tokens: torch.Tensor,
             attend: Callable[[int, Dict[str, torch.Tensor], torch.Tensor],
                              torch.Tensor]) -> torch.Tensor:
-    """The per-layer body both decode steps share: embed, then per layer
-    ``h += attend(l, layer, rms_norm(h))`` and the gated MLP, then the
-    final norm and the unembedding.  Returns logits [B, V]."""
+    """The per-layer body the decode steps share: embed ``tokens`` [B]
+    (audio [B, codebooks]), then per layer ``h += attend(l, layer,
+    rms_norm(h))`` and the MLP or MoE (its B rows one dispatch group, in
+    row order, as the reference's step dispatches them), then the final
+    norm and the unembedding.  Returns logits [B, V] (audio [B,
+    codebooks, V])."""
     cfg = model.cfg
     h = embed_tokens(model, tokens)                      # [B, d]
     for l in range(cfg.num_layers):
         lp = model.layer(l)
         h = h + attend(l, lp, rms_norm(h, lp["attn_norm"], cfg.norm_eps))
-        m_in = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        h = h + mlp_forward(lp, m_in, cfg.mlp_act, cfg.mlp_gated)
+        m_out, _ = _mlp(lp, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), cfg)
+        h = h + m_out
     return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps))
 
 
@@ -318,12 +415,13 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
     """One decode step for the whole batch over a **dense** cache
     (``init_cache``), on the model's device.
 
-    inputs: token [B] and pos [B] int32, each sequence's position of the
-    new token (continuous batching: rows may differ).  Each layer writes
-    the new K/V IN PLACE at ``pos`` (clipped to the cache, as the
-    reference's ``dynamic_update_slice`` clips) and attends over
-    positions <= pos with ``kernels.ops.flash_decode``.  Returns (logits
-    [B, V], cache) — the cache's tensors are the same, updated in place.
+    inputs: token [B] (audio [B, codebooks]) and pos [B] int32, each
+    sequence's position of the new token (continuous batching: rows may
+    differ).  Each layer writes the new K/V IN PLACE at ``pos`` (clipped
+    to the cache, as the reference's ``dynamic_update_slice`` clips) and
+    attends over positions <= pos with ``kernels.ops.flash_decode``.
+    Returns (logits [B, V] (audio [B, codebooks, V]), cache) — the
+    cache's tensors are the same, updated in place.
     """
     cfg = model.cfg
     ck, cv = cache["k"], cache["v"]
@@ -351,10 +449,10 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
     (``slot = block_table[b, lengths // ps]``, ``off = lengths % ps``)
     before attention runs over ``lengths + 1`` tokens with
     ``kernels.ops.flash_decode_paged``; the caller advances the lease's
-    lengths afterwards.  inputs: token [B].
+    lengths afterwards.  inputs: token [B] (audio [B, codebooks]).
 
-    Returns (logits [B, V], k_slab, v_slab) — the slabs are the same
-    tensors, updated in place.
+    Returns (logits [B, V] (audio [B, codebooks, V]), k_slab, v_slab) —
+    the slabs are the same tensors, updated in place.
     """
     cfg = model.cfg
     ps = k_slab.shape[2]

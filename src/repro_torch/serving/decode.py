@@ -51,13 +51,13 @@ from repro_torch.serving.sampler import sample
 
 
 def supports_paged_decode(cfg: ArchConfig) -> bool:
-    """True iff the arch can decode through block-table KV (plain
-    global-causal GQA attention)."""
-    try:
-        tf.check_supported(cfg)
-    except ValueError:
-        return False
-    return True
+    """True iff the arch can decode through block-table KV: plain
+    global-causal GQA attention (the ``init_paged`` /
+    ``serve_step_paged`` restriction), the reference's rule —
+    sliding-window, split-cache, MLA and SSM families stay dense."""
+    return (tf.family_kind(cfg) == "attn" and cfg.has_attention
+            and cfg.attn_kind == "gqa" and not cfg.local_global_pattern
+            and not cfg.sliding_window)
 
 
 class DecodeRunner:
@@ -102,8 +102,9 @@ class DecodeRunner:
 
     def attach(self, server) -> "DecodeRunner":
         """Bind to a constructed ``TeleRAGServer`` (or anything with its
-        ``wall`` and ``engines``): the path from the first engine's
-        ``paged_decode``, one KV manager per replica engine (paged mode
+        ``wall`` and ``engines``): paged when the first engine's
+        ``paged_decode`` asks for it and ``supports_paged_decode`` holds
+        for the arch, else dense; one KV manager per replica engine (paged mode
         also allocates its slab), each charged to that engine's pool, and
         ``server.wall.perf()`` to time the steps.  With the engine's
         ``chunk_kv`` on, a paged path and a ``chunk_store``, each replica
@@ -112,9 +113,10 @@ class DecodeRunner:
         chunk residency through it)."""
         self.clock = server.wall
         eng0 = server.engines[0]
-        # every model the port builds passed check_supported, so it can
-        # decode paged: the engine's flag alone picks the path
-        self.paged = bool(eng0.cfg.paged_decode)
+        # paged where the engine asks for it and the arch can, as the
+        # reference's attach ANDs the two
+        self.paged = (bool(eng0.cfg.paged_decode)
+                      and supports_paged_decode(self.cfg))
         want_chunk = (self.paged and eng0.cfg.chunk_kv
                       and self.chunk_store is not None)
         self.chunk_docs = eng0.cfg.chunk_kv_docs

@@ -22,11 +22,24 @@ from repro_torch.training.optimizer import (OptConfig, adamw_update,
 Batch = Mapping[str, torch.Tensor]
 
 
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is the family training is ported for: the
+    plain GQA decoder with a gated MLP and no MoE or front-end (the
+    Llama-3 family).  The MoE, plain-MLP, vision and audio families
+    serve, and train in a later slice of the port."""
+    tf.check_supported(cfg)
+    if (cfg.moe is not None or cfg.frontend is not None
+            or not cfg.mlp_gated or cfg.rope_fraction != 1.0):
+        raise ValueError(f"arch {cfg.name!r}: training is ported for the "
+                         "Llama-3 family only; the MoE, plain-MLP, vision "
+                         "and audio families train in a later slice")
+
+
 def make_loss_fn(cfg: ArchConfig, *, attn_chunk: int = 1024,
                  remat: bool = True, remat_group: int = 4,
                  loss_chunk: int = 512) -> Callable:
     """(model, batch) -> (loss, {"ce", "aux", "tokens"}) for ``cfg``."""
-    tf.check_supported(cfg)
+    check_trainable(cfg)
 
     def loss_fn(model: tf.Transformer, batch: Batch):
         return tf.loss_fn(model, batch, attn_chunk=attn_chunk, remat=remat,
@@ -92,6 +105,7 @@ def init_training(cfg: ArchConfig, opt_cfg: OptConfig,
     """A trainable ``init_params`` model (weights drawn from
     ``generator``, which must live on ``device``) and its zero
     optimizer state."""
+    check_trainable(cfg)
     model = tf.init_params(cfg, generator, device=device,
                            dtype=dtype).set_trainable()
     return model, init_opt_state(dict(model.named_parameters()), opt_cfg)

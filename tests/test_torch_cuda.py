@@ -934,3 +934,135 @@ def test_train_main_on_the_card_checkpoints_and_resumes(tmp_path):
     assert train.moment_dtype(cfg, torch.device("cuda")) == "float32"
     more = train.main(args[:3] + ["3"] + args[4:])
     assert [h["step"] for h in more] == [3]
+
+
+# the decode kernels at the new configs' G and past 8 in tiles:
+# (KVH, G, Dh, rope fraction) of granite-moe, nemotron, internvl2 and
+# granite-20b, a last tile of one row and the most rows (64)
+G_TILES = {"granite-moe G=3": (8, 3, 64, 1.0), "nemotron G=6": (8, 6, 128, 0.5),
+           "internvl2 G=7": (2, 7, 64, 1.0), "granite-20b G=48": (1, 48, 128, 1.0),
+           "G=9": (2, 9, 32, 1.0), "G=64": (1, 64, 64, 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", list(G_TILES))
+def test_decode_kernels_at_each_configs_g_match_plain(name, dtype):
+    """Kernels 1, 4 and the spliced kernel at each G of G_TILES against
+    their plain versions (atol=rtol=2e-3): ragged block tables and dense
+    positions (a window across splits at G > 8), spliced chunks; one grid
+    launch a call, equal bits from a second call."""
+    dev = _card()
+    KVH, G, Dh, frac = G_TILES[name]
+    window = 300 if G > 8 else 0
+    q, kp, vp, bt, lens = (torch.from_numpy(a).to(dev) for a in
+                           _paged_inputs(4, KVH, G, Dh, 16, 64, G))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = tfd.flash_decode_paged.launches
+    got = tfd.flash_decode_paged(q, kp, vp, bt, lens, window=window)
+    want = tref.flash_decode_paged_ref(q, kp, vp, bt, lens, window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_paged.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert torch.equal(tfd.flash_decode_paged(q, kp, vp, bt, lens,
+                                              window=window), got)
+
+    rng = np.random.default_rng(G)
+    S = 1000
+    k, v = (torch.from_numpy(rng.standard_normal((4, S, KVH, Dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    pos = torch.tensor([999, 700, 64, 0], dtype=torch.int32, device=dev)
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(q, k, v, pos, window=window)
+    want = tref.flash_decode_ref(q, k, v, pos, window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert torch.equal(tfd.flash_decode(q, k, v, pos, window=window), got)
+
+    q, kp, vp, bt, lens, dl, vd = (torch.from_numpy(a).to(dev) for a in
+                                   _spliced_inputs(G, 3, KVH, G, Dh, 16,
+                                                   [[21, 9, 40], [5, 5], [33]], 4))
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    kw = dict(rope_fraction=frac, rope_theta=500_000.0)
+    before = tfd.flash_decode_spliced.launches
+    got = tfd.flash_decode_spliced(q, kp, vp, bt, lens, dl, vd, **kw)
+    want = tref.flash_decode_spliced_ref(q, kp, vp, bt, lens, dl, vd, **kw)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_spliced.launches == before + 1
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert torch.equal(tfd.flash_decode_spliced(q, kp, vp, bt, lens, dl, vd,
+                                                **kw), got)
+
+
+@pytest.mark.cuda
+def test_g_past_64_is_refused():
+    dev = _card()
+    q, kp, vp, bt, lens = (torch.from_numpy(a).to(dev) for a in
+                           _paged_inputs(2, 1, 65, 32, 4, 3, 0))
+    before = tfd.flash_decode_paged.launches
+    with pytest.raises(ValueError, match="G in 1..64"):
+        tfd.flash_decode_paged(q, kp, vp, bt, lens)
+    assert tfd.flash_decode_paged.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 48])
+def test_moe_layer_on_the_card_matches_the_cpu(T):
+    """granite-moe's routing (40 experts top-8) at a narrow width, fp32:
+    the card selects and keeps the same experts as the CPU for a decode
+    step's 4 rows (capacity 1) and a 48-token group, and its output is
+    within 1e-4 of the scale (products in another order)."""
+    from repro_torch.models import moe as tmoe
+    dev = _card()
+    cfg = get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(
+        cfg.moe, d_ff_expert=128))
+    d, E, F = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    g = torch.Generator().manual_seed(T)
+    p = {"router": torch.randn(d, E, generator=g) / math.sqrt(d),
+         "w_up": torch.randn(E, d, F, generator=g) / math.sqrt(E),
+         "w_gate": torch.randn(E, d, F, generator=g) / math.sqrt(E),
+         "w_down": torch.randn(E, F, d, generator=g) / math.sqrt(E)}
+    x = torch.randn(T, d, generator=g)
+    want, waux = tmoe.moe_forward(p, x, cfg)
+    rw = tmoe.route(p["router"], x, cfg)
+    pd = {k: t.to(dev) for k, t in p.items()}
+    got, gaux = tmoe.moe_forward(pd, x.to(dev), cfg)
+    rg = tmoe.route(pd["router"], x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(rg.experts.cpu(), rw.experts)
+    assert torch.equal(rg.keep.cpu(), rw.keep)
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    assert abs(gaux.item() - waux.item()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_serve_step_paged_on_card_matches_cpu():
+    """A reduced granite-moe decode step (fp32) through the kernel on the
+    card against the plain version on the CPU, as the Llama test."""
+    dev = _card()
+    cfg = get_arch("granite-moe-3b-a800m").reduced()
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    B, ps, MB = 3, 4, 4
+    NP = B * MB + 2
+    shape = (cfg.num_layers, NP, ps, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    bt = torch.from_numpy(rng.permutation(NP)[:B * MB].reshape(B, MB)
+                          .astype(np.int32))
+    lens = torch.tensor([0, 3, 6], dtype=torch.int32)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, B).astype(np.int32))
+    want, wk, _ = ttf.serve_step_paged(model, k0.clone(), v0.clone(), bt, lens,
+                                       {"token": tok})
+    model_d = ttf.Transformer(cfg, {n: p.detach().to(dev)
+                                    for n, p in model.named_parameters()})
+    got, gk, _ = ttf.serve_step_paged(model_d, k0.to(dev), v0.to(dev),
+                                      bt.to(dev), lens.to(dev),
+                                      {"token": tok.to(dev)})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gk.cpu(), wk, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
