@@ -35,9 +35,19 @@ Phases, one line each, every one fatal on failure:
      table, and granite-20b's G=48 at the long context and with a window
      across split boundaries; all atol=rtol=2e-3
      (fp32 output from bf16 K/V, sums in another order), one grid launch
-     a call, equal bits from a second spliced call; then one reduced
-     Llama-3 decode step and one full-width granite-moe MoE layer (4 and
-     64 tokens) on the card against the CPU (equal experts kept);
+     a call, equal bits from a second spliced call; then this slice's
+     kernels, bf16 and fp32: flash_decode softcapped (50) at gemma2's
+     global shape (KVH 16, G 2, Dh 128) at the serve and long lengths
+     and past G = 8; gemma2's ring of 4096 slots through flash_decode
+     against the full cache with window 4096 (below W - 1, at it,
+     wrapped past 2W); flash_decode_quant (int8 K/V, bf16 scales) at
+     gemma2's shape with a row at pos 0, bf16 and fp32 q, Dh = 32 and a
+     window past G = 8; mla_decode at minicpm3's (H 40, R 256, Dr 32)
+     and the reduced (H 4, R 32, Dr 16) shapes, serve and long, with pos
+     0; then one reduced Llama-3 decode step and one full-width
+     granite-moe MoE layer (4 and 64 tokens) on the card against the CPU
+     (equal experts kept), and 12 serve_step steps of the reduced gemma2
+     (kv_quant off and on; the rings wrap) and minicpm3 against the CPU;
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes, at a small shape and at their edges (every page dead,
      one live page, every live page in one cluster, B=9, page sizes 48
@@ -82,10 +92,18 @@ Phases, one line each, every one fatal on failure:
      one model at a time: granite-moe-3b (MoE, full depth), granite-20b
      (MQA G=48, full depth; paged, then dense), nemotron-4-15b and
      internvl2-1b (full depth) and arctic-480b (full width, 2 of 35
-     layers), each fused with paged decode: one decode grid per layer
-     per step, probe_topk_fused launched, the exact-search check, 0
-     invariant violations, ms/step and tokens/s printed; and
-     musicgen-large (not served: it decodes codebook tokens) for one
+     layers), each fused with paged decode, and gemma2-27b and
+     minicpm3-4b (full depth), fused with dense decode (the arch cannot
+     page): one decode grid per layer per step (flash_decode_paged,
+     flash_decode over gemma2's 23 rings and 23 global layers, mla_decode
+     for MLA) and no other decode kernel, probe_topk_fused launched, the
+     exact-search check, 0 invariant violations, ms/step and tokens/s
+     printed; gemma2-27b's kv_quant steps (a wave of 1 + 32
+     serve_step(kv_quant=True) steps of 4 rows from serve-like
+     contexts, flash_decode_quant and flash_decode 23 grids a step each,
+     then the same steps over a bf16 cache, 46 flash_decode grids a
+     step: both ms/step and the logits' largest difference relative to
+     their scale); and musicgen-large (not served: it decodes codebook tokens) for one
      wave of 33 serve_step_paged steps at full width from serve-like
      contexts, logits [B, 4, 2048] finite, flash_decode_paged alone
      launched, one grid per layer per step;
@@ -102,7 +120,11 @@ Phases, one line each, every one fatal on failure:
      beside flash_decode_paged in the same process and on a table of
      20-token spliced chunks, and its aims; then kernels 1, 4 and the
      spliced one at granite-20b's shape (KVH=1, G=48, Dh=128) at the
-     serve and long contexts, flash_decode beside SDPA;
+     serve and long contexts, flash_decode beside SDPA; then
+     flash_decode softcapped and flash_decode_quant at gemma2's shape
+     (S 128 and 8192, all live), gemma2's full ring of 4096 slots, and
+     mla_decode at minicpm3's shape (S 128 and 8192) beside SDPA over
+     [q_abs | q_pe] and [ckv | kpe] (fp32, one kv head);
   8. training, with the serves' state freed, through the training entry
      point repro_torch.launch.train.main: the "full" preset (Llama-3-8B
      at full width and depth, random bf16 weights from seed 0, the bf16
@@ -245,6 +267,11 @@ FAMILY_SERVES = [
     ("nemotron-4-15b", None, [{}]),
     ("internvl2-1b", None, [{}]),
     ("arctic-480b", 2, [{}]),
+    # dense decode whatever the engine asks (supports_paged_decode):
+    # gemma2's rings and global layers through flash_decode, MLA's latent
+    # cache through mla_decode
+    ("gemma2-27b", None, [{}]),
+    ("minicpm3-4b", None, [{}]),
 ]
 # musicgen (not served: the server decodes [n] tokens, it decodes [n, 4]):
 # a wave as the serves run one, at full width: MUSICGEN_STEPS timed
@@ -253,6 +280,20 @@ FAMILY_SERVES = [
 # kernel 1's serve lengths (128/97/40, and 33)
 MUSICGEN_STEPS = 32
 MUSICGEN_LENGTHS = [95, 64, 7, 0]
+
+# gemma2-27b's global decode shape (KVH, G, Dh), its window and score
+# softcap; minicpm3's MLA shape (H, R, Dr), its reduced config's, and the
+# absorbed scores' 1/sqrt(qk_nope + qk_rope)
+GEMMA2_SHAPE = (16, 2, 128)
+GEMMA2_WINDOW = 4096
+GEMMA2_SOFTCAP = 50.0
+MLA_SHAPE = (40, 256, 32)
+MLA_REDUCED = (4, 32, 16)
+MLA_SCALE = 1.0 / math.sqrt(96)
+# gemma2's kv_quant steps (phase 6): a wave of GEMMA2_STEPS timed steps
+# after one untimed, for 4 rows from these contexts, on int8 and bf16
+GEMMA2_STEPS = 32
+GEMMA2_LENGTHS = [95, 64, 7, 0]
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -1021,6 +1062,428 @@ def g48_timing(fd, ref, smi: str) -> dict:
     return t
 
 
+# -- gemma2 and minicpm3: kernel 4 softcapped, over a ring and over int8
+#    K/V, and the MLA decode kernel ---------------------------------------------
+
+
+def quant_case(case):
+    """``case`` (q, k, v, pos) with k and v quantized as the reference's
+    ``quantize_heads`` does: (q, k int8, v int8, k_scale, v_scale, pos)."""
+    from repro_torch.models.attention import quantize_heads
+    q, k, v, pos = case
+    kq, ks = quantize_heads(k)
+    vq, vs = quantize_heads(v)
+    return q, kq, vq, ks, vs, pos
+
+
+def quant_work(qcase, window=0):
+    """(bytes, fp32 flops, bf16 flops) of the int8 kernel on ``qcase``:
+    each live K/V row at a byte an element and its two bf16 scales, q and
+    pos read once, the fp32 output written once; the products as over a
+    bf16 cache (the rows are bf16 values once dequantized)."""
+    q, kq, _, _, _, pos = qcase
+    B, KVH, G, Dh = q.shape
+    S = kq.shape[1]
+    live = sum(max(0, min(p + 1, S) - (max(0, p + 1 - window) if window > 0
+                                       else 0)) for p in pos.tolist())
+    nbytes = (2 * live * KVH * (Dh + 2) + q.numel() * q.element_size()
+              + pos.numel() * 4 + q.numel() * 4)
+    return (nbytes, *attn_flops(q, torch.empty(0, dtype=torch.bfloat16),
+                                live * KVH))
+
+
+def check_quant(fd, ref, qcase, window, cap, label):
+    before = fd.flash_decode_quant.launches
+    out = fd.flash_decode_quant(*qcase, window=window, softcap=cap)
+    want = ref.flash_decode_quant_ref(*qcase, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    if fd.flash_decode_quant.launches != before + 1:
+        fail(f"flash_decode_quant {label}: "
+             f"{fd.flash_decode_quant.launches - before} grid launches, want 1")
+    err = (out - want).abs().max().item()
+    try:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    except AssertionError as e:
+        fail(f"flash_decode_quant {label}: {e}")
+    q, kq, _, _, _, pos = qcase
+    phase("check", f"flash_decode_quant {label}: q {tuple(q.shape)} {q.dtype}, "
+          f"int8 k/v {tuple(kq.shape)}, pos {pos.tolist()} window={window} "
+          f"softcap={cap} max_abs_err={err:.3e} (atol=rtol=2e-3)")
+    return err
+
+
+def check_softcap(fd, ref, case, window, label, cap=GEMMA2_SOFTCAP):
+    before = fd.flash_decode.launches
+    out = fd.flash_decode(*case, window=window, softcap=cap)
+    want = ref.flash_decode_ref(*case, window, cap)
+    torch.cuda.synchronize()
+    if fd.flash_decode.launches != before + 1:
+        fail(f"flash_decode softcap {label}: "
+             f"{fd.flash_decode.launches - before} grid launches, want 1")
+    err = (out - want).abs().max().item()
+    try:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    except AssertionError as e:
+        fail(f"flash_decode softcap {label}: {e}")
+    q, k, _, pos = case
+    phase("check", f"flash_decode softcap={cap} {label}: q {tuple(q.shape)} "
+          f"{q.dtype}, k/v {tuple(k.shape)} {k.dtype}, pos {pos.tolist()} "
+          f"window={window} max_abs_err={err:.3e} (atol=rtol=2e-3)")
+    return err
+
+
+def ring_case(pos, W, seed, dtype=torch.bfloat16):
+    """gemma2's local layer: q and a ring of W slots [B, W, KVH, Dh] as
+    decode leaves it (slot p % W holds the newest position of that
+    residue), with the full cache it was cut from; (full case, ring
+    case) for flash_decode with window W and over the ring at min(pos,
+    W - 1) with no window."""
+    KVH, G, Dh = GEMMA2_SHAPE
+    S = max(pos) + 1
+    q, k, v, p = dense_case(len(pos), S, KVH, G, Dh, pos, seed, dtype)
+    ring_k = torch.zeros((len(pos), W, KVH, Dh), dtype=dtype, device="cuda")
+    ring_v = torch.zeros_like(ring_k)
+    for b, pb in enumerate(pos):
+        t = torch.arange(max(0, pb - W + 1), pb + 1, device="cuda")
+        ring_k[b, t % W], ring_v[b, t % W] = k[b, t], v[b, t]
+    return (q, k, v, p), (q, ring_k, ring_v, torch.clamp(p, max=W - 1))
+
+
+def check_ring(fd, ref, pos, seed, dtype, label):
+    """The ring through kernel 4 against the plain version over the full
+    cache with window W (softcap 50): the positions the ring holds."""
+    W = GEMMA2_WINDOW
+    full, ring = ring_case(pos, W, seed, dtype)
+    out = fd.flash_decode(*ring, softcap=GEMMA2_SOFTCAP)
+    want = ref.flash_decode_ref(*full, W, GEMMA2_SOFTCAP)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    try:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    except AssertionError as e:
+        fail(f"ring {label}: {e}")
+    phase("check", f"flash_decode over a ring of {W} slots {label}: pos "
+          f"{pos} (attends at {ring[3].tolist()}), {dtype}, against the full "
+          f"cache with window {W}: max_abs_err={err:.3e} (atol=rtol=2e-3)")
+    return err
+
+
+def mla_case(B, S, H, R, Dr, pos, seed, dtype=torch.bfloat16):
+    """MLA decode inputs on the card: q_abs [B,H,R], q_pe [B,H,Dr] fp32,
+    the latent cache ckv [B,S,R], kpe [B,S,Dr] in ``dtype``, pos [B]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q_abs = torch.randn((B, H, R), generator=g, device="cuda")
+    q_pe = torch.randn((B, H, Dr), generator=g, device="cuda")
+    ckv = torch.randn((B, S, R), generator=g, device="cuda").to(dtype)
+    kpe = torch.randn((B, S, Dr), generator=g, device="cuda").to(dtype)
+    return q_abs, q_pe, ckv, kpe, torch.tensor(pos, dtype=torch.int32,
+                                                device="cuda")
+
+
+def mla_work(case):
+    """(bytes, fp32 flops, 0): each live latent row (ckv and kpe) read
+    once, the queries and pos read once, the fp32 latent written once;
+    scores 2 H (R + Dr) and P . ckv 2 H R flops a live row, fp32."""
+    q_abs, q_pe, ckv, kpe, pos = case
+    B, H, R = q_abs.shape
+    S, Dr = ckv.shape[1], kpe.shape[2]
+    live = sum(min(p + 1, S) for p in pos.tolist())
+    nbytes = (live * (R + Dr) * ckv.element_size() + q_abs.numel() * 4
+              + q_pe.numel() * 4 + pos.numel() * 4 + q_abs.numel() * 4)
+    return nbytes, 2 * H * live * (2 * R + Dr), 0.0
+
+
+def check_mla(mla, ref, case, label):
+    before = mla.mla_decode.launches
+    out = mla.mla_decode(*case, MLA_SCALE)
+    want = ref.mla_decode_ref(*case, MLA_SCALE)
+    torch.cuda.synchronize()
+    if mla.mla_decode.launches != before + 1:
+        fail(f"mla_decode {label}: {mla.mla_decode.launches - before} grid "
+             "launches, want 1")
+    err = (out - want).abs().max().item()
+    try:
+        torch.testing.assert_close(out, want, atol=2e-3, rtol=2e-3)
+    except AssertionError as e:
+        fail(f"mla_decode {label}: {e}")
+    q_abs, _, ckv, kpe, pos = case
+    phase("check", f"mla_decode {label}: q_abs {tuple(q_abs.shape)}, ckv "
+          f"{tuple(ckv.shape)} kpe {tuple(kpe.shape)} {ckv.dtype}, pos "
+          f"{pos.tolist()} max_abs_err={err:.3e} (atol=rtol=2e-3)")
+    return err
+
+
+def gemma2_mla_checks(fd, mla, ref) -> tuple:
+    """Phase 3's checks of this slice's kernels, each against its plain
+    version on the card, bf16 and fp32 caches: kernel 4 softcapped (50)
+    at gemma2's global shape (KVH 16, G 2, Dh 128) at the serve and long
+    lengths and past G = 8 in tiles; the ring of W = 4096 through kernel
+    4 below W - 1, at it and wrapped past 2W; the int8 variant at
+    gemma2's shape (a row at pos 0; bf16 and fp32 q; the reduced
+    config's Dh = 32, int8 rows of 32 bytes; a window past G = 8); the
+    MLA kernel at minicpm3's (H 40, R 256, Dr 32) and the reduced (H 4,
+    R 32, Dr 16) shapes at the serve and long lengths with pos 0.
+    Returns the largest error of (softcapped and ring, int8, MLA)."""
+    KVH, G, Dh = GEMMA2_SHAPE
+    cap, quant, mla_errs = [], [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        cap += [
+            check_softcap(fd, ref, dense_case(4, 128, KVH, G, Dh, RAGGED_POS,
+                                              seed=140, dtype=dtype), 0,
+                          f"gemma2 {tag} serve, ragged"),
+            check_softcap(fd, ref, dense_case(4, 8192, KVH, G, Dh, LONG_POS,
+                                              seed=141, dtype=dtype), 0,
+                          f"gemma2 {tag} long context"),
+            check_softcap(fd, ref, dense_case(3, 300, 2, 12, 64, [299, 100, 0],
+                                              seed=142, dtype=dtype), 40,
+                          f"{tag} G=12 (tiles), window 40")]
+        cap += [check_ring(fd, ref, pos, 143 + i, dtype, f"{tag}, {label}")
+                for i, (pos, label) in enumerate((
+                    ([100, 3000, 4094, 0], "below W - 1"),
+                    ([4095, 4095, 4095, 4095], "at W - 1"),
+                    ([9000, 8192, 8500, 4096], "wrapped past 2W")))]
+        for qd in ((torch.bfloat16, torch.float32) if dtype == torch.float32
+                   else (torch.bfloat16,)):
+            qtag = f"q {'bf16' if qd == torch.bfloat16 else 'fp32'}"
+            quant += [
+                check_quant(fd, ref, quant_case(dense_case(
+                    4, 128, KVH, G, Dh, [127, 96, 40, 0], seed=150, dtype=dtype,
+                    q_dtype=qd)), 0, GEMMA2_SOFTCAP, f"gemma2 serve, {qtag}"),
+                check_quant(fd, ref, quant_case(dense_case(
+                    4, 8192, KVH, G, Dh, [8191, 6143, 4999, 0], seed=151,
+                    dtype=dtype, q_dtype=qd)), 0, GEMMA2_SOFTCAP,
+                    f"gemma2 long context, {qtag}")]
+        quant += [
+            check_quant(fd, ref, quant_case(dense_case(
+                3, 100, 4, 1, 32, [99, 3, 0], seed=152, dtype=dtype)), 0,
+                GEMMA2_SOFTCAP, f"reduced gemma2 Dh=32, {tag}"),
+            check_quant(fd, ref, quant_case(dense_case(
+                3, 300, 2, 12, 64, [299, 100, 5], seed=153, dtype=dtype)), 20,
+                0.0, f"G=12, window 20, no softcap, {tag}")]
+        for (H, R, Dr), name in ((MLA_SHAPE, "minicpm3"), (MLA_REDUCED, "reduced")):
+            mla_errs += [
+                check_mla(mla, ref, mla_case(4, 128, H, R, Dr, [127, 96, 40, 0],
+                                             seed=160, dtype=dtype),
+                          f"{name} {tag} serve"),
+                check_mla(mla, ref, mla_case(4, 8192, H, R, Dr,
+                                             [8191, 6143, 4999, 0], seed=161,
+                                             dtype=dtype),
+                          f"{name} {tag} long context")]
+    torch.cuda.empty_cache()
+    return max(cap), max(quant), max(mla_errs)
+
+
+def check_dense_family(ttf, get_arch, arch, kv_quant=False) -> None:
+    """The reduced ``arch`` (gemma2: 4 layers, window 8; minicpm3: MLA),
+    fp32, 12 ``serve_step`` steps on the card against the CPU: the
+    logits within 2e-3 every step (gemma2's rings wrap)."""
+    cfg = get_arch(arch).reduced()
+    model = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                            dtype=torch.float32)
+    card = ttf.Transformer(cfg, {n: p.detach().cuda()
+                                 for n, p in model.named_parameters()})
+    B, S = 3, 16
+    cc = ttf.init_cache(cfg, B, S, torch.float32, device="cpu", kv_quant=kv_quant)
+    gcache = {n: t.cuda() for n, t in cc.items()}
+    g = torch.Generator().manual_seed(2)
+    pos = torch.tensor([0, 2, 3], dtype=torch.int32)
+    err = 0.0
+    for _ in range(12):
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=g,
+                            dtype=torch.int32)
+        want, cc = ttf.serve_step(model, cc, {"token": tok, "pos": pos},
+                                  kv_quant=kv_quant)
+        got, gcache = ttf.serve_step(card, gcache, {"token": tok.cuda(),
+                                                    "pos": pos.cuda()},
+                                     kv_quant=kv_quant)
+        torch.cuda.synchronize()
+        try:
+            torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+        except AssertionError as e:
+            fail(f"serve_step (reduced {arch}, kv_quant={kv_quant}) card vs "
+                 f"CPU: {e}")
+        err = max(err, (got.cpu() - want).abs().max().item())
+        pos = pos + 1
+    phase("check", f"serve_step (reduced {cfg.name}, fp32, kv_quant="
+          f"{kv_quant}) card vs CPU, 12 steps: logits max_abs_err={err:.3e} "
+          "(atol=rtol=2e-3)")
+
+
+def gemma2_mla_timing(fd, mla, ref, smi: str) -> dict:
+    """Phase 7's timing of this slice's kernels, at B = 4 with every
+    position live: kernel 4 softcapped at gemma2's global shape (S 128
+    and 8192), the int8 variant there, the ring of W = 4096 (kernel 4 at
+    S 4096), and the MLA kernel at minicpm3's shape (S 128 and 8192):
+    the three times of ``three_times``, the bound, the plain version's
+    event mean and the library call where one PyTorch call computes the
+    function (SDPA for MLA; none takes a softcap or int8 rows).  Returns
+    {name: {shape: numbers}}."""
+    import torch.nn.functional as F
+    KVH, G, Dh = GEMMA2_SHAPE
+    t = {"flash_decode_softcap": {}, "flash_decode_quant": {},
+         "flash_decode_ring": {}, "mla_decode": {}}
+    for shape, S, iters in (("serve", 128, 200), ("long", 8192, 100)):
+        pos = [S - 1] * 4
+        case = dense_case(4, S, KVH, G, Dh, pos, seed=170)
+        r = three_times(lambda: fd.flash_decode(*case, softcap=GEMMA2_SOFTCAP),
+                        fd.flash_decode, iters)
+        r["bound_ms"], r["bound_by"] = bound(*dense_work(case, 0))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(
+            *case, 0, GEMMA2_SOFTCAP), max(iters // 10, 5))
+        r["library_ms"], r["pos"] = None, pos
+        t["flash_decode_softcap"][shape] = r
+        phase("time", f"flash_decode softcap=50 gemma2 {shape} (KVH 16, G 2, "
+              f"Dh 128, S={S}, all live): " + describe(r)
+              + f", library none (SDPA takes no softcap) on {smi}")
+        qcase = quant_case(case)
+        r = three_times(lambda: fd.flash_decode_quant(
+            *qcase, softcap=GEMMA2_SOFTCAP), fd.flash_decode_quant, iters)
+        r["bound_ms"], r["bound_by"] = bound(*quant_work(qcase))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_quant_ref(
+            *qcase, softcap=GEMMA2_SOFTCAP), max(iters // 10, 5))
+        r["library_ms"], r["pos"] = None, pos
+        r["bf16_over_int8"] = t["flash_decode_softcap"][shape]["device_ms"] / r["device_ms"]
+        t["flash_decode_quant"][shape] = r
+        phase("time", f"flash_decode_quant gemma2 {shape} (int8 K/V, S={S}, "
+              "all live, softcap 50): " + describe(r)
+              + f"; the bf16 cache's device time {r['bf16_over_int8']:.2f}x; "
+              f"library none (no call dequantizes rows) on {smi}")
+        del case, qcase
+        mcase = mla_case(4, S, *MLA_SHAPE, pos, seed=171)
+        r = three_times(lambda: mla.mla_decode(*mcase, MLA_SCALE),
+                        mla.mla_decode, iters)
+        r["bound_ms"], r["bound_by"] = bound(*mla_work(mcase))
+        r["plain_ms"] = time_ms(lambda: ref.mla_decode_ref(*mcase, MLA_SCALE),
+                                max(iters // 10, 5))
+        q_abs, q_pe, ckv, kpe, p = mcase
+        H = q_abs.shape[1]
+        qs = torch.cat([q_abs, q_pe], -1)[:, :, None]            # [B, H, 1, R+Dr]
+        ks = torch.cat([ckv, kpe], -1).float()[:, None]          # [B, 1, S, R+Dr]
+        vs = ckv.float()[:, None]
+        mask = (torch.arange(S, device="cuda")[None, :] <= p[:, None])[:, None, None]
+        lib = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
+        try:
+            r["library_ms"] = time_ms(lib, iters)
+            want = ref.mla_decode_ref(*mcase, MLA_SCALE)
+            r["library_err"] = (lib()[:, :, 0] - want).abs().max().item()
+            libtxt = (f"sdpa (fp32, one kv head broadcast over {H}) "
+                      f"{r['library_ms']:.4f} ms, max_abs_err "
+                      f"{r['library_err']:.2e}")
+        except RuntimeError as e:
+            r["library_ms"], r["library_none"] = None, str(e).splitlines()[0]
+            libtxt = f"library none (sdpa refused: {r['library_none']})"
+        r["pos"] = pos
+        t["mla_decode"][shape] = r
+        phase("time", f"mla_decode minicpm3 {shape} (H 40, R 256, Dr 32, S={S}, "
+              "bf16 cache, all live): " + describe(r) + f", {libtxt} on {smi}")
+        del mcase, qs, ks, vs, mask, lib
+    W = GEMMA2_WINDOW
+    _, ring = ring_case([W + 100] * 4, W, seed=172)
+    r = three_times(lambda: fd.flash_decode(*ring, softcap=GEMMA2_SOFTCAP),
+                    fd.flash_decode, 100)
+    r["bound_ms"], r["bound_by"] = bound(*dense_work(ring, 0))
+    r["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*ring, 0, GEMMA2_SOFTCAP), 10)
+    r["library_ms"] = None
+    t["flash_decode_ring"]["long"] = r
+    phase("time", f"flash_decode over gemma2's ring (W={W}, full, softcap 50): "
+          + describe(r) + f", library none (SDPA takes no softcap) on {smi}")
+    del ring
+    torch.cuda.empty_cache()
+    return t
+
+
+def gemma2_quant_steps(ttf, model, counted: dict, smi: str) -> dict:
+    """gemma2-27b at full width (the model phase 6 served): 1 +
+    GEMMA2_STEPS ``serve_step`` steps of a batch of 4 over an int8 split
+    cache (``kv_quant=True``: the 23 global layers' K/V int8 with bf16
+    scales, the 23 local rings bf16), then the same steps, the same
+    tokens, over a bf16 cache holding the same contexts (random K/V, the
+    int8 cache its ``quantize_heads``), and over a bf16 cache holding
+    the int8 contexts dequantized (``dequantize_heads``), rows from
+    GEMMA2_LENGTHS in a 128-position bucket; ms/step over the last
+    GEMMA2_STEPS of each (no profiler runs here: a profiled session
+    before the serves after it may slow their host side).  Fails
+    unless the logits are finite, the int8 run launches
+    flash_decode_quant and flash_decode 23 grids a step each and each
+    bf16 run flash_decode 46, and nothing else.  Prints the logits'
+    largest difference relative to their scale between the runs.
+    Returns the runs' launches and numbers."""
+    from repro_torch.models.attention import dequantize_heads, quantize_heads
+    cfg = model.cfg
+    B, S = len(GEMMA2_LENGTHS), 128
+    steps = 1 + GEMMA2_STEPS
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (steps, B), device="cuda",
+                         generator=g, dtype=torch.int32)
+    bf16 = ttf.init_cache(cfg, B, S, torch.bfloat16, device="cuda")
+    for t in bf16.values():
+        t.normal_(generator=g)
+    i8 = ttf.init_cache(cfg, B, S, torch.bfloat16, device="cuda", kv_quant=True)
+    deq = {name: t.clone() for name, t in bf16.items()}
+    for name in ("k_local", "v_local"):
+        i8[name].copy_(bf16[name])
+    for name in ("k_global", "v_global"):
+        i8[name], i8[name + "_scale"] = quantize_heads(bf16[name])
+        deq[name] = dequantize_heads(i8[name], i8[name + "_scale"])
+    half = cfg.num_layers // 2
+    out = {}
+    logits = {}
+    for run, cache, kvq in (("int8", i8, True), ("bf16", bf16, False),
+                            ("dequantized", deq, False)):
+        pos = torch.tensor(GEMMA2_LENGTHS, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        seen = []
+        for i in range(steps):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            lg, cache = ttf.serve_step(model, cache, {"token": toks[i], "pos": pos},
+                                       kv_quant=kvq)
+            seen.append(lg.float())
+            pos = pos + 1
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / GEMMA2_STEPS
+        launches = {name: fn.launches for name, fn in counted.items()}
+        want = ({"flash_decode_quant": steps * half, "flash_decode": steps * half}
+                if kvq else {"flash_decode": steps * cfg.num_layers})
+        if any(launches[n] != want.get(n, 0) for n in launches):
+            fail(f"gemma2 {run} cache steps launched {launches}, want {want}")
+        lg = torch.stack(seen)
+        if not torch.isfinite(lg).all():
+            fail(f"gemma2 {run} cache steps: logits not finite")
+        logits[run] = lg
+        out[run] = {"ms_per_step": ms, "launches": launches}
+        phase("serve", f"gemma2-27b {run} cache ({cfg.num_layers} layers, full "
+              f"width, kv_quant={kvq}): {steps} serve_step steps of batch {B} "
+              f"from contexts {GEMMA2_LENGTHS}, {ms:.2f} ms/step over the last "
+              f"{GEMMA2_STEPS}; launches {launches} on {smi}")
+        del cache
+    diff = {}
+    for a, b in (("int8", "bf16"), ("int8", "dequantized"),
+                 ("dequantized", "bf16")):
+        x, y = logits[a], logits[b]
+        rel = ((x - y).abs().amax(dim=(1, 2)) / y.abs().amax(dim=(1, 2))).tolist()
+        same = (x.argmax(-1) == y.argmax(-1)).float().mean().item()
+        diff[f"{a}_vs_{b}"] = {"max": max(rel), "step0": rel[0], "argmax_equal": same}
+        phase("serve", f"gemma2-27b kv_quant: logits of the {a} cache against "
+              f"the {b} cache's on the same tokens: largest difference "
+              f"{max(rel):.3e} of their scale (step 0 {rel[0]:.3e}), greedy "
+              f"tokens equal in {same:.1%} of {steps * B}")
+    out["logits"] = diff
+    out["logits_rel_diff"] = diff["int8_vs_bf16"]["max"]
+    out["argmax_equal"] = diff["int8_vs_bf16"]["argmax_equal"]
+    phase("serve", f"gemma2-27b kv_quant: int8 {out['int8']['ms_per_step']:.2f} "
+          f"against bf16 {out['bf16']['ms_per_step']:.2f} ms/step on {smi}")
+    del i8, bf16, deq, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- the MoE layer and the other families ---------------------------------------
 
 
@@ -1087,18 +1550,22 @@ def check_serve(path: str, summary: dict) -> None:
         fail(f"{path} serve: no round had device hits")
 
 
-def family_serves(serve, setup, counted: dict, smi: str) -> dict:
+def family_serves(serve, setup, counted: dict, smi: str, after=None) -> dict:
     """Phase 6's serves of the other families (FAMILY_SERVES) through the
     port's entry point, on ``setup``'s datastore and index: each model
     built (random bf16 weights from seed 0, at full width; a depth cut
     printed) after the one before is freed, then served fused with paged
-    decode (and granite-20b again with dense decode).  Each serve must
-    pass ``check_serve``, launch its decode kernel exactly one grid per
-    layer per step and ``probe_topk_fused``, and no kernel of another
-    path, and replay through the happens-before checker with 0
-    violations; it prints ms/step and tokens/s.  Frees the last model
-    and ``setup.model``.  Returns the launches by path."""
-    launches = {}
+    decode (and granite-20b again with dense decode; gemma2 and minicpm3
+    decode dense whatever the engine asks).  Each serve must pass
+    ``check_serve``, launch its decode kernel (flash_decode_paged,
+    flash_decode, or mla_decode for MLA) exactly one grid per layer per
+    step and ``probe_topk_fused``, and no kernel of another path, and
+    replay through the happens-before checker with 0 violations; it
+    prints ms/step and tokens/s.  ``after`` maps an arch to a function
+    of its model run after its serves, whose result is kept under the
+    arch's name.  Frees the last model and ``setup.model``.  Returns the
+    launches by path and those results."""
+    launches, extra = {}, {}
     setup.model = None
     for arch, layers, engines in FAMILY_SERVES:
         gc.collect()
@@ -1123,8 +1590,8 @@ def family_serves(serve, setup, counted: dict, smi: str) -> dict:
               f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB on the "
               f"card, built in {time.perf_counter() - t0:.1f} s")
         for engine in engines:
-            dense = engine.get("paged_decode") is False
-            path = arch + (" dense" if dense else "")
+            path = arch + (" dense" if engine.get("paged_decode") is False
+                           else "")
             for fn in counted.values():
                 fn.launches = 0
             summary = serve.serve(fam, **engine)
@@ -1132,10 +1599,10 @@ def family_serves(serve, setup, counted: dict, smi: str) -> dict:
             phase("serve", json.dumps({"path": path, **{k: summary[k] for k in
                                                         SERVE_FIELDS}}))
             check_serve(path, summary)
-            kernel = "flash_decode" if dense else "flash_decode_paged"
+            kernel = ("mla_decode" if cfg.attn_kind == "mla" else "flash_decode"
+                      if summary["decode"] == "dense" else "flash_decode_paged")
             check_decode_launches(path, kernel, fam, summary, launches[path])
-            other = ("flash_decode_paged" if dense else "flash_decode", "ivf_topk",
-                     "centroid_scores", "flash_decode_spliced")
+            other = [n for n in counted if n not in (kernel, "probe_topk_fused")]
             if launches[path]["probe_topk_fused"] < 1 or any(
                     launches[path][n] for n in other):
                 fail(f"the {path} serve launched {launches[path]}: want "
@@ -1148,11 +1615,13 @@ def family_serves(serve, setup, counted: dict, smi: str) -> dict:
                   f"tokens in {steps} steps, {cfg.num_layers} layers), wall "
                   f"{summary['wall_s']:.2f} s on {smi}")
             del summary
+        if after and arch in after:
+            extra[arch] = after[arch](fam.model)
         fam.model = None
         del fam
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, extra
 
 
 def musicgen_steps(ttf, get_arch, counted: dict, smi: str) -> dict:
@@ -1831,7 +2300,8 @@ def chunk_serve(serve, setup, fused: dict, counted: dict) -> dict:
             fail(f"chunk serve: {name} made {launches[name]} grid launches, "
                  f"want {n} ({layers} layers x 1 grid x its steps)")
     if launches["probe_topk_fused"] < 1 or any(
-            launches[n] for n in ("flash_decode", "ivf_topk", "centroid_scores")):
+            launches[n] for n in ("flash_decode", "ivf_topk", "centroid_scores",
+                                  "flash_decode_quant", "mla_decode")):
         fail(f"chunk serve launched the wrong kernels: {launches}")
     phase("check", f"chunk serve: flash_decode_spliced {want['flash_decode_spliced']}"
           f" = {sp_steps} steps x {layers} layers, flash_decode_paged "
@@ -2357,6 +2827,7 @@ def main() -> None:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import ivf_topk as it
+    from repro_torch.kernels import mla_decode as mla
     from repro_torch.kernels import probe_topk as pt
     from repro_torch.launch import serve
     from repro_torch.models import transformer as ttf
@@ -2465,8 +2936,16 @@ def main() -> None:
     err_dec, err_dense, err_spl = (max(err_dec, g_dec), max(err_dense, g_dense),
                                    max(err_spl, g_spl))
 
+    # this slice's kernels: kernel 4 softcapped and over a ring, its int8
+    # variant, the MLA kernel; then the reduced gemma2 and minicpm3 steps
+    err_cap, err_quant, err_mla = gemma2_mla_checks(fd, mla, ref)
+    err_dense = max(err_dense, err_cap)
+
     check_model(ttf, get_arch)
     check_moe_layer(get_arch)
+    for arch, kv_quant in (("gemma2-27b", False), ("gemma2-27b", True),
+                           ("minicpm3-4b", False)):
+        check_dense_family(ttf, get_arch, arch, kv_quant)
 
     # 5) timing of kernel 5, warm and cold (kernels 2 and 3 come after the serves)
     cent_t = centroid_timing(cp, ref, smi)
@@ -2482,7 +2961,9 @@ def main() -> None:
                "probe_topk_fused": pt.probe_topk_fused, "ivf_topk": it.ivf_topk,
                "flash_decode": fd.flash_decode,
                "centroid_scores": cp.centroid_scores,
-               "flash_decode_spliced": fd.flash_decode_spliced}
+               "flash_decode_spliced": fd.flash_decode_spliced,
+               "flash_decode_quant": fd.flash_decode_quant,
+               "mla_decode": mla.mla_decode}
     launches = {"check": {n: fn.launches for n, fn in counted.items()}}
     setup = serve.build(serve.parse_args(SERVE_ARGS))
     summaries = {}
@@ -2503,12 +2984,8 @@ def main() -> None:
     want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
             "unfused": ("flash_decode_paged", "ivf_topk"),
             "dense": ("flash_decode", "probe_topk_fused")}
-    never = {"fused": ("flash_decode", "ivf_topk", "centroid_scores",
-                       "flash_decode_spliced"),
-             "unfused": ("flash_decode", "probe_topk_fused", "centroid_scores",
-                         "flash_decode_spliced"),
-             "dense": ("flash_decode_paged", "ivf_topk", "centroid_scores",
-                       "flash_decode_spliced")}
+    never = {path: tuple(n for n in counted if n not in names)
+             for path, names in want.items()}
     for path, names in want.items():
         if min(launches[path][n] for n in names) < 1:
             fail(f"a kernel of the {path} path never launched: {launches[path]}")
@@ -2531,7 +3008,13 @@ def main() -> None:
           f"{alone['ivf_topk']:.4f} ms (device {alone['ivf_topk_device']:.4f}); "
           f"on {smi}")
     # the other families, Llama-3-8B's weights freed first
-    launches.update(family_serves(serve, setup, counted, smi))
+    fam_launches, fam_extra = family_serves(
+        serve, setup, counted, smi,
+        after={"gemma2-27b": lambda model: gemma2_quant_steps(ttf, model,
+                                                              counted, smi)})
+    launches.update(fam_launches)
+    quant = fam_extra["gemma2-27b"]
+    launches["gemma2 kv_quant"] = quant["int8"]["launches"]
     launches["musicgen"] = musicgen_steps(ttf, get_arch, counted, smi)
 
     # 7) the retrieval and decode kernels' three times, after the serves
@@ -2551,6 +3034,7 @@ def main() -> None:
     for aim, met, numbers in spliced_aims(spliced_t):
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
     g48_t = g48_timing(fd, ref, smi)
+    gm_t = gemma2_mla_timing(fd, mla, ref, smi)
     phase("aim", "each decode kernel at the serve shape: device time a call no "
           "higher than the parent's; kernels 1 and 4 unchanged; the spliced "
           "kernel faster than the parent's at the long context: judged by "
@@ -2594,7 +3078,9 @@ def main() -> None:
          "launches": launches["dense"]["flash_decode"],
          "launches_by_path": {p: c["flash_decode"] for p, c in launches.items()},
          "max_abs_err": err_dense, **decode_json(decode_t["flash_decode"]),
-         "granite20b": g48_t["flash_decode"]},
+         "granite20b": g48_t["flash_decode"],
+         "gemma2_softcap": gm_t["flash_decode_softcap"],
+         "gemma2_ring": gm_t["flash_decode_ring"]["long"]},
         {"name": "centroid_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/centroid_scores.cu",
          "replaces": "src/repro/kernels/centroid_probe.py:42",
@@ -2613,6 +3099,28 @@ def main() -> None:
                               for p, c in launches.items()},
          "max_abs_err": err_spl, **decode_json(spliced_t),
          "granite20b": g48_t["flash_decode_spliced"]},
+        {"name": "flash_decode_quant", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode_quant.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:88 over the int8 cache "
+                     "that src/repro/models/attention.py:124 (attn_decode_quant) "
+                     "dequantizes in jnp",
+         "launches": launches["gemma2 kv_quant"]["flash_decode_quant"],
+         "launches_by_path": {p: c.get("flash_decode_quant", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": err_quant, **gm_t["flash_decode_quant"]["serve"],
+         "long_context": gm_t["flash_decode_quant"]["long"],
+         "kv_quant_steps": {k: quant[k] for k in ("int8", "bf16", "dequantized",
+                                                  "logits")}},
+        {"name": "mla_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+         "replaces": "none: no TPU kernel; the reference attends over the "
+                     "latent cache in jnp (src/repro/models/mla.py:91, "
+                     "mla_decode)",
+         "launches": launches["minicpm3-4b"]["mla_decode"],
+         "launches_by_path": {p: c.get("mla_decode", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": err_mla, **gm_t["mla_decode"]["serve"],
+         "long_context": gm_t["mla_decode"]["long"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

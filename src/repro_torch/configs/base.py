@@ -261,8 +261,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     # import the ported arch modules for registration side effects (the
-    # window/softcap, MLA and SSM families wait for their slices)
+    # SSM families wait for their slice)
     from repro_torch.configs import (  # noqa: F401
-        granite_20b, nemotron4_15b, granite_moe_3b, arctic_480b,
-        internvl2_1b, musicgen_large, llama3_8b,
+        gemma2_27b, minicpm3_4b, granite_20b, nemotron4_15b, granite_moe_3b,
+        arctic_480b, internvl2_1b, musicgen_large, llama3_8b,
     )

@@ -30,7 +30,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 # every kernel source, csrc/<name>.cu
 SOURCES = ("flash_decode_paged", "probe_topk", "ivf_topk", "flash_decode",
-           "centroid_scores", "flash_decode_spliced")
+           "centroid_scores", "flash_decode_spliced", "flash_decode_quant",
+           "mla_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

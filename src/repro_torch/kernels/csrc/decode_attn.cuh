@@ -46,6 +46,19 @@
 // (b, kv-head)'s K/V rows once for its rows; the tiles' splits combine apart, each under its own counter, in
 // the scratch of the G rows.  Dh in {32, 64, 128}; K/V in bf16 or fp32;
 // rows 16-byte aligned.
+//
+// Two options, each a compile-time flag so that a kernel without it
+// compiles to the code it had before: kCap caps every scaled fp32 score
+// at a.cap * tanh(s / a.cap) before the mask and the running max (gemma2's
+// attention softcap); K/V of type int8_t (the dense kernel's quantized
+// cache) carry a bf16 scale per (position, kv-head) at a.k_scale /
+// a.v_scale, at the row's element offset over Dh.  An int8 row is staged
+// at one byte an element with the same 16-byte cp.async copies and
+// dequantized as it is read from shared memory: the fp32 product of the
+// value and its scale, rounded to bf16 (the reference's
+// dequantize_heads), then used as a bf16 row is.  The chunk's scales are
+// loaded into registers while the chunk before computes and land in
+// shared memory before the barrier that opens their chunk.
 
 #pragma once
 
@@ -53,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace decode_attn {
 
@@ -77,7 +92,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 16 bytes of a K/V row in shared memory as floats.
+// 16 bytes of a K/V row in shared memory as floats (8 int8 values: 8 bytes,
+// dequantized with their row's scale).
 __device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
   const float4 u = *reinterpret_cast<const float4*>(p);
   f[0] = u.x;
@@ -97,6 +113,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
+__device__ __forceinline__ float dequant(int x, float s) {
+  return __bfloat162float(__float2bfloat16_rn((float)x * s));
+}
+
+__device__ __forceinline__ void load16(const int8_t* p, float s, float (&f)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const unsigned w[2] = {u.x, u.y};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = dequant((int)(signed char)(w[i / 4] >> (8 * (i % 4))), s);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -108,30 +135,45 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// How a block of kThreads covers one chunk of K/V rows with 16-byte pieces.
+// How a block of kThreads covers one chunk of K/V rows: copied in 16-byte
+// pieces, read by each thread kVec elements at a time (16 bytes, or 8
+// int8 values, so an int8 row takes as many registers as a bf16 one).
 template <typename KT, int Dh>
 struct Tile {
-  static constexpr int kVec = 16 / sizeof(KT);       // elements per piece
+  static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  static constexpr int kVec = kQuant ? 8 : 16 / (int)sizeof(KT);   // elements a read
   static constexpr int kLanes = Dh / kVec;            // lanes per row (4..32)
   static constexpr int kSlots = kThreads / kLanes;    // rows read at once by the block
   static constexpr int kStage = kChunk * Dh;          // elements of one K or V chunk
-  static constexpr int kCopies = kChunk * kLanes / kThreads;   // pieces a thread copies
-  static_assert(Dh % kVec == 0 && 32 % kLanes == 0 && kChunk % kSlots == 0, "tile");
+  static constexpr int kCopyVec = 16 / (int)sizeof(KT);          // elements per piece
+  static constexpr int kCopyLanes = Dh / kCopyVec;               // pieces a row
+  static constexpr int kCopies = kChunk * kCopyLanes / kThreads;   // pieces a thread copies
+  static_assert(Dh % kCopyVec == 0 && 32 % kLanes == 0 && kChunk % kSlots == 0 &&
+                    kChunk * kCopyLanes % kThreads == 0,
+                "tile");
 };
 
 // Dynamic shared memory of one block: two stages of K and V chunks, the
-// chunk's scores [GM][kChunk], then m and l [GM] and a flag.  After the
-// loop the stages hold the accumulator's per-warp partials [kWarps][GM][Dh].
+// chunk's scores [GM][kChunk], then m and l [GM] and a flag; an int8
+// cache's two stages of K and V scales [2][2][kChunk] floats after them,
+// from splice_offset.  After the loop the stages hold the accumulator's
+// per-warp partials [kWarps][GM][Dh].
 template <typename KT, int Dh, int GM>
-__host__ __device__ constexpr int smem_bytes() {
+__host__ __device__ constexpr int base_bytes() {
   return 4 * Tile<KT, Dh>::kStage * (int)sizeof(KT) + (GM * kChunk + 2 * GM + 4) * 4;
 }
 
-// Where a splice policy's shared memory starts: after smem_bytes, on a
-// 16-byte boundary.
+// Where a splice policy's (or an int8 cache's scales') shared memory
+// starts: after base_bytes, on a 16-byte boundary.
 template <typename KT, int Dh, int GM>
 __host__ __device__ constexpr int splice_offset() {
-  return (smem_bytes<KT, Dh, GM>() + 15) & ~15;
+  return (base_bytes<KT, Dh, GM>() + 15) & ~15;
+}
+
+template <typename KT, int Dh, int GM>
+__host__ __device__ constexpr int smem_bytes() {
+  return Tile<KT, Dh>::kQuant ? splice_offset<KT, Dh, GM>() + 4 * kChunk * 4
+                              : base_bytes<KT, Dh, GM>();
 }
 
 struct Args {
@@ -148,6 +190,9 @@ struct Args {
   int split;          // positions per split, a multiple of kChunk
   int nsplit;
   float scale;
+  float cap;                // the score softcap of a kCap kernel
+  const void* k_scale;      // an int8 cache's bf16 scales [rows of K/V]
+  const void* v_scale;
 };
 
 // The block's kv-head: blockIdx.y over the ngt G tiles.
@@ -171,8 +216,8 @@ __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict
 #pragma unroll
   for (int i = 0; i < T::kCopies; ++i) {
     const int piece = threadIdx.x + i * kThreads;
-    const int j = piece / T::kLanes;
-    const int col = (piece % T::kLanes) * T::kVec;
+    const int j = piece / T::kCopyLanes;
+    const int col = (piece % T::kCopyLanes) * T::kCopyVec;
     if constexpr (Splice::kOn && kFirst) {
       long long off;
       if (j < n && pol.direct(c0 + j, off)) {
@@ -206,12 +251,13 @@ __device__ __forceinline__ void stage_chunk(KT* ks, KT* vs, const KT* __restrict
 // pass before the scores has each thread rotate, in shared memory, the
 // K row slices it then reads (pol.rotate), so the score loop itself is
 // the unspliced one with a liveness test.
-template <typename QT, typename KT, int Dh, int GM, typename RowFn,
+template <typename QT, typename KT, int Dh, int GM, bool kCap = false, typename RowFn,
           typename Splice = NoSplice>
 __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int hi,
                                              const RowFn& row, Splice pol = Splice()) {
   using T = Tile<KT, Dh>;
   constexpr int V = T::kVec;
+  constexpr bool kQuant = T::kQuant;
   const int sp = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -245,6 +291,24 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   const KT* k = static_cast<const KT*>(a.k);
   const KT* v = static_cast<const KT*>(a.v);
   const int nchunks = (s1 - s0 + kChunk - 1) / kChunk;
+  // an int8 cache's scales: thread tid fetches the K (tid < kChunk) or V
+  // scale of row tid % kChunk of a chunk into a register, then stores it
+  // into stage [c & 1] of qs [2][K, V][kChunk] (0 past the chunk's rows)
+  float* qs = reinterpret_cast<float*>(smem + splice_offset<KT, Dh, GM>());
+  float qnext = 0.f;
+  auto fetch_scale = [&](int c0, int n) {
+    if constexpr (kQuant) {
+      const int j = tid % kChunk;
+      const __nv_bfloat16* sp =
+          static_cast<const __nv_bfloat16*>(tid < kChunk ? a.k_scale : a.v_scale);
+      qnext = j < n ? __bfloat162float(sp[row(c0 + j) / Dh]) : 0.f;
+    }
+  };
+  auto store_scale = [&](int c) {
+    if constexpr (kQuant) qs[(c & 1) * 2 * kChunk + tid] = qnext;
+  };
+  fetch_scale(s0, min(kChunk, s1 - s0));
+  store_scale(0);
   if constexpr (Splice::kOn) {   // chunks 0 and 1's table entries in flight
     pol.bind(smem + splice_offset<KT, Dh, GM>());
     pol.fetch(0, s0, min(kChunk, s1 - s0));
@@ -290,7 +354,10 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       KT* nx = stages + ((c + 1) & 1) * 2 * T::kStage;
       stage_chunk<KT, Dh, false>(nx, nx + T::kStage, k, v, row, pol, c + 1, c0 + kChunk,
                                  min(kChunk, s1 - c0 - kChunk));
+      fetch_scale(c0 + kChunk, min(kChunk, s1 - c0 - kChunk));
     }
+    const float* ksc = qs + (c & 1) * 2 * kChunk;   // this chunk's K and V scales
+    const float* vsc = ksc + kChunk;
     if constexpr (Splice::kOn) {
       if (c + 1 < nchunks) pol.angles(c + 1, kThreads);
       pol.use(c);
@@ -314,7 +381,10 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     for (int it = 0; it < kChunk / T::kSlots; ++it) {
       const int j = slot + it * T::kSlots;
       float kf[V];
-      load16(ks + j * Dh + sub * V, kf);
+      if constexpr (kQuant)
+        load16(ks + j * Dh + sub * V, ksc[j], kf);
+      else
+        load16(ks + j * Dh + sub * V, kf);
       bool ok = j < n;
       if constexpr (Splice::kOn) ok = pol.live(j, ok);
       live_row[it] = ok;
@@ -333,7 +403,11 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       }
       if (sub == 0) {
 #pragma unroll
-        for (int g = 0; g < GM; ++g) sc[g * kChunk + j] = ok ? part[g] * a.scale : -INFINITY;
+        for (int g = 0; g < GM; ++g) {
+          float s = part[g] * a.scale;
+          if constexpr (kCap) s = a.cap * tanhf(s / a.cap);
+          sc[g * kChunk + j] = ok ? s : -INFINITY;
+        }
       }
     }
     __syncthreads();
@@ -366,7 +440,10 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       const int j = slot + it * T::kSlots;
       if (Splice::kOn ? live_row[it] : j < n) {
         float vf[V];
-        load16(vs + j * Dh + sub * V, vf);
+        if constexpr (kQuant)
+          load16(vs + j * Dh + sub * V, vsc[j], vf);
+        else
+          load16(vs + j * Dh + sub * V, vf);
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           const float p = expf(sc[g * kChunk + j] - m_run[g]);
@@ -379,6 +456,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       if (c + 2 < nchunks)
         pol.store(c + 2, c0 + 2 * kChunk, min(kChunk, s1 - c0 - 2 * kChunk), 1);
     }
+    if (c + 1 < nchunks) store_scale(c + 1);   // stage (c + 1) & 1 was chunk c - 1's
   }
 
   // sum the row slots: the warp's by shuffles, then the warps' in shared memory

@@ -33,76 +33,31 @@
 // count [B, KVH, ngt] int32 (ngt = ceil(G / 8) G tiles), zero before the
 // first launch (each launch leaves it zero).  Takes G = 1..64 (past 8 in
 // tiles of 8 query rows, a block each, decode_attn.cuh), Dh in {32, 64,
-// 128}, any S >= 1.
+// 128}, any S >= 1, and an optional score softcap (gemma2's 50; a
+// compile-time flag, so the uncapped kernels are the code they were).
+// The kernel and its launch ladder are in dense_decode.cuh, shared with
+// the int8 cache's flash_decode_quant.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "decode_attn.cuh"
-
-namespace {
-
-using namespace decode_attn;
-
-template <typename QT, typename KT, int Dh, int GM>
-__global__ void __launch_bounds__(kThreads)
-dense_kernel(Args a, const int* __restrict__ pos, int S, int KVH, int window) {
-  const int h = kv_head(a.ngt);
-  const int b = blockIdx.z;
-  const int p = pos[b];
-  const int hi = min(p + 1, S);
-  const int lo = window > 0 ? max(0, p + 1 - window) : 0;
-  const long long base = (long long)b * S * KVH * Dh + (long long)h * Dh;
-  const long long stride = (long long)KVH * Dh;
-  decode_block<QT, KT, Dh, GM>(a, b * KVH + h, lo, hi,
-                               [=](int t) { return base + t * stride; });
-}
-
-template <typename QT, typename KT, int Dh, int GM>
-int launch_g(const Args& a, dim3 grid, const int* pos, int S, int KVH, int window,
-             cudaStream_t stream) {
-  return launch_kernel<dense_kernel<QT, KT, Dh, GM>>(
-      smem_bytes<KT, Dh, GM>(), grid, stream, a, pos, S, KVH, window);
-}
-
-template <typename QT, typename KT, int Dh>
-int launch_dh(const Args& a, dim3 grid, const int* pos, int S, int KVH, int window,
-              cudaStream_t stream) {
-  if (a.G <= 1) return launch_g<QT, KT, Dh, 1>(a, grid, pos, S, KVH, window, stream);
-  if (a.G <= 2) return launch_g<QT, KT, Dh, 2>(a, grid, pos, S, KVH, window, stream);
-  if (a.G <= 4) return launch_g<QT, KT, Dh, 4>(a, grid, pos, S, KVH, window, stream);
-  return launch_g<QT, KT, Dh, kMaxG>(a, grid, pos, S, KVH, window, stream);
-}
-
-template <typename QT, typename KT>
-int launch(const Args& a, int Dh, dim3 grid, const int* pos, int S, int KVH, int window,
-           cudaStream_t stream) {
-  switch (Dh) {
-    case 32: return launch_dh<QT, KT, 32>(a, grid, pos, S, KVH, window, stream);
-    case 64: return launch_dh<QT, KT, 64>(a, grid, pos, S, KVH, window, stream);
-    case 128: return launch_dh<QT, KT, 128>(a, grid, pos, S, KVH, window, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "dense_decode.cuh"
 
 // One grid launch.  part_m / part_l hold B * KVH * nsplit * G floats and
 // part_acc that times Dh; none is read by a row with one live split.
-// Positions past S are never read: nsplit * split must cover S.
+// Positions past S are never read: nsplit * split must cover S.  softcap
+// > 0 caps each scaled score at softcap * tanh(s / softcap).
 extern "C" int flash_decode(const void* q, int q_bf16, const void* k, const void* v,
                             int kv_bf16, const int* pos, float* out, float* part_m,
                             float* part_l, float* part_acc, int* count, int B, int S,
                             int KVH, int G, int Dh, int window, int split, int nsplit,
-                            float scale, void* stream) {
-  const int ngt = (G + decode_attn::kMaxG - 1) / decode_attn::kMaxG;
-  if (G < 1 || G > decode_attn::kMaxRows || S < 1 || split < 1 ||
-      split % decode_attn::kChunk || nsplit < 1 || (long long)split * nsplit < S ||
-      KVH * ngt > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+                            float scale, float softcap, void* stream) {
+  using namespace dense_decode;
+  if (const int err = check(B, S, KVH, G, split, nsplit)) return err;
   if (B == 0 || KVH == 0) return 0;
-  const decode_attn::Args a{q, k, v, out, part_m, part_l, part_acc, count, G, ngt, split,
-                            nsplit, scale};
+  const int ngt = (G + kMaxG - 1) / kMaxG;
+  const Args a{q,     k,   v,      out,   part_m,  part_l, part_acc, count,  G,
+               ngt,   split, nsplit, scale, softcap, nullptr, nullptr};
   const dim3 grid(nsplit, KVH * ngt, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16 && kv_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, Dh, grid, pos, S, KVH,

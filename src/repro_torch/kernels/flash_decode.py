@@ -1,15 +1,17 @@
 """Single-token decode attention, dense, paged and spliced: the CUDA
 kernels' wrappers and their plain versions.
 
-``flash_decode`` (dense [B, S, KVH, Dh] cache, per-row ``pos``),
-``flash_decode_paged`` (block-table KV) and ``flash_decode_spliced``
+``flash_decode`` (dense [B, S, KVH, Dh] cache, per-row ``pos``, an
+optional sliding window and score softcap), ``flash_decode_quant`` (the
+same over an int8 cache with per-(position, kv-head) bf16 scales),
+``flash_decode_paged`` (block-table KV) and ``flash_decode_spliced
 (block-table KV with spliced chunk-KV pages: a RoPE offset and a
 live-token count per page) dispatch by the tensor's device alone: a CPU
-tensor runs ``flash_decode_ref`` / ``flash_decode_paged_ref`` /
-``flash_decode_spliced_ref``; a CUDA tensor launches
-``csrc/flash_decode.cu`` / ``csrc/flash_decode_paged.cu`` /
-``csrc/flash_decode_spliced.cu`` on the current stream (built on first
-use) or raises.  All three kernels split every sequence over positions
+tensor runs ``flash_decode_ref`` / ``flash_decode_quant_ref`` /
+``flash_decode_paged_ref`` / ``flash_decode_spliced_ref``; a CUDA tensor
+launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_quant.cu`` /
+``csrc/flash_decode_paged.cu`` / ``csrc/flash_decode_spliced.cu`` on the
+current stream (built on first use) or raises.  All four kernels split every sequence over positions
 (``_splits``: whole 64-position chunks, enough blocks for several per SM)
 and combine the splits inside the same launch, so each wrapper's
 ``launches`` counts one grid launch a call.  A kv-head's G query rows
@@ -28,12 +30,14 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (flash_decode_paged_ref, flash_decode_ref,
+from repro_torch.kernels.ref import (flash_decode_paged_ref,
+                                     flash_decode_quant_ref, flash_decode_ref,
                                      flash_decode_spliced_ref)
 from repro_torch.models.layers import rope_frequencies
 
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
            (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
+_QUANT_DTYPES = ((torch.bfloat16, torch.int8), (torch.float32, torch.int8))
 _CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
 _MAX_G = 8              # query rows a block holds (kMaxG)
 _MAX_ROWS = 64          # query rows a kv-head may have (kMaxRows)
@@ -44,7 +48,9 @@ _ARGTYPES = {
     "flash_decode_paged": [_P, _I, _P, _P, _I, _P, _P] + [_P] * 5 + [_I] * 9
                           + [ctypes.c_float, _P],
     "flash_decode": [_P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 8
-                    + [ctypes.c_float, _P],
+                    + [ctypes.c_float] * 2 + [_P],
+    "flash_decode_quant": [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 8
+                          + [ctypes.c_float] * 2 + [_P],
     "flash_decode_spliced": [_P, _I, _P, _P, _I] + [_P] * 10 + [_I] * 12
                             + [ctypes.c_float, _P],
 }
@@ -72,17 +78,19 @@ def _kernel(name: str):
 
 
 def _check_launch(q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
-                  **ints: torch.Tensor) -> None:
+                  pairs=_DTYPES, **ints: torch.Tensor) -> None:
     """What the CUDA kernels take: G in 1..64, Dh in (32, 64, 128), q/kv
-    bf16/bf16, fp32/bf16 or fp32/fp32, int32 index tensors, and every
+    dtypes among ``pairs`` (bf16/bf16, fp32/bf16 or fp32/fp32; the int8
+    kernel bf16/int8 or fp32/int8), int32 index tensors, and every
     tensor contiguous."""
     G, Dh = q.shape[2], q.shape[3]
     if not 1 <= G <= _MAX_ROWS or Dh not in (32, 64, 128):
         raise ValueError(f"kernel takes G in 1..{_MAX_ROWS} and Dh in (32, "
                          f"64, 128); got G={G}, Dh={Dh}")
-    if (q.dtype, kv.dtype) not in _DTYPES or v.dtype != kv.dtype:
+    if (q.dtype, kv.dtype) not in pairs or v.dtype != kv.dtype:
         raise ValueError(f"q {q.dtype}, k/v {kv.dtype}/{v.dtype}: kernel "
-                         "takes q/kv bf16/bf16, fp32/bf16 or fp32/fp32")
+                         "takes q/kv " + ", ".join(
+                             f"{a}/{b}" for a, b in pairs))
     if any(t.dtype != torch.int32 for t in ints.values()):
         raise ValueError(f"{' and '.join(ints)} must be int32")
     for name, t in (("q", q), ("k", kv), ("v", v), *ints.items()):
@@ -135,10 +143,10 @@ def _workspace(device: torch.device, stream: int, rows: int, floats: int
 
 
 def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
-            S: int, head: tuple, tail: tuple) -> torch.Tensor:
+            S: int, head: tuple, tail: tuple, floats: tuple = ()) -> torch.Tensor:
     """One grid launch of kernel ``name`` over S positions a row; ``head``
     are the arguments between k/v and the output, ``tail`` those between
-    the counters and (split, nsplit)."""
+    the counters and (split, nsplit), ``floats`` those after the scale."""
     B, KVH, G, Dh = q.shape
     rows = B * KVH
     blocks = rows * _tiles(G)           # (b, kv-head, G tile) blocks a split
@@ -155,7 +163,7 @@ def _launch(name: str, q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), int(q.dtype == torch.bfloat16), kv.data_ptr(),
         v.data_ptr(), int(kv.dtype == torch.bfloat16), *head, out.data_ptr(),
         pm, pm + 4 * n, pm + 8 * n, count.data_ptr(), *tail,
-        split, nsplit, 1.0 / math.sqrt(Dh), stream)
+        split, nsplit, 1.0 / math.sqrt(Dh), *floats, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
@@ -178,31 +186,72 @@ def _check_dense(q, k, v, pos) -> None:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+                 pos: torch.Tensor, *, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Decode attention over a dense cache.
 
     q [B, KVH, G, Dh]; k, v [B, S, KVH, Dh]; pos [B] int32, the new
     token's position (positions > pos are masked; ``window`` > 0 keeps
-    only the last ``window``).  Returns [B, KVH, G, Dh] fp32, equal to
-    ``flash_decode_ref`` within fp32 summation-order error.  On the card
-    it runs one grid launch, splits and their combine together;
+    only the last ``window``; ``softcap`` > 0 caps each scaled score at
+    ``softcap * tanh(s / softcap)``).  Returns [B, KVH, G, Dh] fp32,
+    equal to ``flash_decode_ref`` within fp32 summation-order error.  On
+    the card it runs one grid launch, splits and their combine together;
     ``flash_decode.launches`` counts it.
     """
     _check_dense(q, k, v, pos)
     if q.device.type == "cpu":
-        return flash_decode_ref(q, k, v, pos, window)
+        return flash_decode_ref(q, k, v, pos, window, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
     _check_launch(q, k, v, pos=pos)
     B, KVH, G, Dh = q.shape
     S = k.shape[1]
     out = _launch("flash_decode", q, k, v, S, (pos.data_ptr(),),
-                  (B, S, KVH, G, Dh, int(window)))
+                  (B, S, KVH, G, Dh, int(window)), (float(softcap),))
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor,
+                       pos: torch.Tensor, *, window: int = 0,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """``flash_decode`` over an int8 cache: k, v int8 [B, S, KVH, Dh] with
+    bf16 scales k_scale, v_scale [B, S, KVH], each row dequantized as the
+    reference's ``dequantize_heads`` does (fp32 product, rounded to
+    bf16).  The card reads the cache once at one byte an element and
+    dequantizes each row in the kernel.  Returns [B, KVH, G, Dh] fp32,
+    equal to ``flash_decode_quant_ref`` within fp32 summation-order
+    error; ``flash_decode_quant.launches`` counts its grid launches, one
+    a call."""
+    _check_dense(q, k, v, pos)
+    B, S, KVH, _ = k.shape
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device or t.shape != (B, S, KVH):
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device}: want "
+                             f"{(B, S, KVH)} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_decode_quant_ref(q, k, v, k_scale, v_scale, pos,
+                                      window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_quant runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_launch(q, k, v, _QUANT_DTYPES, pos=pos)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous bf16, got {t.dtype}")
+    G, Dh = q.shape[2:]
+    out = _launch("flash_decode_quant", q, k, v, S,
+                  (k_scale.data_ptr(), v_scale.data_ptr(), pos.data_ptr()),
+                  (B, S, KVH, G, Dh, int(window)), (float(softcap),))
+    flash_decode_quant.launches += 1
+    return out
+
+
+flash_decode_quant.launches = 0
 
 
 def _check_paged(q, k_pages, v_pages, block_table, lengths, **tables) -> None:

@@ -5,8 +5,9 @@ There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
 hand-written kernels or raise.  Launch counts live on the wrappers,
 and each adds to its count only where it launches on the card:
-``flash_decode.launches``, ``flash_decode_paged.launches``,
-``flash_decode_spliced.launches`` and ``centroid_scores.launches``
+``flash_decode.launches``, ``flash_decode_quant.launches``,
+``flash_decode_paged.launches``, ``flash_decode_spliced.launches``,
+``mla_decode.launches`` and ``centroid_scores.launches``
 count calls, each one grid launch (the decode kernels combine their
 splits inside it);
 ``probe_topk_fused.launches`` and
@@ -23,6 +24,7 @@ import torch
 from repro_torch.kernels import centroid_probe as _cprobe
 from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import ivf_topk as _ivf
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import probe_topk as _probe
 
 
@@ -66,10 +68,35 @@ def probe_and_topk(queries: torch.Tensor, centroids: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+                 pos: torch.Tensor, *, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
     """Decode attention [B,KVH,G,Dh] fp32 over dense KV [B,S,KVH,Dh] with
-    per-row positions ``pos`` [B] int32 (``window`` > 0: sliding)."""
-    return _flash.flash_decode(q, k, v, pos, window=window)
+    per-row positions ``pos`` [B] int32 (``window`` > 0: sliding;
+    ``softcap`` > 0: scores capped at ``softcap * tanh(s / softcap)``)."""
+    return _flash.flash_decode(q, k, v, pos, window=window, softcap=softcap)
+
+
+def flash_decode_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor,
+                       pos: torch.Tensor, *, window: int = 0,
+                       softcap: float = 0.0) -> torch.Tensor:
+    """``flash_decode`` over int8 KV [B,S,KVH,Dh] with bf16 scales
+    [B,S,KVH], each row dequantized as ``dequantize_heads`` does; the
+    reference dequantizes the whole cache in jnp instead (no Pallas
+    kernel), the port reads it once at a byte an element."""
+    return _flash.flash_decode_quant(q, k, v, k_scale, v_scale, pos,
+                                     window=window, softcap=softcap)
+
+
+def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+               kpe: torch.Tensor, pos: torch.Tensor, scale: float,
+               ) -> torch.Tensor:
+    """Absorbed MLA attention over the latent cache: the weighted latent
+    [B,H,R] fp32 of ``q_abs`` [B,H,R] and ``q_pe`` [B,H,Dr] against ckv
+    [B,S,R] and kpe [B,S,Dr] at positions <= ``pos``.  The reference
+    attends in jnp here (no Pallas kernel); the port's kernel reads each
+    latent row once for all heads."""
+    return _mla.mla_decode(q_abs, q_pe, ckv, kpe, pos, scale)
 
 
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,

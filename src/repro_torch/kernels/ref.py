@@ -75,16 +75,22 @@ def probe_and_topk_ref(queries: torch.Tensor, centroids: torch.Tensor,
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+                     pos: torch.Tensor, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
     """Single-token decode attention.
 
     q: [B, KVH, G, Dh]; k,v: [B, S, KVH, Dh]; pos: [B] (index of the new
-    token; positions > pos are masked). window > 0 = sliding window.
+    token; positions > pos are masked). window > 0 = sliding window;
+    softcap > 0 caps each scaled fp32 score at ``softcap * tanh(s /
+    softcap)`` before the mask and the max, as the reference's
+    ``_decode_attention`` does (``models/attention.py``).
     Returns [B, KVH, G, Dh] fp32.
     """
     B, S, KVH, Dh = k.shape
     scale = 1.0 / math.sqrt(Dh)
     s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
     kp = torch.arange(S, dtype=torch.int32, device=k.device)[None, None, None, :]
     qp = pos.to(torch.int32)[:, None, None, None]
     mask = kp <= qp
@@ -93,6 +99,45 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p, v.float())
+
+
+def dequantize_ref(x: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 values [..., Dh] times their scales [...]: the product in
+    fp32, as ``dtype`` (bf16 by default), as the reference's
+    ``dequantize_heads``."""
+    return (x.float() * scale.float()[..., None]).to(dtype)
+
+
+def flash_decode_quant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           k_scale: torch.Tensor, v_scale: torch.Tensor,
+                           pos: torch.Tensor, *, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """``flash_decode_ref`` over an int8 cache: k, v int8 [B, S, KVH, Dh]
+    with per-(token, head) bf16 scales [B, S, KVH], each row dequantized
+    by ``dequantize_ref`` first.  Returns [B, KVH, G, Dh] fp32."""
+    return flash_decode_ref(q, dequantize_ref(k, k_scale),
+                            dequantize_ref(v, v_scale), pos, window, softcap)
+
+
+def mla_decode_ref(q_abs: torch.Tensor, q_pe: torch.Tensor,
+                   ckv: torch.Tensor, kpe: torch.Tensor, pos: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Absorbed multi-head latent attention for one new token, all fp32,
+    as the reference's ``mla_decode`` computes it (``models/mla.py``):
+    scores ``(q_abs . ckv_t + q_pe . kpe_t) * scale`` over ``t <= pos``,
+    softmax, then the probabilities times the latent rows.
+
+    q_abs [B, H, R], q_pe [B, H, Dr]; ckv [B, S, R], kpe [B, S, Dr];
+    pos [B].  Returns the attention-weighted latent [B, H, R] fp32.
+    """
+    S = ckv.shape[1]
+    c = ckv.float()
+    s = (torch.einsum("bhr,btr->bht", q_abs.float(), c)
+         + torch.einsum("bhk,btk->bht", q_pe.float(), kpe.float())) * scale
+    t = torch.arange(S, device=ckv.device)[None, None, :]
+    s = s.masked_fill(t > pos.long()[:, None, None], float("-inf"))
+    return torch.einsum("bht,btr->bhr", torch.softmax(s, dim=-1), c)
 
 
 def flash_decode_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,

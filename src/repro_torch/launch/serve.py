@@ -29,10 +29,13 @@ group-granular discipline.  ``serve`` may run several times over one
         --requests 8 --batch 4 [--arch granite-moe-3b-a800m] [--layers N] \\
         [--dense-decode] [--trace-out trace.json]
 
-``--arch`` takes any registered config whose decode is the paged GQA
-path (the Llama-3 family, the MoE family, the plain-MLP and vision
-configs), at full width; ``--layers N`` cuts the depth and prints the
-cut.
+``--arch`` takes any registered config but musicgen's codebooks, at
+full width: the Llama-3 family, the MoE family, the plain-MLP and vision
+configs decode paged; gemma2-27b (local/global layers over a split
+cache) and minicpm3-4b (MLA's latent cache) always decode dense, since
+``DecodeRunner.attach`` ANDs the engine's ``paged_decode`` with
+``supports_paged_decode``, as the reference's.  ``--layers N`` cuts the
+depth and prints the cut.
 """
 
 from __future__ import annotations
@@ -97,7 +100,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama3-8b",
                     help="a registered config at its full width: llama3-8b, "
                          "granite-moe-3b-a800m, arctic-480b, granite-20b, "
-                         "nemotron-4-15b, internvl2-1b (musicgen-large "
+                         "nemotron-4-15b, internvl2-1b, gemma2-27b and "
+                         "minicpm3-4b (dense decode only; musicgen-large "
                          "decodes codebooks and is not served)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model's depth (width is never cut)")

@@ -1,17 +1,27 @@
 """Grouped-query attention, full-sequence (prefill) and for one new
-decode token over dense or paged KV: the counterpart of the reference's
-``models/attention.py`` for the plain global-causal GQA family
-(``transformer.check_supported``).
+decode token over dense, ring, int8 or paged KV: the counterpart of the
+reference's ``models/attention.py``.
 
 ``attn_forward`` projects a whole sequence, rotates q and k at their
-positions and attends causally with ``layers.chunked_attention``,
-returning the rotated K and V for the cache.  The decode forms project q/k/v from the layer input, rotate q and k at the new
+positions and attends causally (within a sliding ``window`` where one is
+given, scores softcapped at ``cfg.attn_logit_softcap``) with
+``layers.chunked_attention``, returning the rotated K and V for the
+cache.  The decode forms project q/k/v from the layer input, rotate q and k at the new
 token's position, write the new K/V into the cache in place before
 attending (so the token attends to itself), attend with a hand-written
 kernel and project back through ``wo``:
 
   * ``attn_decode``: dense cache [B, S, KVH, Dh], the token at ``pos``,
-    ``kernels.ops.flash_decode`` (the reference's ``attn_decode``);
+    ``kernels.ops.flash_decode`` (the reference's ``attn_decode``), an
+    optional sliding window, the config's score softcap;
+  * ``attn_decode_ring``: a ring of W slots [B, W, KVH, Dh] (gemma2's
+    local layers), the token at slot ``pos % W``; the ring holds exactly
+    the last W positions, so ``flash_decode`` over its first
+    ``min(pos, W - 1) + 1`` slots is the reference's ring mask (K is
+    rotated when written, and softmax does not depend on slot order);
+  * ``attn_decode_quant``: an int8 cache with per-(token, head) bf16
+    scales (``quantize_heads``), ``kernels.ops.flash_decode_quant``, which
+    dequantizes each row as ``dequantize_heads`` does;
   * ``attn_decode_paged``: block-table pages [NP, ps, KVH, Dh], the
     token at ``lengths``, ``kernels.ops.flash_decode_paged``;
   * ``attn_decode_spliced``: the same pages with spliced chunk-KV pages
@@ -21,29 +31,32 @@ kernel and project back through ``wo``:
 The caches are updated in place (the reference returns new ones).  The
 kernels compute both products in fp32 from fp32 q (the reference's
 ``_decode_attention`` casts the scaled q and the probabilities to the
-cache dtype first), so in bf16 the two agree within a tolerance only.
-Not ported, because no supported family needs them: sliding windows, int8 KV, the ring cache, MLA, logit softcap
-and sequence-parallel decode.
+cache dtype first, and its int8 path to bf16 whatever the model's
+dtype), so in bf16 the two agree within a tolerance only.  Not ported:
+sequence-parallel decode (``kv_seq_spec``), which needs a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
+# the reference's name for the plain dequantization the int8 kernel repeats
+from repro_torch.kernels.ref import dequantize_ref as dequantize_heads  # noqa: F401
 from repro_torch.models.layers import apply_rope, chunked_attention
 
 
 def attn_forward(layer: Dict[str, torch.Tensor], x: torch.Tensor,
                  cfg: ArchConfig, *, positions: torch.Tensor,
-                 attn_chunk: int = 1024,
+                 window: Optional[int] = None, attn_chunk: int = 1024,
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention (prefill).  x [B, S, d]; positions
-    [S] int32.  Returns (out [B, S, d], (k, v) [B, S, KVH, Dh] for the
-    cache, k rotated), as the reference's ``attn_forward``."""
+    [S] int32; ``window`` W > 0 attends to the last W positions only.
+    Returns (out [B, S, d], (k, v) [B, S, KVH, Dh] for the cache, k
+    rotated), as the reference's ``attn_forward``."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = torch.einsum("bsd,dhk->bshk", x, layer["wq"])
@@ -55,6 +68,7 @@ def attn_forward(layer: Dict[str, torch.Tensor], x: torch.Tensor,
                    theta=cfg.rope_theta)
     out = chunked_attention(q.reshape(B, S, KVH, H // KVH, Dh), k, v,
                             q_positions=positions, kv_positions=positions,
+                            window=window, softcap_val=cfg.attn_logit_softcap,
                             chunk=min(attn_chunk, S))
     out = out.reshape(B, S, H, Dh)
     return torch.einsum("bshk,hkd->bsd", out, layer["wo"]), (k, v)
@@ -86,20 +100,102 @@ def out_proj(layer: Dict[str, torch.Tensor], out: torch.Tensor,
                                                                   cfg.d_model)
 
 
+def _softcap(cfg: ArchConfig) -> float:
+    """The kernels' softcap argument: the config's, 0 for none."""
+    return float(cfg.attn_logit_softcap or 0.0)
+
+
 def attn_decode(layer: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ArchConfig, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 pos: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
-                ) -> torch.Tensor:
+                window: int = 0) -> torch.Tensor:
     """One-token decode over a dense cache.  x [B, d]; cache_k/v
     [B, S, KVH, Dh], updated in place at (``rows``, ``at``): arange(B)
     and ``pos`` [B] int32 clipped to the cache, as the reference's
     ``dynamic_update_slice`` clips (made once per step by the caller);
-    returns the attention output [B, d] in x's dtype."""
+    ``window`` W > 0 attends to the last W positions.  Returns the
+    attention output [B, d] in x's dtype."""
     q, k, v = project_qkv(layer, x, cfg, pos[:, None])
     cache_k[rows, at] = k.to(cache_k.dtype)
     cache_v[rows, at] = v.to(cache_v.dtype)
-    out = kernel_ops.flash_decode(q, cache_k, cache_v, pos)
+    out = kernel_ops.flash_decode(q, cache_k, cache_v, pos, window=window,
+                                  softcap=_softcap(cfg))
     return out_proj(layer, out, cfg, x.dtype)
+
+
+def quantize_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization over the head dim, as
+    the reference's: x [..., Dh] -> (int8 [..., Dh], bf16 scale [...]),
+    scale = max(|x|) / 127 (at least 1e-8) in fp32, values rounded half
+    to even and clipped to [-127, 127]."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def attn_decode_quant(layer: Dict[str, torch.Tensor], x: torch.Tensor,
+                      cfg: ArchConfig, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, k_scale: torch.Tensor,
+                      v_scale: torch.Tensor, pos: torch.Tensor,
+                      rows: torch.Tensor, at: torch.Tensor,
+                      window: int = 0) -> torch.Tensor:
+    """``attn_decode`` over an int8 cache: cache_k/v int8 [B, S, KVH, Dh]
+    and k_scale/v_scale bf16 [B, S, KVH], the new token's K/V quantized
+    (``quantize_heads``) and written in place at (``rows``, ``at``), then
+    ``kernels.ops.flash_decode_quant`` (each row dequantized to bf16
+    values, as the reference's ``attn_decode_quant`` dequantizes its
+    cache).  Returns [B, d] in x's dtype."""
+    q, k, v = project_qkv(layer, x, cfg, pos[:, None])
+    kq, ks = quantize_heads(k)
+    vq, vs = quantize_heads(v)
+    cache_k[rows, at] = kq
+    cache_v[rows, at] = vq
+    k_scale[rows, at] = ks
+    v_scale[rows, at] = vs
+    out = kernel_ops.flash_decode_quant(q, cache_k, cache_v, k_scale, v_scale,
+                                        pos, window=window,
+                                        softcap=_softcap(cfg))
+    return out_proj(layer, out, cfg, x.dtype)
+
+
+def attn_decode_ring(layer: Dict[str, torch.Tensor], x: torch.Tensor,
+                     cfg: ArchConfig, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     rows: torch.Tensor, slot: torch.Tensor,
+                     ring_pos: torch.Tensor) -> torch.Tensor:
+    """Sliding-window decode over a RING of W slots (gemma2's local
+    layers): cache_k/v [B, W, KVH, Dh], slot ``p % W`` holding the newest
+    token at that residue, i.e. exactly the last W positions.  The new
+    K/V (rotated at ``pos``) is written in place at (``rows``, ``slot``
+    = pos % W), then ``flash_decode`` attends over slots <= ``ring_pos``
+    = min(pos, W - 1) with no window: the reference's ring mask
+    ``pos - ((pos - s) mod W) >= 0`` is exactly ``s <= min(pos, W -
+    1)``, and softmax does not depend on the slots' order.  ``slot`` and
+    ``ring_pos`` [B] are made once per step by the caller.  Returns [B,
+    d] in x's dtype."""
+    q, k, v = project_qkv(layer, x, cfg, pos[:, None])
+    cache_k[rows, slot] = k.to(cache_k.dtype)
+    cache_v[rows, slot] = v.to(cache_v.dtype)
+    out = kernel_ops.flash_decode(q, cache_k, cache_v, ring_pos,
+                                  softcap=_softcap(cfg))
+    return out_proj(layer, out, cfg, x.dtype)
+
+
+def ring_from_full(k_full: torch.Tensor, window: int) -> torch.Tensor:
+    """Full-sequence K or V [..., S, KVH, Dh] (the sequence at dim -3) in
+    the ring layout [..., window, KVH, Dh] (the prefill -> decode
+    handoff): the last min(window, S) positions, position p at slot p %
+    window (zero slots past S when S < window), as the reference's
+    ``ring_from_full``."""
+    S = k_full.shape[-3]
+    W = min(window, S)
+    last = k_full[..., S - W:, :, :]
+    if W < window:
+        pad = torch.zeros(last.shape[:-3] + (window - W,) + last.shape[-2:],
+                          dtype=last.dtype, device=last.device)
+        return torch.cat([last, pad], dim=-3)
+    return torch.roll(last, shifts=(S - W) % W, dims=-3)
 
 
 def attn_decode_paged(layer: Dict[str, torch.Tensor], x: torch.Tensor,

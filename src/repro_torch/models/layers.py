@@ -3,9 +3,9 @@
 Numerics follow the reference's ``models/layers.py`` exactly: RMSNorm in
 fp32 with a ``(1 + scale)`` gain, rotary embedding over split halves with
 fp32 angles, the gated MLP as ``act(x @ w_gate) * (x @ w_up)``, the
-prefill's causal ``chunked_attention`` (fp32 scores, probabilities cast
-to the K/V dtype before P·V), and the token-mean ``cross_entropy_loss``
-in fp32.
+prefill's causal ``chunked_attention`` (fp32 scores, an optional sliding
+window and logit softcap, probabilities cast to the K/V dtype before
+P·V), and the token-mean ``cross_entropy_loss`` in fp32.
 """
 
 from __future__ import annotations
@@ -89,18 +89,22 @@ def largest_divisor(n: int, target: int) -> int:
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      window: Optional[int] = None,
+                      softcap_val: Optional[float] = None,
+                      kv_valid_len: Optional[torch.Tensor] = None,
                       chunk: int = 1024, q_chunk: int = 256) -> torch.Tensor:
     """Causal attention tiled over both the query and the KV dims, with an
-    online softmax: the reference's ``layers.chunked_attention`` for the
-    global-causal family (no window, no logit softcap, no valid-length
-    mask; Llama needs none of them).
+    online softmax: the reference's ``layers.chunked_attention``.
 
     q [B, Sq, KVH, G, Dh] (grouped query heads); k, v [B, Skv, KVH, Dh];
-    positions [Sq] and [Skv].  Live scores are [B, KVH, G, q_chunk,
-    kv_chunk], never Sq x Skv.  Rounding as the reference's: q scaled in
-    fp32, scores in fp32 against K in its own dtype's values, the
-    probabilities cast to the V dtype before P·V, fp32 accumulation.
-    Returns [B, Sq, KVH, G, Dh] in q's dtype.
+    positions [Sq] and [Skv].  ``window`` W > 0 keeps the keys with
+    ``qp - W < kp <= qp`` (gemma2's local layers; None or 0: global);
+    ``softcap_val`` caps each fp32 score at ``c * tanh(s / c)`` before
+    the mask; ``kv_valid_len`` [B] masks keys at positions >= it.  Live
+    scores are [B, KVH, G, q_chunk, kv_chunk], never Sq x Skv.  Rounding
+    as the reference's: q scaled in fp32, scores in fp32 against K in
+    its own dtype's values, the probabilities cast to the V dtype before
+    P·V, fp32 accumulation.  Returns [B, Sq, KVH, G, Dh] in q's dtype.
     """
     B, Sq, KVH, G, Dh = q.shape
     Skv = k.shape[1]
@@ -116,8 +120,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = torch.zeros((B, KVH, G, q_c, Dh), device=q.device)
         for k0 in range(0, Skv, kv_c):
             kc, vc = k[:, k0:k0 + kv_c], v[:, k0:k0 + kv_c]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc.float())
-            mask = kv_positions[k0:k0 + kv_c][None, :] <= qp   # [q_c, kv_c]
+            s = softcap(torch.einsum("bqhgd,bkhd->bhgqk", q32, kc.float()),
+                        softcap_val)
+            kp = kv_positions[k0:k0 + kv_c][None, :]
+            mask = kp <= qp                                  # [q_c, kv_c]
+            if window:
+                mask = mask & (kp > qp - window)
+            mask = mask[None, None, None]                    # [1,1,1,q_c,kv_c]
+            if kv_valid_len is not None:
+                mask = mask & (kp < kv_valid_len[:, None, None, None, None])
             s = s.masked_fill(~mask, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new,

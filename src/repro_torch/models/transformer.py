@@ -1,5 +1,6 @@
-"""Global-causal GQA decoders (the Llama-3 family, MoE, plain MLPs, a
-ViT or EnCodec front-end stub) as an ``nn.Module``.
+"""The attention decoders (the Llama-3 family, MoE, plain MLPs, a ViT or
+EnCodec front-end stub, gemma2's local/global layers with softcaps and
+tied embeddings, MLA) as an ``nn.Module``.
 
 Parameters are stacked along a leading layer dim, exactly like the
 reference's pytree (``layers.attn.wq`` [L, d, H, Dh], ...), so
@@ -14,14 +15,19 @@ slab and attends with the ``flash_decode_paged`` kernel;
 ``serve_step_paged_spliced`` does the same over a table that also holds
 spliced chunk-KV pages and attends with the ``flash_decode_spliced``
 kernel; ``serve_step`` writes it into a dense ``init_cache`` cache and
-attends with the ``flash_decode`` kernel.  The MLP is gated or plain
+attends with the ``flash_decode`` kernel: gemma2's split cache as local
+rings of W slots (even layers) and full global caches (odd layers),
+int8 K/V with per-(token, head) scales under ``kv_quant``
+(``flash_decode_quant``), MLA's latent cache through ``mla_decode``.
+Paged decode takes the global-causal GQA family only, as the
+reference's ``supports_paged_decode``.  The MLP is gated or plain
 (``mlp_gated``) or an MoE layer (``models/moe.py``); an EnCodec model
 (musicgen) sums its codebooks' embeddings and emits logits
 [..., codebooks, V].  Training runs through the same ``forward``
 (``remat`` recomputes groups of layers in backward) and ``loss_fn``; a
 model is trainable only after ``set_trainable()``, so serving stays
-gradient-free.  Sliding windows, attention softcaps, tied embeddings,
-MLA and the SSM families are not ported yet.
+gradient-free.  The SSM families (RWKV6, Mamba2/zamba2) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla
 from repro_torch.models import moe
 from repro_torch.models.layers import (largest_divisor, mlp_forward,
                                       rms_norm, softcap, token_nll)
@@ -54,17 +61,18 @@ _JAX_PATHS = {
     "w_down": ("layers", "mlp", "w_down"),
 }
 # the other families' parameters: the MoE router and dense residual, the
-# ViT stub's projection
+# ViT stub's projection, MLA's projections
 _FAMILY_PATHS = {
     "router": ("layers", "mlp", "router"),
     "dense_w_up": ("layers", "mlp", "dense", "w_up"),
     "dense_w_gate": ("layers", "mlp", "dense", "w_gate"),
     "dense_w_down": ("layers", "mlp", "dense", "w_down"),
     "vit_proj": ("vit_proj",),
+    **{name: ("layers", "attn", name) for name in mla.PARAMS},
 }
 _LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router",
                  "w_up", "w_gate", "w_down", "dense_w_up", "dense_w_gate",
-                 "dense_w_down")
+                 "dense_w_down") + mla.PARAMS
 
 
 def family_kind(cfg: ArchConfig) -> str:
@@ -84,17 +92,21 @@ def codebooks(cfg: ArchConfig) -> int:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a global-causal GQA decoder with separate
-    unembedding (what this module implements): gated or plain MLP or
-    MoE, any rotary fraction, a ViT or EnCodec front-end stub."""
-    ok = (cfg.attn_kind == "gqa" and cfg.ssm is None
-          and not cfg.shared_attn_every and not cfg.sliding_window
-          and not cfg.local_global_pattern
-          and cfg.attn_logit_softcap is None and not cfg.tie_embeddings)
+    """Raise unless ``cfg`` is an attention decoder this module
+    implements: GQA (any rotary fraction, a sliding window or gemma2's
+    local/global pattern, logit softcaps) or MLA, a gated or plain MLP
+    or MoE, separate or tied embeddings, a ViT or EnCodec front-end
+    stub.  The SSM families (``family_kind`` rwkv6, zamba2) are not
+    ported yet."""
+    ok = (family_kind(cfg) == "attn" and cfg.ssm is None
+          and (cfg.attn_kind == "gqa"
+               or (cfg.attn_kind == "mla" and cfg.mla is not None))
+          and not (cfg.local_global_pattern and cfg.sliding_window
+                   and cfg.num_layers % 2))
     if not ok:
-        raise ValueError(f"arch {cfg.name!r} is not a global-causal GQA "
-                         "decoder; window, softcap, tied-embedding, MLA and "
-                         "SSM families are not ported yet")
+        raise ValueError(f"arch {cfg.name!r} is not a ported attention "
+                         "decoder (GQA or MLA; local/global layers in "
+                         "pairs); the SSM families are not ported yet")
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -102,10 +114,16 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     d, L, V, F = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     nc = codebooks(cfg)
-    shapes = {"embed": (nc, V, d) if nc else (V, d),
-              "unembed": (nc, d, V) if nc else (d, V), "final_norm": (d,),
-              "attn_norm": (L, d), "wq": (L, d, H, Dh), "wk": (L, d, KVH, Dh),
-              "wv": (L, d, KVH, Dh), "wo": (L, H, Dh, d), "mlp_norm": (L, d)}
+    shapes = {"embed": (nc, V, d) if nc else (V, d)}
+    if nc or not cfg.tie_embeddings:
+        shapes["unembed"] = (nc, d, V) if nc else (d, V)
+    shapes.update({"final_norm": (d,), "attn_norm": (L, d)})
+    if cfg.attn_kind == "mla":
+        shapes.update({n: (L,) + sh for n, sh in mla.mla_param_shapes(cfg).items()})
+    else:
+        shapes.update({"wq": (L, d, H, Dh), "wk": (L, d, KVH, Dh),
+                       "wv": (L, d, KVH, Dh), "wo": (L, H, Dh, d)})
+    shapes["mlp_norm"] = (L, d)
     if cfg.moe is not None:
         E, Fe, Fd = (cfg.moe.num_experts, cfg.moe.d_ff_expert,
                      cfg.moe.dense_residual_d_ff)
@@ -230,25 +248,42 @@ def from_jax_params(np_tree: Mapping, cfg: ArchConfig,
     return Transformer(cfg, tensors)
 
 
+def layer_windows(cfg: ArchConfig) -> List[int]:
+    """Each layer's attention window (0 = global): gemma2 alternates a
+    local layer (even) with a global one (odd)."""
+    W, L = cfg.sliding_window or 0, cfg.num_layers
+    if cfg.local_global_pattern and W:
+        return [W if i % 2 == 0 else 0 for i in range(L)]
+    return [W] * L
+
+
 def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [...] (an audio model's [..., codebooks]) -> embeddings
     [..., d]; the codebooks' embeddings summed in order, as the
-    reference sums them."""
+    reference sums them; tied embeddings (gemma) scaled by sqrt(d) in
+    the embedding's dtype."""
+    cfg = model.cfg
     tokens = tokens.long()
-    nc = codebooks(model.cfg)
+    nc = codebooks(cfg)
     if not nc:
-        return model.embed[tokens]
-    x = model.embed[0][tokens[..., 0]]
-    for c in range(1, nc):
-        x = x + model.embed[c][tokens[..., c]]
+        x = model.embed[tokens]
+    else:
+        x = model.embed[0][tokens[..., 0]]
+        for c in range(1, nc):
+            x = x + model.embed[c][tokens[..., c]]
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     """x: [..., d] -> logits [..., V] (an audio model's [..., codebooks,
-    V])."""
+    V]); through the embedding when tied; capped at the config's final
+    logit softcap."""
     if codebooks(model.cfg):
         logits = torch.einsum("...d,cdv->...cv", x, model.unembed)
+    elif model.cfg.tie_embeddings:
+        logits = x @ model.embed.T
     else:
         logits = x @ model.unembed
     return softcap(logits, model.cfg.final_logit_softcap)
@@ -264,13 +299,19 @@ def _mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
 
 def _block(x: torch.Tensor, aux: torch.Tensor, lp: Dict[str, torch.Tensor],
            cfg: ArchConfig, positions: torch.Tensor, attn_chunk: int,
+           window: int = 0,
            ) -> Tuple[torch.Tensor, torch.Tensor,
                       Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder layer over a whole sequence: (x out, aux plus the
-    layer's MoE aux loss, (k, v))."""
-    a_out, kv = attn.attn_forward(
-        lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
-        positions=positions, attn_chunk=attn_chunk)
+    layer's MoE aux loss, the layer's cache pair: (k, v), or MLA's
+    (c_kv, k_pe))."""
+    a_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        a_out, kv = mla.mla_forward(lp, a_in, cfg, positions=positions,
+                                    attn_chunk=attn_chunk)
+    else:
+        a_out, kv = attn.attn_forward(lp, a_in, cfg, positions=positions,
+                                      window=window, attn_chunk=attn_chunk)
     x = x + a_out
     m_out, a = _mlp(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
     return x + m_out, aux if a is None else aux + a, kv
@@ -287,8 +328,10 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     projected through ``vit_proj`` as a prefix, at positions 0..P+S-1.
     Returns (hidden [B, P+S, d] after the final norm, the MoE aux loss
     summed over layers (0 without MoE), cache or None); ``want_cache``
-    gives {"k", "v"} [L, B, P+S, KVH, Dh], k rotated, in the model's
-    dtype, as the reference's ``forward`` lays out its attention cache.
+    gives {"k", "v"} [L, B, P+S, KVH, Dh], k rotated (MLA: {"ckv",
+    "kpe"} [L, B, P+S, R] and [L, B, P+S, Dr]), in the model's dtype, as
+    the reference's ``forward`` lays out its attention cache.  Each
+    layer attends within its ``layer_windows`` window.
 
     ``remat=True`` (without ``want_cache``, as the reference's grouped
     path) runs the layers in groups of ``remat_group`` (the largest
@@ -303,27 +346,29 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     layers = model.layers()
+    windows = layer_windows(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     if remat and not want_cache:
         g = largest_divisor(cfg.num_layers, remat_group)
 
-        def group(h, a, lps):
-            for lp in lps:
-                h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk)
+        def group(h, a, lps, wins):
+            for lp, w in zip(lps, wins):
+                h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk, w)
             return h, a
 
         for i in range(0, cfg.num_layers, g):
             x, aux = checkpoint(group, x, aux, layers[i:i + g],
-                                use_reentrant=False)
+                                windows[i:i + g], use_reentrant=False)
     else:
-        for lp in layers:
-            x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk)
+        for lp, w in zip(layers, windows):
+            x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk, w)
             if want_cache:
                 ks.append(k)
                 vs.append(v)
-    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache
-             else None)
+    names = ("ckv", "kpe") if cfg.attn_kind == "mla" else ("k", "v")
+    cache = ({names[0]: torch.stack(ks), names[1]: torch.stack(vs)}
+             if want_cache else None)
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
 
 
@@ -368,26 +413,72 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
     """Full-prompt forward of ``inputs["tokens"]`` [B, S] (after an
     ``inputs["image_embeds"]`` [B, P, e] prefix, where given): returns
     (last-token logits [B, V] (audio [B, codebooks, V]), cache {"k", "v"}
-    [L, B, P+S, KVH, Dh] at the prompt's length)."""
+    [L, B, P+S, KVH, Dh] at the prompt's length).  MLA's cache is
+    {"ckv", "kpe"}; gemma2's is split as the reference hands it to
+    decode: the local (even) layers' K/V as rings of W slots
+    (``ring_from_full``), "k_local"/"v_local" [L/2, B, W, KVH, Dh], the
+    global (odd) layers' whole, "k_global"/"v_global"."""
+    cfg = model.cfg
     x, _, cache = forward(model, inputs["tokens"],
                           image_embeds=inputs.get("image_embeds"),
                           attn_chunk=attn_chunk, want_cache=True)
+    if cfg.local_global_pattern and cfg.sliding_window:
+        W = cfg.sliding_window
+        cache = {"k_local": attn.ring_from_full(cache["k"][0::2], W),
+                 "v_local": attn.ring_from_full(cache["v"][0::2], W),
+                 "k_global": cache["k"][1::2], "v_global": cache["v"][1::2]}
     return unembed(model, x[:, -1, :]), cache
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                 dtype: torch.dtype = torch.bfloat16, kv_quant: bool = False,
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each tensor of ``init_cache``, key for key as
+    the reference's: MLA {"ckv" [L, B, S, R], "kpe" [L, B, S, Dr]};
+    gemma2's split cache {"k_local", "v_local" [L/2, B, W, KVH, Dh] with
+    W = min(window, max_len), "k_global", "v_global" [L/2, B, S, KVH,
+    Dh]}; else {"k", "v"} [L, B, S, KVH, Dh].  ``kv_quant`` stores the
+    full-length K/V int8 with bf16 scales [..., S, KVH] beside them
+    ("k_scale"/"v_scale", or "k_global_scale"/"v_global_scale"; the
+    local rings stay in ``dtype``)."""
+    check_supported(cfg)
+    L, B, S = cfg.num_layers, batch, max_len
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"ckv": ((L, B, S, m.kv_lora_rank), dtype),
+                "kpe": ((L, B, S, m.qk_rope_head_dim), dtype)}
+    KVH, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv_dt = torch.int8 if kv_quant else dtype
+    if cfg.local_global_pattern and cfg.sliding_window:
+        W, Lp = min(cfg.sliding_window, max_len), L // 2
+        out = {"k_local": ((Lp, B, W, KVH, Dh), dtype),
+               "v_local": ((Lp, B, W, KVH, Dh), dtype),
+               "k_global": ((Lp, B, S, KVH, Dh), kv_dt),
+               "v_global": ((Lp, B, S, KVH, Dh), kv_dt)}
+        scales = ("k_global_scale", "v_global_scale")
+        Ls = Lp
+    else:
+        out = {"k": ((L, B, S, KVH, Dh), kv_dt), "v": ((L, B, S, KVH, Dh), kv_dt)}
+        scales = ("k_scale", "v_scale")
+        Ls = L
+    if kv_quant:
+        out.update({name: ((Ls, B, S, KVH), torch.bfloat16) for name in scales})
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+               device: DeviceLike = "cuda",
+               kv_quant: bool = False) -> Dict[str, torch.Tensor]:
     """A zeroed dense decode cache for ``batch`` sequences of ``max_len``
-    tokens: {"k", "v"} [L, B, S, KVH, Dh] in ``dtype``, as the
-    reference's ``init_cache`` lays out the GQA attention family (every
-    family ported)."""
-    check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    tokens, laid out as the reference's ``init_cache`` (``cache_shapes``):
+    GQA {"k", "v"}, gemma2's local rings and global caches, MLA's
+    latent cache; ``kv_quant`` keeps the full-length K/V int8 with bf16
+    scales, as ``serve_step(kv_quant=True)`` reads them."""
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {name: torch.zeros(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in cache_shapes(cfg, batch, max_len, dtype,
+                                                  kv_quant).items()}
 
 
 def _decode(model: Transformer, tokens: torch.Tensor,
@@ -410,30 +501,79 @@ def _decode(model: Transformer, tokens: torch.Tensor,
 
 
 def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
-               inputs: Dict[str, torch.Tensor],
+               inputs: Dict[str, torch.Tensor], *, kv_quant: bool = False,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step for the whole batch over a **dense** cache
-    (``init_cache``), on the model's device.
+    (``init_cache``, with ``kv_quant`` as it was made), on the model's
+    device.
 
     inputs: token [B] (audio [B, codebooks]) and pos [B] int32, each
     sequence's position of the new token (continuous batching: rows may
     differ).  Each layer writes the new K/V IN PLACE at ``pos`` (clipped
     to the cache, as the reference's ``dynamic_update_slice`` clips) and
-    attends over positions <= pos with ``kernels.ops.flash_decode``.
+    attends over positions <= pos within its ``layer_windows`` window:
+    ``kernels.ops.flash_decode`` (``flash_decode_quant`` over an int8
+    cache), MLA's latent cache through ``kernels.ops.mla_decode``.
+    gemma2's split cache runs its layers in (local, global) pairs, as
+    the reference's pair scan: the local layer over its ring
+    (``attn_decode_ring``), the global one over its full cache.
     Returns (logits [B, V] (audio [B, codebooks, V]), cache) — the
     cache's tensors are the same, updated in place.
     """
     cfg = model.cfg
-    ck, cv = cache["k"], cache["v"]
-    B, S = ck.shape[1:3]
     pos = inputs["pos"]
+    B = pos.shape[0]
     rows = torch.arange(B, device=pos.device)          # write index, once a step
-    at = pos.long().clamp(0, S - 1)
+    clip = lambda S: pos.long().clamp(0, S - 1)
 
-    def attend(l, lp, a_in):
-        return attn.attn_decode(lp, a_in, cfg, ck[l], cv[l], pos, rows, at)
+    if cfg.local_global_pattern and cfg.sliding_window:
+        kl, vl = cache["k_local"], cache["v_local"]
+        kg, vg = cache["k_global"], cache["v_global"]
+        W = kl.shape[2]
+        slot = pos.long() % W
+        ring_pos = torch.clamp(pos, max=W - 1)
+        at = clip(kg.shape[2])
+
+        def attend(l, lp, a_in):
+            i = l // 2
+            if l % 2 == 0:
+                return attn.attn_decode_ring(lp, a_in, cfg, kl[i], vl[i], pos,
+                                             rows, slot, ring_pos)
+            if kv_quant:
+                return attn.attn_decode_quant(
+                    lp, a_in, cfg, kg[i], vg[i], cache["k_global_scale"][i],
+                    cache["v_global_scale"][i], pos, rows, at)
+            return attn.attn_decode(lp, a_in, cfg, kg[i], vg[i], pos, rows, at)
+
+    elif cfg.attn_kind == "mla":
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        at = clip(ckv.shape[2])
+
+        def attend(l, lp, a_in):
+            return mla.mla_decode(lp, a_in, cfg, ckv[l], kpe[l], pos, rows, at)
+
+    else:
+        ck, cv = cache["k"], cache["v"]
+        at = clip(ck.shape[2])
+        windows = layer_windows(cfg)
+
+        def attend(l, lp, a_in):
+            if kv_quant:
+                return attn.attn_decode_quant(
+                    lp, a_in, cfg, ck[l], cv[l], cache["k_scale"][l],
+                    cache["v_scale"][l], pos, rows, at, windows[l])
+            return attn.attn_decode(lp, a_in, cfg, ck[l], cv[l], pos, rows, at,
+                                    windows[l])
 
     return _decode(model, inputs["token"], attend), cache
+
+
+def _check_paged(cfg: ArchConfig) -> None:
+    """Paged decode takes global-causal GQA attention only (the
+    reference's ``supports_paged_decode``): no window, no MLA."""
+    if cfg.attn_kind != "gqa" or cfg.sliding_window:
+        raise ValueError(f"arch {cfg.name!r} decodes over a dense cache "
+                         "only (sliding window or MLA)")
 
 
 def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
@@ -455,6 +595,7 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
     the slabs are the same tensors, updated in place.
     """
     cfg = model.cfg
+    _check_paged(cfg)
     ps = k_slab.shape[2]
     lens = lengths.long()
     slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]
@@ -492,6 +633,7 @@ def serve_step_paged_spliced(model: Transformer, k_slab: torch.Tensor,
     k_slab, v_slab), the slabs updated in place.
     """
     cfg = model.cfg
+    _check_paged(cfg)
     ps = k_slab.shape[2]
     lens = lengths.long()
     slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]

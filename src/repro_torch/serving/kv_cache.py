@@ -32,6 +32,7 @@ per-page RoPE offset and live-token count that
 from __future__ import annotations
 
 import itertools
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -76,6 +77,7 @@ class KVCacheManager:
         self.dtype = dtype
         self.pool = pool
         self.device = resolve_device(device)
+        self._nbytes_memo: Dict[Tuple[int, int], int] = {}
         self._pool_buckets: Dict[Tuple[int, int],
                                  Tuple[Dict[str, torch.Tensor],
                                        Optional[PageLease]]] = {}
@@ -191,13 +193,18 @@ class KVCacheManager:
                    for batch, max_len in list(self._pool_buckets))
 
     def nbytes(self, batch: int, max_len: int) -> int:
-        """Exact tensor bytes of one dense (batch, max_len) bucket (k and v
-        [L, B, S, KVH, Dh]), the ledger's ``"kv"`` charge to the byte;
-        drivers size the pool with it."""
-        cfg = self.cfg
-        per = torch.tensor([], dtype=self.dtype).element_size()
-        return (2 * cfg.num_layers * batch * max_len * cfg.num_kv_heads
-                * cfg.resolved_head_dim * per)
+        """Exact tensor bytes of one dense (batch, max_len) bucket: the sum
+        over the tensors ``init_cache`` makes (GQA k/v, gemma2's rings and
+        global caches, MLA's latent cache), the ledger's ``"kv"`` charge
+        to the byte, as the reference's; drivers size the pool with it.
+        Memoised per (batch, max_len)."""
+        key = (batch, max_len)
+        if key not in self._nbytes_memo:
+            self._nbytes_memo[key] = sum(
+                math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                for shape, dt in tf.cache_shapes(self.cfg, batch, max_len,
+                                                 self.dtype).values())
+        return self._nbytes_memo[key]
 
     def init_paged(self, num_pages: int, page_size: int = 16) -> "KVPageSlab":
         """Allocate the manager's KV page slab: ``num_pages`` page slots

@@ -1066,3 +1066,157 @@ def test_moe_serve_step_paged_on_card_matches_cpu():
     torch.cuda.synchronize()
     torch.testing.assert_close(gk.cpu(), wk, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+# -- gemma2 (softcap, ring, int8 K/V) and MLA on the card ---------------------
+
+
+def _dense(B, S, KVH, G, Dh, pos, seed, dtype, q_dtype=None):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, KVH, G, Dh), generator=g) * 3
+    k = torch.randn((B, S, KVH, Dh), generator=g) * 3
+    v = torch.randn((B, S, KVH, Dh), generator=g)
+    return (q.to(q_dtype or dtype), k.to(dtype), v.to(dtype),
+            torch.tensor(pos, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,KVH,G,Dh,pos,window", [
+    (4, 128, 16, 2, 128, [127, 96, 40, 0], 0),     # gemma2's global layer
+    (4, 4096, 16, 2, 128, [4095, 3000, 64, 0], 0),
+    (3, 300, 2, 12, 64, [299, 100, 5], 0),          # the tile path past G = 8
+    (2, 100, 4, 1, 32, [99, 3], 9)])                # reduced gemma2, window
+def test_flash_decode_softcap_matches_plain(dtype, B, S, KVH, G, Dh, pos,
+                                            window):
+    dev = _card()
+    case = _dense(B, S, KVH, G, Dh, pos, 41, dtype)
+    want = tref.flash_decode_ref(*case, window, 50.0)
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(*(t.to(dev) for t in case), window=window,
+                           softcap=50.0)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+    # the cap changes the result: uncapped is another function here
+    plain = tref.flash_decode_ref(*case, window)
+    assert (plain - want).abs().max() > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,pos", [(4096, [100, 4095, 9000, 0]),
+                                   (8, [3, 7, 17, 30])])
+def test_ring_through_flash_decode_is_the_windowed_full_cache(W, pos):
+    """The ring of W slots (slot p % W holds the newest position of that
+    residue) through kernel 4 at min(pos, W - 1), no window, against the
+    plain version over the full cache with window W: below W - 1, at it
+    and wrapped past 2W."""
+    dev = _card()
+    B, KVH, G, Dh = len(pos), 4, 2, 32 if W == 8 else 128
+    S = max(pos) + 1
+    q, k, v, p = _dense(B, S, KVH, G, Dh, pos, 43, torch.bfloat16)
+    ring_k = torch.zeros((B, W, KVH, Dh), dtype=torch.bfloat16)
+    ring_v = torch.zeros_like(ring_k)
+    for b, pb in enumerate(pos):
+        for t in range(max(0, pb - W + 1), pb + 1):
+            ring_k[b, t % W], ring_v[b, t % W] = k[b, t], v[b, t]
+    want = tref.flash_decode_ref(q, k, v, p, W, 50.0)
+    got = tfd.flash_decode(q.to(dev), ring_k.to(dev), ring_v.to(dev),
+                           torch.clamp(p, max=W - 1).to(dev), softcap=50.0)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,KVH,G,Dh,pos,window,cap", [
+    (4, 128, 16, 2, 128, [127, 96, 40, 0], 0, 50.0),
+    (4, 8192, 16, 2, 128, [8191, 6143, 4999, 0], 0, 50.0),
+    (2, 100, 4, 1, 32, [99, 3], 0, 50.0),          # int8 rows of 32 bytes
+    (3, 300, 2, 12, 64, [299, 100, 5], 20, 0.0)])
+def test_flash_decode_quant_matches_plain(q_dtype, B, S, KVH, G, Dh, pos,
+                                          window, cap):
+    dev = _card()
+    from repro_torch.models.attention import quantize_heads
+    q, k, v, p = _dense(B, S, KVH, G, Dh, pos, 47, torch.float32, q_dtype)
+    kq, ks = quantize_heads(k)
+    vq, vs = quantize_heads(v)
+    want = tref.flash_decode_quant_ref(q, kq, vq, ks, vs, p, window=window,
+                                       softcap=cap)
+    before = tfd.flash_decode_quant.launches
+    got = tops.flash_decode_quant(*(t.to(dev) for t in (q, kq, vq, ks, vs, p)),
+                                  window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_quant.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,R,Dr,pos", [
+    (4, 128, 40, 256, 32, [127, 96, 40, 0]),       # minicpm3, serve
+    (4, 8192, 40, 256, 32, [8191, 6143, 4999, 0]),  # long context
+    (3, 77, 4, 32, 16, [76, 0, 31])])              # reduced
+def test_mla_decode_matches_plain(dtype, B, S, H, R, Dr, pos):
+    dev = _card()
+    from repro_torch.kernels import mla_decode as tmla
+    g = torch.Generator().manual_seed(53)
+    q_abs = torch.randn((B, H, R), generator=g)
+    q_pe = torch.randn((B, H, Dr), generator=g)
+    ckv = torch.randn((B, S, R), generator=g).to(dtype)
+    kpe = torch.randn((B, S, Dr), generator=g).to(dtype)
+    p = torch.tensor(pos, dtype=torch.int32)
+    scale = 1.0 / math.sqrt(96)
+    want = tref.mla_decode_ref(q_abs, q_pe, ckv, kpe, p, scale)
+    before = tmla.mla_decode.launches
+    got = tops.mla_decode(*(t.to(dev) for t in (q_abs, q_pe, ckv, kpe, p)),
+                          scale)
+    torch.cuda.synchronize()
+    assert tmla.mla_decode.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_quant", [("gemma2-27b", False),
+                                           ("gemma2-27b", True),
+                                           ("minicpm3-4b", False)])
+def test_dense_family_serve_step_on_card_matches_cpu(arch, kv_quant):
+    """The reduced gemma2 (4 layers, window 8: 12 steps wrap the rings)
+    and minicpm3, fp32, ``serve_step`` on the card against the CPU:
+    logits within 2e-3 each step; one decode grid per layer per step
+    (rings and global layers through flash_decode, or flash_decode_quant
+    on the global layers; MLA through mla_decode)."""
+    dev = _card()
+    from repro_torch.kernels import mla_decode as tmla
+    cfg = get_arch(arch).reduced()
+    cpu = ttf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                          dtype=torch.float32)
+    card = ttf.Transformer(cfg, {n: p.detach().to(dev)
+                                 for n, p in cpu.named_parameters()})
+    B, S = 3, 16
+    cc = ttf.init_cache(cfg, B, S, torch.float32, device="cpu",
+                        kv_quant=kv_quant)
+    gc = {n: t.to(dev) for n, t in cc.items()}
+    g = torch.Generator().manual_seed(2)
+    pos = torch.tensor([0, 2, 3], dtype=torch.int32)
+    counted = (tfd.flash_decode, tfd.flash_decode_quant, tmla.mla_decode,
+               tfd.flash_decode_paged)
+    before = [f.launches for f in counted]
+    steps = 12
+    for t in range(steps):
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=g,
+                            dtype=torch.int32)
+        want, cc = ttf.serve_step(cpu, cc, {"token": tok, "pos": pos},
+                                  kv_quant=kv_quant)
+        got, gc = ttf.serve_step(card, gc, {"token": tok.to(dev),
+                                            "pos": pos.to(dev)},
+                                 kv_quant=kv_quant)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+        pos = pos + 1
+    made = [f.launches - b for f, b in zip(counted, before)]
+    L = cfg.num_layers
+    if arch == "minicpm3-4b":
+        assert made == [0, 0, steps * L, 0]
+    elif kv_quant:
+        assert made == [steps * L // 2, steps * L // 2, 0, 0]
+    else:
+        assert made == [steps * L, 0, 0, 0]

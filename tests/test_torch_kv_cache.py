@@ -156,3 +156,31 @@ def test_dense_bucket_is_the_init_cache_layout(paged):
     tkv.release(again)
     fresh = tkv.acquire(3, 16, tenant="a", fresh=True)
     assert float(np.abs(fresh.cache["k"].float().numpy()).max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_nbytes_is_the_init_cache_bytes_for_every_arch(kv_quant):
+    """``KVCacheManager.nbytes`` (the ledger's "kv" charge) is the bytes
+    of the tensors ``init_cache`` makes and the reference's ``nbytes``,
+    for every registered config (gemma2's rings and global layers, MLA's
+    latents, musicgen's codebooks), and ``cache_shapes`` with
+    ``kv_quant`` (int8 K/V and bf16 scales) the reference's
+    ``init_cache(kv_quant=True)``, byte for byte."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer as jtf
+    from repro_torch.configs import list_archs
+    from repro_torch.models import transformer as ttf
+    for name in list_archs():
+        jc, tc = jget_arch(name).reduced(), tget_arch(name).reduced()
+        for B, S in ((2, 32), (3, 5), (1, 16)):
+            want = sum(x.size * x.dtype.itemsize for x in jax.tree.leaves(
+                jax.eval_shape(lambda: jtf.init_cache(
+                    jc, B, S, jnp.bfloat16, kv_quant=kv_quant))))
+            got = sum(t.numel() * t.element_size() for t in ttf.init_cache(
+                tc, B, S, torch.bfloat16, device="cpu",
+                kv_quant=kv_quant).values())
+            assert got == want, (name, B, S)
+            if not kv_quant:
+                assert TKV(tc, device="cpu").nbytes(B, S) == want == \
+                    JKV(jc).nbytes(B, S), (name, B, S)
