@@ -4,6 +4,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --decode-timing DIR BITS  # time DIR/src's decode kernels
     python3 chip_smoke.py --decode-ab PARENT   # PARENT, this, this, PARENT
+    python3 chip_smoke.py --attn-ab PARENT     # the same for mla_decode, int8
     python3 chip_smoke.py --retrieval-ab PARENT   # the same for kernels 2, 3
     python3 chip_smoke.py --centroid-ab PARENT    # the same for kernel 5
 
@@ -161,6 +162,13 @@ prints the numbers of each kernel and shape side by side with the aims
 (the serve-shape and spliced aims judged against PARENT's device time,
 kernels 1 and 4 unchanged within the runs' spread) and how many of the
 decode kernels' outputs equal PARENT's bit for bit.
+--attn-timing DIR BITS and --attn-ab PARENT do the same for mla_decode
+at minicpm3's serve and long shapes (B 4, S 128 and 8192, bf16 cache)
+and flash_decode_quant beside bf16 flash_decode at gemma2's (KVH 16,
+G 2, Dh 128, softcap 50): the four numbers each, the aims printed met or
+NOT met (never a non-zero exit for a missed aim), flash_decode_quant's
+and bf16 flash_decode's output bits on seeded cases against PARENT's,
+and mla_decode against its plain version.
 --centroid-timing DIR and --centroid-ab PARENT do the same for
 centroid_scores: phase 5's timing, warm and cold, with its aims.
 --retrieval-timing DIR and --retrieval-ab PARENT do the same for
@@ -216,6 +224,16 @@ AIM_SPLICED_FRESH_OVER_PAGED = 1.05   # all-fresh table: <= 1.05x kernel 1
 AIM_SPLICED_FRESH_BOUND_SHARE = 0.43  # and >= 43% of its byte bound
 AIM_SPLICED_CHUNKS_OVER_PAGED = 1.35  # 20-token chunks: <= 1.35x kernel 1
 AIM_SPLICED_SERVE_OVER_PAGED = 1.10   # serve shape, device time a call
+
+# the aims of --attn-ab (this tree's mean device time a call, runs 2-3):
+# flash_decode_quant at gemma2's long context <= 50% of its 0.0407 ms byte
+# bound; mla_decode at minicpm3's long and serve shapes a third and half
+# of the CUDA-core kernel's 0.1926 and 0.0395 ms; mla_decode within
+# MLA_AIM_ERR of its plain version over the bf16 cache
+AIM_QUANT_LONG_MS = 0.0814
+AIM_MLA_LONG_MS = 0.0640
+AIM_MLA_SERVE_MS = 0.0200
+MLA_AIM_ERR = 2e-5
 
 # the aims for centroid_scores (B=4, d=768; Nc=1024 and 4096, warm and cold)
 AIM_CENTROID_COLD_BOUND_SHARE = 0.40  # cold at Nc=4096: >= 40% of the bound
@@ -453,8 +471,10 @@ def bound(nbytes: float, flops: float, bf16_flops: float = 0.0):
     """(least ms, what bounds it): bytes over the memory rate against the
     operations over the peak rate for their operands' type: ``flops``
     with an fp32 operand over the fp32 rate, ``bf16_flops`` (products of
-    two bf16 operands, exact in an fp32 sum) over the tensor cores' bf16
-    rate; the two units run side by side, so the larger of their times."""
+    two bf16 operands, exact in an fp32 sum; an fp32 operand times a bf16
+    one counts as three, its exact bf16 pieces) over the tensor cores'
+    bf16 rate; the two units run side by side, so the larger of their
+    times."""
     t_b = nbytes / HBM_BYTES_PER_S
     t_f = max(flops / FP32_FLOPS, bf16_flops / BF16_TC_FLOPS)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -1181,16 +1201,30 @@ def mla_case(B, S, H, R, Dr, pos, seed, dtype=torch.bfloat16):
 
 
 def mla_work(case):
-    """(bytes, fp32 flops, 0): each live latent row (ckv and kpe) read
-    once, the queries and pos read once, the fp32 latent written once;
-    scores 2 H (R + Dr) and P . ckv 2 H R flops a live row, fp32."""
+    """(bytes, fp32 flops, bf16 flops): each live latent row (ckv and
+    kpe) read once, the queries and pos read once, the fp32 latent
+    written once; scores 2 H (R + Dr) and P . ckv 2 H R flops a live row,
+    each with an fp32 operand (q, P).  Over a bf16 cache such a product
+    counts as three bf16 tensor-core products (exact bf16 pieces of the
+    fp32 operand times the bf16 cache: the kernel's split product); over
+    fp32 it is fp32 work."""
     q_abs, q_pe, ckv, kpe, pos = case
     B, H, R = q_abs.shape
     S, Dr = ckv.shape[1], kpe.shape[2]
     live = sum(min(p + 1, S) for p in pos.tolist())
     nbytes = (live * (R + Dr) * ckv.element_size() + q_abs.numel() * 4
               + q_pe.numel() * 4 + pos.numel() * 4 + q_abs.numel() * 4)
-    return nbytes, 2 * H * live * (2 * R + Dr), 0.0
+    flops = 2 * H * live * (2 * R + Dr)
+    if ckv.dtype == torch.bfloat16:
+        return nbytes, 0.0, 3.0 * flops
+    return nbytes, flops, 0.0
+
+
+def mla_fp32_rate_bound(case) -> float:
+    """The MLA kernel's bound with every product at the fp32 rate (ms),
+    as it stood while the kernel ran on the CUDA cores."""
+    nbytes, f32, bf = mla_work(case)
+    return bound(nbytes, f32 + bf / 3.0)[0]
 
 
 def check_mla(mla, ref, case, label):
@@ -1354,8 +1388,11 @@ def gemma2_mla_timing(fd, mla, ref, smi: str) -> dict:
         r = three_times(lambda: mla.mla_decode(*mcase, MLA_SCALE),
                         mla.mla_decode, iters)
         r["bound_ms"], r["bound_by"] = bound(*mla_work(mcase))
+        r["fp32_rate_bound_ms"] = mla_fp32_rate_bound(mcase)
         r["plain_ms"] = time_ms(lambda: ref.mla_decode_ref(*mcase, MLA_SCALE),
                                 max(iters // 10, 5))
+        want = ref.mla_decode_ref(*mcase, MLA_SCALE)
+        r["max_abs_err"] = (mla.mla_decode(*mcase, MLA_SCALE) - want).abs().max().item()
         q_abs, q_pe, ckv, kpe, p = mcase
         H = q_abs.shape[1]
         qs = torch.cat([q_abs, q_pe], -1)[:, :, None]            # [B, H, 1, R+Dr]
@@ -1366,7 +1403,6 @@ def gemma2_mla_timing(fd, mla, ref, smi: str) -> dict:
             qs, ks, vs, attn_mask=mask, scale=MLA_SCALE, enable_gqa=True)
         try:
             r["library_ms"] = time_ms(lib, iters)
-            want = ref.mla_decode_ref(*mcase, MLA_SCALE)
             r["library_err"] = (lib()[:, :, 0] - want).abs().max().item()
             libtxt = (f"sdpa (fp32, one kv head broadcast over {H}) "
                       f"{r['library_ms']:.4f} ms, max_abs_err "
@@ -1377,8 +1413,11 @@ def gemma2_mla_timing(fd, mla, ref, smi: str) -> dict:
         r["pos"] = pos
         t["mla_decode"][shape] = r
         phase("time", f"mla_decode minicpm3 {shape} (H 40, R 256, Dr 32, S={S}, "
-              "bf16 cache, all live): " + describe(r) + f", {libtxt} on {smi}")
-        del mcase, qs, ks, vs, mask, lib
+              "bf16 cache, all live): " + describe(r) + f"; the fp32-rate bound "
+              f"{r['fp32_rate_bound_ms']:.5f} ms "
+              f"({r['fp32_rate_bound_ms'] / r['ms']:.1%} of it), max_abs_err "
+              f"{r['max_abs_err']:.2e} against the plain version, {libtxt} on {smi}")
+        del mcase, qs, ks, vs, mask, lib, want
     W = GEMMA2_WINDOW
     _, ring = ring_case([W + 100] * 4, W, seed=172)
     r = three_times(lambda: fd.flash_decode(*ring, softcap=GEMMA2_SOFTCAP),
@@ -2703,6 +2742,146 @@ def decode_ab_main(parent: Path) -> None:
     print(json.dumps({"decode_ab": runs}))
 
 
+def attn_bits(fd, mla) -> dict:
+    """Outputs on seeded inputs, by label: flash_decode_quant on phase 3's
+    int8 cases (gemma2's serve and long lengths with a row at pos 0,
+    bf16 and fp32 q, the reduced Dh = 32, G = 12 with a window and no
+    softcap) and at the timing shapes, bf16 flash_decode softcapped on
+    the same K/V, and mla_decode at minicpm3's and the reduced shapes
+    over bf16 and fp32 caches."""
+    KVH, G, Dh = GEMMA2_SHAPE
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for qd in ((torch.bfloat16, torch.float32) if dtype == torch.float32
+                   else (torch.bfloat16,)):
+            qtag = "q bf16" if qd == torch.bfloat16 else "q fp32"
+            for S, pos, seed in ((128, [127, 96, 40, 0], 150),
+                                 (8192, [8191, 6143, 4999, 0], 151)):
+                case = dense_case(4, S, KVH, G, Dh, pos, seed=seed, dtype=dtype,
+                                  q_dtype=qd)
+                out[f"quant S={S} {tag} cache, {qtag}"] = fd.flash_decode_quant(
+                    *quant_case(case), softcap=GEMMA2_SOFTCAP).cpu()
+        out[f"quant reduced Dh=32 {tag}"] = fd.flash_decode_quant(*quant_case(
+            dense_case(3, 100, 4, 1, 32, [99, 3, 0], seed=152, dtype=dtype)),
+            softcap=GEMMA2_SOFTCAP).cpu()
+        out[f"quant G=12 window 20 {tag}"] = fd.flash_decode_quant(*quant_case(
+            dense_case(3, 300, 2, 12, 64, [299, 100, 5], seed=153, dtype=dtype)),
+            window=20).cpu()
+        for (H, R, Dr), name in ((MLA_SHAPE, "minicpm3"), (MLA_REDUCED, "reduced")):
+            for S, pos in ((128, [127, 96, 40, 0]), (8192, [8191, 6143, 4999, 0])):
+                out[f"mla {name} S={S} {tag}"] = mla.mla_decode(*mla_case(
+                    4, S, H, R, Dr, pos, seed=160, dtype=dtype), MLA_SCALE).cpu()
+    for S in (128, 8192):
+        case = dense_case(4, S, KVH, G, Dh, [S - 1] * 4, seed=170)
+        out[f"quant timing S={S}"] = fd.flash_decode_quant(
+            *quant_case(case), softcap=GEMMA2_SOFTCAP).cpu()
+        out[f"softcap timing S={S}"] = fd.flash_decode(
+            *case, softcap=GEMMA2_SOFTCAP).cpu()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_timing_main(root: Path, bits: Path) -> None:
+    """Phase 7's timing of the softcapped, int8 and MLA kernels
+    (``gemma2_mla_timing``) alone on the port under ``root``/src; the
+    outputs of ``attn_bits`` are saved to ``bits``."""
+    need_card()
+    if not (root / "src" / "repro_torch").is_dir():
+        fail(f"{root} holds no src/repro_torch")
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mla_decode as mla
+    from repro_torch.kernels import ref
+    smi = card_line()
+    t = gemma2_mla_timing(fd, mla, ref, smi)
+    torch.save(attn_bits(fd, mla), bits)
+    print(json.dumps({"root": str(root), "card": smi, "timing": t}))
+
+
+def faster(parent: list, change: list) -> tuple:
+    """(met, margin): the change's mean below the parent's by more than
+    the larger side's spread (max - min over its runs)."""
+    margin = max(max(parent) - min(parent), max(change) - min(change))
+    return float(np.mean(parent)) - float(np.mean(change)) > margin, margin
+
+
+def attn_ab_main(parent: Path) -> None:
+    """``--attn-timing`` of ``parent``, this checkout, this checkout and
+    ``parent``, one process each, side by side; the aims on the device
+    time a call (means of runs 2-3 against runs 1 and 4, and the fixed
+    aims), printed met or NOT met; then flash_decode_quant's and bf16
+    flash_decode's output bits of each run against the parent's, and
+    mla_decode's difference from the parent's (its error against the
+    plain version is in the timing lines)."""
+    need_card()
+    out = ROOT / "chiprun_out" / "attn_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, root in enumerate((parent, ROOT, ROOT, parent), 1):
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--attn-timing", str(root),
+                               str(out / f"bits_run{i}.pt")],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            fail(f"attn timing of {root}: exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        phase("ab", f"run {i}: {root} on {runs[-1]['card']}")
+    card = runs[1]["card"]
+    names = ("mla_decode", "flash_decode_quant", "flash_decode_softcap")
+    for name in names:
+        for shape in ("serve", "long"):
+            for key in ("ms", "device_ms", "grids_per_call", "host_us") + (
+                    ("max_abs_err",) if name == "mla_decode" else ()):
+                vals = " | ".join(f"{r['timing'][name][shape][key]:.4g}" for r in runs)
+                phase("ab", f"{name} {shape} {key}: runs 1-4 (parent, change, "
+                      f"change, parent) {vals}")
+    dev = lambda name, shape: [r["timing"][name][shape]["device_ms"] for r in runs]
+    aims = []
+    for name, shape in (("flash_decode_quant", "long"), ("mla_decode", "long"),
+                        ("mla_decode", "serve")):
+        d = dev(name, shape)
+        met, margin = faster([d[0], d[3]], [d[1], d[2]])
+        aims.append((f"{name} {shape}: device time a call below the parent's by "
+                     "more than the larger side's spread", met,
+                     f"change {np.mean(d[1:3]):.4f} ms, parent "
+                     f"{np.mean([d[0], d[3]]):.4f} ms, spread {margin:.4f} ms"))
+    q, b = dev("flash_decode_quant", "long"), dev("flash_decode_softcap", "long")
+    aims.append(("flash_decode_quant long: below bf16 flash_decode's device time "
+                 "in the same processes", q[1] < b[1] and q[2] < b[2],
+                 f"runs 2, 3: {q[1]:.4f} / {q[2]:.4f} ms against "
+                 f"{b[1]:.4f} / {b[2]:.4f} ms"))
+    bq = runs[1]["timing"]["flash_decode_quant"]["long"]["bound_ms"]
+    for name, shape, cap in (("flash_decode_quant", "long", AIM_QUANT_LONG_MS),
+                             ("mla_decode", "long", AIM_MLA_LONG_MS),
+                             ("mla_decode", "serve", AIM_MLA_SERVE_MS)):
+        mine = float(np.mean(dev(name, shape)[1:3]))
+        extra = (f", {bq / mine:.1%} of the {bq:.4f} ms bound"
+                 if name == "flash_decode_quant" else "")
+        aims.append((f"{name} {shape}: device time a call <= {cap} ms", mine <= cap,
+                     f"{mine:.4f} ms{extra}"))
+    for shape in ("serve", "long"):
+        errs = [runs[i]["timing"]["mla_decode"][shape]["max_abs_err"] for i in (1, 2)]
+        aims.append((f"mla_decode {shape} (bf16 cache): within {MLA_AIM_ERR:g} of "
+                     "the plain version", max(errs) <= MLA_AIM_ERR,
+                     f"max_abs_err {max(errs):.2e}"))
+    for aim, met, numbers in aims:
+        phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; runs 2-3 "
+              f"against runs 1 and 4; {card})")
+    bits = [torch.load(out / f"bits_run{i}.pt") for i in range(1, 5)]
+    for i in (1, 2, 3):
+        for kind in ("quant", "softcap", "mla"):
+            labels = [k for k in bits[0] if k.startswith(kind)]
+            same = sum(torch.equal(bits[i][k], bits[0][k]) for k in labels)
+            worst = max((bits[i][k] - bits[0][k]).abs().max().item() for k in labels)
+            phase("ab", f"{kind} output bits, run {i + 1} against run 1 (the "
+                  f"parent): {same} of {len(labels)} cases equal, largest "
+                  f"difference {worst:.3e}")
+    print(json.dumps({"attn_ab": runs}))
+
+
 def retrieval_timing_main(root: Path) -> None:
     """Kernels 2 and 3 alone, on the port under ``root``/src: their three
     times at the serve shapes, then each alone on ``retrieval_ab``'s
@@ -3119,7 +3298,7 @@ def main() -> None:
          "launches": launches["minicpm3-4b"]["mla_decode"],
          "launches_by_path": {p: c.get("mla_decode", 0)
                               for p, c in launches.items()},
-         "max_abs_err": err_mla, **gm_t["mla_decode"]["serve"],
+         **gm_t["mla_decode"]["serve"], "max_abs_err": err_mla,
          "long_context": gm_t["mla_decode"]["long"]},
     ]
     print(smi)
@@ -3133,6 +3312,10 @@ if __name__ == "__main__":
         decode_timing_main(Path(sys.argv[2]).resolve(), Path(sys.argv[3]))
     elif len(sys.argv) == 3 and sys.argv[1] == "--decode-ab":
         decode_ab_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 4 and sys.argv[1] == "--attn-timing":
+        attn_timing_main(Path(sys.argv[2]).resolve(), Path(sys.argv[3]))
+    elif len(sys.argv) == 3 and sys.argv[1] == "--attn-ab":
+        attn_ab_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-timing":
         retrieval_timing_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--retrieval-ab":
@@ -3145,5 +3328,6 @@ if __name__ == "__main__":
         main()
     else:
         fail(f"usage: {sys.argv[0]} [--decode-timing DIR BITS | --decode-ab "
-             "PARENT | --retrieval-timing DIR | --retrieval-ab PARENT | "
+             "PARENT | --attn-timing DIR BITS | --attn-ab PARENT | "
+             "--retrieval-timing DIR | --retrieval-ab PARENT | "
              "--centroid-timing DIR | --centroid-ab PARENT]")

@@ -56,9 +56,18 @@
 // at one byte an element with the same 16-byte cp.async copies and
 // dequantized as it is read from shared memory: the fp32 product of the
 // value and its scale, rounded to bf16 (the reference's
-// dequantize_heads), then used as a bf16 row is.  The chunk's scales are
+// dequantize_heads; load16 below does it without a conversion a value),
+// then used as a bf16 row is.  The chunk's scales are
 // loaded into registers while the chunk before computes and land in
-// shared memory before the barrier that opens their chunk.
+// shared memory before the barrier that opens their chunk.  An int8 block
+// also does less of the rest, with the other kernels' values by their
+// operations, in their order: the softmax step a query row a warp (not
+// every row in every warp, at the cost of a barrier), the softcap there, a
+// position a lane (not a row's first lane, row after row), the
+// probabilities once into shared memory for P V (not again a row and a
+// lane), and for two query rows the scores' butterflies level by level
+// over the chunk's rows at once, each lane finishing one query row after
+// the first step.
 
 #pragma once
 
@@ -113,15 +122,30 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   }
 }
 
-__device__ __forceinline__ float dequant(int x, float s) {
-  return __bfloat162float(__float2bfloat16_rn((float)x * s));
-}
-
-__device__ __forceinline__ void load16(const int8_t* p, float s, float (&f)[8]) {
+// An int8 value x in [-127, 127] times its row's bf16 scale s, rounded to
+// bf16 as the reference's dequantize_heads rounds bf16(fp32(x) * s), with
+// no conversion instruction a value: a byte permute makes the float
+// 2^23 + x + 128, and one FFMA with -(2^23 + 128) s (exact: 24 significant
+// bits) leaves x s exactly (at most 15 significant bits, normal for s >=
+// 1e-8), which one cvt.rn.bf16x2.f32 a pair rounds as the reference does;
+// widening is a shift or a mask.  sc is the row's (s, -(2^23 + 128) s).
+// kernels/dequant_bench.py times this against the other exact ways on the
+// card.
+__device__ __forceinline__ void load16(const int8_t* p, float2 sc, float (&f)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const unsigned w[2] = {u.x, u.y};
+  const unsigned w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};   // bytes x + 128
+  const float s = sc.x, nc = sc.y;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = dequant((int)(signed char)(w[i / 4] >> (8 * (i % 4))), s);
+  for (int i = 0; i < 8; i += 2) {
+    const float p0 = fmaf(__uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7440 | (i % 4))),
+                          s, nc);
+    const float p1 = fmaf(
+        __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7440 | ((i + 1) % 4))), s, nc);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+    const unsigned v = *reinterpret_cast<const unsigned*>(&h);
+    f[i] = __uint_as_float(v << 16);
+    f[i + 1] = __uint_as_float(v & 0xFFFF0000u);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -155,9 +179,11 @@ struct Tile {
 
 // Dynamic shared memory of one block: two stages of K and V chunks, the
 // chunk's scores [GM][kChunk], then m and l [GM] and a flag; an int8
-// cache's two stages of K and V scales [2][2][kChunk] floats after them,
-// from splice_offset.  After the loop the stages hold the accumulator's
-// per-warp partials [kWarps][GM][Dh].
+// cache's two stages of K and V scales [2][2][kChunk] (each with the
+// constant load16 adds, two floats) after them, from splice_offset, then
+// the chunk's probabilities [kChunk][GM] and corrections [GM].
+// After the loop the stages hold the accumulator's per-warp partials
+// [kWarps][GM][Dh].
 template <typename KT, int Dh, int GM>
 __host__ __device__ constexpr int base_bytes() {
   return 4 * Tile<KT, Dh>::kStage * (int)sizeof(KT) + (GM * kChunk + 2 * GM + 4) * 4;
@@ -172,7 +198,7 @@ __host__ __device__ constexpr int splice_offset() {
 
 template <typename KT, int Dh, int GM>
 __host__ __device__ constexpr int smem_bytes() {
-  return Tile<KT, Dh>::kQuant ? splice_offset<KT, Dh, GM>() + 4 * kChunk * 4
+  return Tile<KT, Dh>::kQuant ? splice_offset<KT, Dh, GM>() + ((8 + GM) * kChunk + GM) * 4
                               : base_bytes<KT, Dh, GM>();
 }
 
@@ -258,6 +284,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   using T = Tile<KT, Dh>;
   constexpr int V = T::kVec;
   constexpr bool kQuant = T::kQuant;
+  constexpr bool kPair = kQuant && GM == 2;   // an int8 block's paired butterflies
   const int sp = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -293,8 +320,11 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   const int nchunks = (s1 - s0 + kChunk - 1) / kChunk;
   // an int8 cache's scales: thread tid fetches the K (tid < kChunk) or V
   // scale of row tid % kChunk of a chunk into a register, then stores it
-  // into stage [c & 1] of qs [2][K, V][kChunk] (0 past the chunk's rows)
+  // into stage [c & 1] of qs [2][K, V][kChunk] (0 past the chunk's rows),
+  // each beside the constant load16 adds
   float* qs = reinterpret_cast<float*>(smem + splice_offset<KT, Dh, GM>());
+  float* pw = qs + 8 * kChunk;     // an int8 block's P [kChunk][GM]
+  float* corr_s = pw + GM * kChunk;   // and correction [GM]
   float qnext = 0.f;
   auto fetch_scale = [&](int c0, int n) {
     if constexpr (kQuant) {
@@ -305,7 +335,9 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     }
   };
   auto store_scale = [&](int c) {
-    if constexpr (kQuant) qs[(c & 1) * 2 * kChunk + tid] = qnext;
+    if constexpr (kQuant)
+      reinterpret_cast<float2*>(qs)[(c & 1) * 2 * kChunk + tid] =
+          make_float2(qnext, -8388736.f * qnext);   // load16's (s, -(2^23 + 128) s)
   };
   fetch_scale(s0, min(kChunk, s1 - s0));
   store_scale(0);
@@ -356,8 +388,8 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
                                  min(kChunk, s1 - c0 - kChunk));
       fetch_scale(c0 + kChunk, min(kChunk, s1 - c0 - kChunk));
     }
-    const float* ksc = qs + (c & 1) * 2 * kChunk;   // this chunk's K and V scales
-    const float* vsc = ksc + kChunk;
+    const float2* ksc = reinterpret_cast<const float2*>(qs) + (c & 1) * 2 * kChunk;   // this
+    const float2* vsc = ksc + kChunk;   // chunk's K and V scales
     if constexpr (Splice::kOn) {
       if (c + 1 < nchunks) pol.angles(c + 1, kThreads);
       pol.use(c);
@@ -377,56 +409,114 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
     // 1) scores, kLanes lanes a row; rows >= n (and dead rows) hold stale
     //    data and are masked
     bool live_row[kChunk / T::kSlots];   // a splice policy's liveness, for 3)
+    if constexpr (kPair) {
+      // two query rows (int8): every row's two dots first, then the
+      // butterflies level by level over all the rows at once; the first
+      // step hands row 1's partial to the lanes that finish it ([h,
+      // kLanes)) and row 0's to the others, so a lane then sums one row:
+      // the same sums in the same order as the loop below
+      constexpr int kIts = kChunk / T::kSlots;
+      constexpr int h = T::kLanes / 2;
+      const bool lo = sub < h;
+      float x[kIts];
 #pragma unroll
-    for (int it = 0; it < kChunk / T::kSlots; ++it) {
-      const int j = slot + it * T::kSlots;
-      float kf[V];
-      if constexpr (kQuant)
+      for (int it = 0; it < kIts; ++it) {
+        const int j = slot + it * T::kSlots;
+        float kf[V];
         load16(ks + j * Dh + sub * V, ksc[j], kf);
-      else
-        load16(ks + j * Dh + sub * V, kf);
-      bool ok = j < n;
-      if constexpr (Splice::kOn) ok = pol.live(j, ok);
-      live_row[it] = ok;
-      float part[GM];
+        float t0 = 0.f, t1 = 0.f;
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        float t = 0.f;
+        for (int e = 0; e < V; ++e) t0 += qr[0][e] * kf[e];
 #pragma unroll
-        for (int e = 0; e < V; ++e) t += qr[g][e] * kf[e];
-        part[g] = t;
+        for (int e = 0; e < V; ++e) t1 += qr[1][e] * kf[e];
+        x[it] = lo ? t0 : t1;
+        x[it] += __shfl_xor_sync(0xffffffffu, lo ? t1 : t0, h);
       }
 #pragma unroll
-      for (int o = T::kLanes / 2; o > 0; o >>= 1) {
+      for (int o = h / 2; o > 0; o >>= 1) {
 #pragma unroll
-        for (int g = 0; g < GM; ++g) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+        for (int it = 0; it < kIts; ++it) x[it] += __shfl_xor_sync(0xffffffffu, x[it], o);
       }
-      if (sub == 0) {
+      if (sub % h == 0) {
+#pragma unroll
+        for (int it = 0; it < kIts; ++it) {
+          const int j = slot + it * T::kSlots;
+          sc[(lo ? 0 : kChunk) + j] = j < n ? x[it] * a.scale : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < kChunk / T::kSlots; ++it) {
+        const int j = slot + it * T::kSlots;
+        float kf[V];
+        if constexpr (kQuant)
+          load16(ks + j * Dh + sub * V, ksc[j], kf);
+        else
+          load16(ks + j * Dh + sub * V, kf);
+        bool ok = j < n;
+        if constexpr (Splice::kOn) ok = pol.live(j, ok);
+        live_row[it] = ok;
+        float part[GM];
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
-          float s = part[g] * a.scale;
-          if constexpr (kCap) s = a.cap * tanhf(s / a.cap);
-          sc[g * kChunk + j] = ok ? s : -INFINITY;
+          float t = 0.f;
+#pragma unroll
+          for (int e = 0; e < V; ++e) t += qr[g][e] * kf[e];
+          part[g] = t;
+        }
+#pragma unroll
+        for (int o = T::kLanes / 2; o > 0; o >>= 1) {
+#pragma unroll
+          for (int g = 0; g < GM; ++g) part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+        }
+        if (sub == 0) {
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+            float s = part[g] * a.scale;
+            if constexpr (kCap && !kQuant) s = a.cap * tanhf(s / a.cap);
+            sc[g * kChunk + j] = ok ? s : -INFINITY;
+          }
         }
       }
     }
     __syncthreads();
 
-    // 2) online softmax over the chunk, in every warp alike
+    // 2) online softmax over the chunk, in every warp alike; in an int8
+    //    block, warp w takes the query rows g = w, w + kWarps, ..., softcaps
+    //    there, a position a lane, and leaves the probabilities and the
+    //    correction in shared memory for 3): the same values by the same
+    //    operations as the other kernels compute them in 1) and 3), once
     float corr[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      const float x0 = sc[g * kChunk + lane];
-      const float x1 = sc[g * kChunk + lane + 32];
+      if (kQuant && g % kWarps != warp) continue;
+      float x0 = sc[g * kChunk + lane];
+      float x1 = sc[g * kChunk + lane + 32];
+      if constexpr (kCap && kQuant) {
+        if (x0 != -INFINITY) x0 = a.cap * tanhf(x0 / a.cap);
+        if (x1 != -INFINITY) x1 = a.cap * tanhf(x1 / a.cap);
+      }
       const float m_new = fmaxf(m_run[g], warp_max(fmaxf(x0, x1)));
       float m_exp = m_new;
       // a spliced chunk may have no live position yet: keep -inf - -inf
       // out of the sum, so such a split reaches the combine as (-inf, 0, 0)
       if constexpr (Splice::kOn) m_exp = m_new == -INFINITY ? 0.f : m_new;
-      const float sum = warp_sum(expf(x0 - m_exp) + expf(x1 - m_exp));
+      const float p0 = expf(x0 - m_exp);
+      const float p1 = expf(x1 - m_exp);
+      const float sum = warp_sum(p0 + p1);
+      if constexpr (kQuant) {
+        pw[lane * GM + g] = p0;
+        pw[(lane + 32) * GM + g] = p1;
+      }
       corr[g] = m_run[g] == -INFINITY ? 0.f : expf(m_run[g] - m_new);
       l_run[g] = l_run[g] * corr[g] + sum;
       m_run[g] = m_new;
+      if (kQuant && lane == 0) corr_s[g] = corr[g];
+    }
+    if constexpr (kQuant) {
+      __syncthreads();   // every query row's probabilities and correction
+#pragma unroll
+      for (int g = 0; g < GM; ++g) corr[g] = corr_s[g];
     }
 
     // 3) acc = acc * corr + P V over this thread's rows of the chunk
@@ -444,11 +534,18 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
           load16(vs + j * Dh + sub * V, vsc[j], vf);
         else
           load16(vs + j * Dh + sub * V, vf);
+        float pj[GM];   // an int8 block's from shared memory, two at a time at GM = 2
+        if constexpr (kPair) {
+          const float2 t = reinterpret_cast<const float2*>(pw)[j];
+          pj[0] = t.x;
+          pj[1] = t.y;
+        }
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
-          const float p = expf(sc[g * kChunk + j] - m_run[g]);
+          if constexpr (!kPair)
+            pj[g] = kQuant ? pw[j * GM + g] : expf(sc[g * kChunk + j] - m_run[g]);
 #pragma unroll
-          for (int e = 0; e < V; ++e) acc[g][e] += p * vf[e];
+          for (int e = 0; e < V; ++e) acc[g][e] += pj[g] * vf[e];
         }
       }
     }
@@ -477,9 +574,10 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
       for (int e = 0; e < V; ++e) red[(warp * GM + g) * Dh + sub * V + e] = acc[g][e];
     }
   }
-  if (tid == 0) {
+  if (kQuant ? lane == 0 : tid == 0) {   // an int8 block's rows from their warps
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
+      if (kQuant && g % kWarps != warp) continue;
       sm_m[g] = m_run[g];
       sm_l[g] = l_run[g];
     }

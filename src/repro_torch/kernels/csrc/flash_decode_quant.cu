@@ -20,11 +20,19 @@
 // and read it again.  So the rows are staged at one byte an element with
 // the bf16 kernel's 16-byte cp.async copies (an int8 row of Dh = 32 is two
 // of them) and dequantized on their way out of shared memory, eight values
-// a thread, so a thread holds as many values as for a bf16 row; the
-// chunk's scales are fetched into registers while the chunk before
-// computes (decode_attn.cuh).  Everything else, the splits and their
-// combine in one launch, the G tiles and the optional softcap, is the
-// bf16 kernel's (dense_decode.cuh).
+// a read; the chunk's scales are fetched into registers while the chunk
+// before computes (decode_attn.cuh).  Half the bytes leave the kernel
+// bound by its instructions at gemma2's G = 2, where a value feeds 2 FMAs
+// in q.K and 2 in P.V, so the rest is cut to what each value needs: the
+// dequantizing takes a byte permute, an FFMA, half a paired
+// cvt.rn.bf16x2.f32 and a shift or mask, with no conversion a value (two
+// before: I2F and F2F, at a quarter of the FMA rate or less); the softmax
+// step runs a query row a warp, with the softcap and the probabilities
+// computed once a position; at G = 2 the scores' two butterflies share
+// their shuffles and run over all the chunk's rows level by level.  Each is exact: the output is the earlier kernel's bit
+// for bit.  Everything else,
+// the splits and their combine in one launch, the G tiles and the
+// optional softcap, is the bf16 kernel's (dense_decode.cuh).
 //
 // Layouts: q [B, KVH, G, Dh] bf16 or fp32; k/v int8; scales bf16; pos [B]
 // int32; out [B, KVH, G, Dh] fp32; scratch and counters as flash_decode.cu.

@@ -4,10 +4,13 @@ minicpm3): the CUDA kernel's wrapper and its plain version.
 ``mla_decode`` dispatches by the tensor's device alone: a CPU tensor runs
 ``mla_decode_ref``; a CUDA tensor launches ``csrc/mla_decode.cu`` on the
 current stream (built on first use) or raises.  The reference has no
-Pallas kernel here (its ``models/mla.py`` attends in jnp); the kernel
-reads each latent position once for all heads and combines its splits
-over positions inside the one launch, as the decode kernels do, so
-``mla_decode.launches`` counts one grid launch a call.
+Pallas kernel here (its ``models/mla.py`` attends in jnp).  Over a bf16
+cache the kernel runs both products on the tensor cores as three bf16
+products of exact pieces of the fp32 queries and probabilities, a block
+a (split, 16-head tile, row); over an fp32 cache it keeps fp32 products
+on the CUDA cores, a block a (split, row).  Either way it combines its
+splits over positions inside the one launch, as the decode kernels do,
+so ``mla_decode.launches`` counts one grid launch a call.
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode import _sm_count, _workspace
 from repro_torch.kernels.ref import mla_decode_ref
 
-_CHUNK = 32                       # positions a softmax step (csrc kChunk)
+_CHUNK = {True: 64, False: 32}    # positions a step, bf16 / fp32 cache (csrc kChunk)
+_TILE = 16                        # heads a block over a bf16 cache (csrc tc::kTile)
 _MAX_H = 64                       # heads a call may have (csrc kMaxH)
+_MAX_SPLITS = 128                 # bf16 splits a row: their combine's (m, l, weight) fit a block
 _SHAPES = ((256, 32), (32, 16))   # (R, Dr) the kernel is compiled for
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]
@@ -40,14 +45,20 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=256)
-def _splits(B: int, S: int, sms: int) -> Tuple[int, int]:
-    """(positions per split, splits a row): about two blocks an SM (two
-    fit) over the B rows, each split a whole number of 32-position
-    chunks."""
-    n = max(1, min(-(-2 * sms // max(B, 1)), -(-S // _CHUNK)))
+def _plan(B: int, S: int, H: int, sms: int, bf16: bool) -> Tuple[int, int, int]:
+    """(positions per split, splits a row, head tiles a row): about two
+    blocks an SM (two fit) over the B rows times the head tiles (16 heads
+    each over a bf16 cache; one tile of all H over fp32), each split a
+    whole number of chunks (64 positions over bf16, 32 over fp32); at
+    most _MAX_SPLITS splits over bf16."""
+    chunk = _CHUNK[bf16]
+    tiles = -(-H // _TILE) if bf16 else 1
+    n = max(1, min(-(-2 * sms // max(B * tiles, 1)), -(-S // chunk)))
+    if bf16:
+        n = min(n, _MAX_SPLITS)
     per = -(-S // n)
-    split = -(-per // _CHUNK) * _CHUNK
-    return split, -(-S // split)
+    split = -(-per // chunk) * chunk
+    return split, -(-S // split), tiles
 
 
 def _check(q_abs, q_pe, ckv, kpe, pos) -> None:
@@ -104,16 +115,17 @@ def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
         if name != "pos" and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     dev = q_abs.device
-    split, nsplit = _splits(B, S, _sm_count(dev.index))
+    bf16 = ckv.dtype == torch.bfloat16
+    split, nsplit, tiles = _plan(B, S, H, _sm_count(dev.index), bf16)
     out = torch.empty((B, H, R), dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     n = B * nsplit * H if nsplit > 1 else 0
     n4 = -(-n // 4) * 4                 # the partial acc 16-byte aligned
-    count, part = _workspace(dev, stream, B, 2 * n4 + n * R)
+    count, part = _workspace(dev, stream, B * tiles, 2 * n4 + n * R)
     pm = part.data_ptr()
     err = _kernel()(
         q_abs.data_ptr(), q_pe.data_ptr(), ckv.data_ptr(), kpe.data_ptr(),
-        int(ckv.dtype == torch.bfloat16), pos.data_ptr(), out.data_ptr(), pm,
+        int(bf16), pos.data_ptr(), out.data_ptr(), pm,
         pm + 4 * n4, pm + 8 * n4, count.data_ptr(), B, S, H, R, Dr, split,
         nsplit, float(scale), stream)
     if err != 0:

@@ -1176,6 +1176,62 @@ def test_mla_decode_matches_plain(dtype, B, S, H, R, Dr, pos):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,Dr", [(256, 32), (32, 16)])
+@pytest.mark.parametrize("H", [1, 16, 17, 40, 64])
+@pytest.mark.parametrize("S,pos", [(1, [0, 0]), (31, [30, 0]), (33, [32, 7]),
+                                   (128, [127, 0]), (8192, [8191, 0])])
+def test_mla_decode_tile_edges_match_plain(dtype, R, Dr, H, S, pos):
+    """The MLA kernel at every tile edge: 1, 16 and 17 heads (a tile, one
+    past it), minicpm3's 40 (a half-padded last tile) and 64 (four full
+    tiles); S of one position, a chunk less and more than 32, the serve
+    bucket and the long context, with a row at pos 0; both (R, Dr) and
+    both caches (bf16: split bf16 products on the tensor cores; fp32: the
+    CUDA-core kernel)."""
+    dev = _card()
+    from repro_torch.kernels import mla_decode as tmla
+    g = torch.Generator().manual_seed(59 + H + S)
+    B = len(pos)
+    q_abs = torch.randn((B, H, R), generator=g)
+    q_pe = torch.randn((B, H, Dr), generator=g)
+    ckv = torch.randn((B, S, R), generator=g).to(dtype)
+    kpe = torch.randn((B, S, Dr), generator=g).to(dtype)
+    p = torch.tensor(pos, dtype=torch.int32)
+    scale = 1.0 / math.sqrt(96)
+    want = tref.mla_decode_ref(q_abs, q_pe, ckv, kpe, p, scale)
+    before = tmla.mla_decode.launches
+    got = tmla.mla_decode(*(t.to(dev) for t in (q_abs, q_pe, ckv, kpe, p)),
+                          scale)
+    torch.cuda.synchronize()
+    assert tmla.mla_decode.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_decode_quant_dequantizes_every_int8_value_exactly():
+    """The kernel's dequantizing, on every int8 value in [-127, 127] times
+    every bf16 scale in [1e-8, 1e4], equals dequantize_ref bit for bit: at
+    pos 0 over one position the softmax is 1, so the output is the
+    dequantized V row itself (two rows of 128 values a scale)."""
+    dev = _card()
+    bits = torch.arange(0, 0x7F80, dtype=torch.int32).to(torch.int16)
+    s = bits.view(torch.bfloat16)
+    s = s[(s.float() >= 1e-8) & (s.float() <= 1e4)]
+    B, KVH, Dh = len(s), 2, 128
+    x = torch.cat([torch.arange(-127, 128), torch.zeros(1)]).to(torch.int8)
+    v = x.reshape(1, 1, KVH, Dh).expand(B, 1, KVH, Dh).contiguous()
+    k = torch.zeros_like(v)
+    v_scale = s.reshape(B, 1, 1).expand(B, 1, KVH).contiguous()
+    k_scale = torch.ones_like(v_scale)
+    q = torch.zeros((B, KVH, 1, Dh), dtype=torch.bfloat16)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    got = tfd.flash_decode_quant(*(t.to(dev) for t in (q, k, v, k_scale,
+                                                       v_scale, pos)))
+    want = tref.dequantize_ref(v, v_scale).float()[:, 0, :, None]
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch,kv_quant", [("gemma2-27b", False),
                                            ("gemma2-27b", True),
                                            ("minicpm3-4b", False)])
