@@ -48,7 +48,14 @@ Phases, one line each, every one fatal on failure:
      0; then one reduced Llama-3 decode step and one full-width
      granite-moe MoE layer (4 and 64 tokens) on the card against the CPU
      (equal experts kept), and 12 serve_step steps of the reduced gemma2
-     (kv_quant off and on; the rings wrap) and minicpm3 against the CPU;
+     (kv_quant off and on; the rings wrap), minicpm3, rwkv6 and zamba2
+     against the CPU; flash_decode at zamba2's shared attention (B 4,
+     KVH 32, G 1, Dh 80, rows over 16 or 32 lanes), bf16 and fp32: the
+     serve lengths, ragged positions, S 8192, a window across split
+     boundaries and pos 0; and the full-width rwkv6-3b and zamba2-2.7b
+     (fp32) prefill of 2 x 256 tokens (two chunks of 128), whose states
+     and last logits must equal 256 serve_step steps from zeros within
+     1e-3 of their scale;
   4. probe_topk_fused and ivf_topk against their plain versions at the
      serve shapes, at a small shape and at their edges (every page dead,
      one live page, every live page in one cluster, B=9, page sizes 48
@@ -94,10 +101,12 @@ Phases, one line each, every one fatal on failure:
      (MQA G=48, full depth; paged, then dense), nemotron-4-15b and
      internvl2-1b (full depth) and arctic-480b (full width, 2 of 35
      layers), each fused with paged decode, and gemma2-27b and
-     minicpm3-4b (full depth), fused with dense decode (the arch cannot
-     page): one decode grid per layer per step (flash_decode_paged,
-     flash_decode over gemma2's 23 rings and 23 global layers, mla_decode
-     for MLA) and no other decode kernel, probe_topk_fused launched, the
+     minicpm3-4b, rwkv6-3b and zamba2-2.7b (full depth), fused with
+     dense decode (the arch cannot page): one decode grid per layer per
+     step (flash_decode_paged, flash_decode over gemma2's 23 rings and 23
+     global layers, mla_decode for MLA; zamba2's shared attention one
+     flash_decode grid per group, 9 a step; rwkv6 none at all) and no
+     other decode kernel, probe_topk_fused launched, the
      exact-search check, 0 invariant violations, ms/step and tokens/s
      printed; gemma2-27b's kv_quant steps (a wave of 1 + 32
      serve_step(kv_quant=True) steps of 4 rows from serve-like
@@ -125,7 +134,9 @@ Phases, one line each, every one fatal on failure:
      flash_decode softcapped and flash_decode_quant at gemma2's shape
      (S 128 and 8192, all live), gemma2's full ring of 4096 slots, and
      mla_decode at minicpm3's shape (S 128 and 8192) beside SDPA over
-     [q_abs | q_pe] and [ckv | kpe] (fp32, one kv head);
+     [q_abs | q_pe] and [ckv | kpe] (fp32, one kv head); then
+     flash_decode at zamba2's shape (KVH 32, G 1, Dh 80) at the serve
+     lengths and S 8192, all live, beside SDPA (MHA, position mask);
   8. training, with the serves' state freed, through the training entry
      point repro_torch.launch.train.main: the "full" preset (Llama-3-8B
      at full width and depth, random bf16 weights from seed 0, the bf16
@@ -290,6 +301,10 @@ FAMILY_SERVES = [
     # cache through mla_decode
     ("gemma2-27b", None, [{}]),
     ("minicpm3-4b", None, [{}]),
+    # the recurrent families, dense as well: RWKV6 launches no decode
+    # kernel, zamba2's shared attention one flash_decode grid a group
+    ("rwkv6-3b", None, [{}]),
+    ("zamba2-2.7b", None, [{}]),
 ]
 # musicgen (not served: the server decodes [n] tokens, it decodes [n, 4]):
 # a wave as the serves run one, at full width: MUSICGEN_STEPS timed
@@ -308,6 +323,19 @@ GEMMA2_SOFTCAP = 50.0
 MLA_SHAPE = (40, 256, 32)
 MLA_REDUCED = (4, 32, 16)
 MLA_SCALE = 1.0 / math.sqrt(96)
+# zamba2-2.7b's shared attention (KVH, G, Dh): kernel 4 at Dh = 80, timed
+# at kernel 1's serve lengths (128/97/40/7: 272 live positions) and at the
+# long context, every position live
+ZAMBA2_SHAPE = (32, 1, 80)
+ZAMBA2_SERVE_POS = [127, 96, 39, 6]
+ZAMBA2_LONG_POS = [8191] * 4
+# the recurrent families' full-width prefill against their token-by-token
+# steps (phase 3): B x S tokens, two chunks of 128; fp32 weights, so the
+# check is of the chunked form against the recurrence (sums in another
+# order through 32 or 63 blocks), each state within PREFILL_TOL of its
+# largest value
+PREFILL_B, PREFILL_S = 2, 256
+PREFILL_TOL = 1e-3
 # gemma2's kv_quant steps (phase 6): a wave of GEMMA2_STEPS timed steps
 # after one untimed, for 4 rows from these contexts, on int8 and bf16
 GEMMA2_STEPS = 32
@@ -1523,6 +1551,113 @@ def gemma2_quant_steps(ttf, model, counted: dict, smi: str) -> dict:
     return out
 
 
+# -- the recurrent families: kernel 4 at zamba2's Dh = 80, their prefill -------
+
+
+def zamba2_checks(fd, ref) -> float:
+    """Phase 3's checks of kernel 4 at zamba2's shared attention (B 4,
+    KVH 32, G 1, Dh 80), bf16 and fp32, against its plain version at
+    atol = rtol = 2e-3: the serve lengths, ragged positions, the long
+    context (S 8192), a window across split boundaries and pos 0.
+    Returns the largest error."""
+    KVH, G, Dh = ZAMBA2_SHAPE
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for i, (S, pos, window, label) in enumerate((
+                (128, ZAMBA2_SERVE_POS, 0, "serve lengths"),
+                (128, RAGGED_POS, 0, "ragged positions"),
+                (8192, LONG_POS, 0, "long context"),
+                (2048, MID_POS, 300, "window across split boundaries"),
+                (128, [0] * 4, 0, "pos 0"))):
+            errs.append(check_dense(fd, ref, dense_case(
+                4, S, KVH, G, Dh, pos, seed=170 + i, dtype=dtype), window,
+                f"zamba2 Dh=80 {tag} {label}"))
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def check_recurrent_prefill(ttf, get_arch, arch) -> None:
+    """``arch`` (rwkv6-3b or zamba2-2.7b) at full width and depth, fp32
+    weights from seed 0: ``prefill`` of PREFILL_B x PREFILL_S tokens (two
+    chunks of 128) on the card, against PREFILL_S ``serve_step`` steps
+    from a zero cache over the same tokens: every state of the prefill's
+    cache (RWKV6's shifts and wkv states; zamba2's shared-block K/V, conv
+    inputs and SSD states) and the last logits within PREFILL_TOL of
+    their largest value."""
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    model = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda", dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = ttf.prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = ttf.init_cache(cfg, PREFILL_B, PREFILL_S, torch.float32,
+                           device="cuda")
+    for t in range(PREFILL_S):
+        pos = torch.full((PREFILL_B,), t, dtype=torch.int32, device="cuda")
+        last, steps = ttf.serve_step(model, steps, {"token": toks[:, t],
+                                                    "pos": pos})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if sorted(cache) != sorted(steps):
+        fail(f"{arch} prefill cache {sorted(cache)}, steps {sorted(steps)}")
+    rel = {}
+    for name, want in (*cache.items(), ("logits", logits)):
+        got = last if name == "logits" else steps[name]
+        if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(want).all():
+            fail(f"{arch} prefill {name}: shape {tuple(want.shape)} against "
+                 f"{tuple(got.shape)}, or not finite")
+        rel[name] = ((got.float() - want.float()).abs().max()
+                     / want.float().abs().max().clamp(min=1e-30)).item()
+    phase("check", f"{arch} prefill (full width, {cfg.num_layers} layers, fp32, "
+          f"B={PREFILL_B} S={PREFILL_S}, chunks of {cfg.ssm.chunk_size}) "
+          "against its serve_step steps from zeros: largest error / largest "
+          "value " + ", ".join(f"{n} {e:.2e}" for n, e in rel.items())
+          + f" (tolerance {PREFILL_TOL:g}); prefill {t2 - t1:.3f} s, "
+          f"{PREFILL_S} steps {t3 - t2:.2f} s, built in {t1 - t0:.1f} s")
+    bad = {n: e for n, e in rel.items() if not e <= PREFILL_TOL}
+    if bad:
+        fail(f"{arch} prefill against its steps: {bad} above {PREFILL_TOL}")
+    del model, cache, steps, logits, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zamba2_timing(fd, ref, smi: str) -> dict:
+    """Phase 7's timing of kernel 4 at zamba2's shape (B 4, KVH 32, G 1,
+    Dh 80, bf16) at the serve lengths and at S = 8192, every position
+    live: the three times, the bound, the plain version and SDPA (MHA,
+    the position mask)."""
+    KVH, G, Dh = ZAMBA2_SHAPE
+    t = {}
+    for shape, (S, pos, iters) in {"serve": (128, ZAMBA2_SERVE_POS, 200),
+                                   "long": (8192, ZAMBA2_LONG_POS, 100)}.items():
+        case = dense_case(4, S, KVH, G, Dh, pos, seed=180)
+        r = three_times(lambda: fd.flash_decode(*case), fd.flash_decode, iters)
+        r["bound_ms"], r["bound_by"] = bound(*dense_work(case, 0))
+        r["plain_ms"] = time_ms(lambda: ref.flash_decode_ref(*case),
+                                max(iters // 10, 5))
+        lib = sdpa(case)
+        r["library_ms"] = time_ms(lib, iters)
+        want = ref.flash_decode_ref(*case)
+        r["library_err"] = (lib().float().reshape(want.shape) - want
+                            ).abs().max().item()
+        r["pos"] = pos
+        t[shape] = r
+        phase("time", f"flash_decode zamba2 {shape} (KVH 32, G 1, Dh 80, S={S}, "
+              f"pos {pos}): " + describe(r) + f", sdpa {r['library_ms']:.4f} ms "
+              f"(bf16, max_abs_err {r['library_err']:.2e}) on {smi}")
+        del case, lib, want
+    torch.cuda.empty_cache()
+    return t
+
+
 # -- the MoE layer and the other families ---------------------------------------
 
 
@@ -1595,10 +1730,12 @@ def family_serves(serve, setup, counted: dict, smi: str, after=None) -> dict:
     built (random bf16 weights from seed 0, at full width; a depth cut
     printed) after the one before is freed, then served fused with paged
     decode (and granite-20b again with dense decode; gemma2 and minicpm3
-    decode dense whatever the engine asks).  Each serve must pass
-    ``check_serve``, launch its decode kernel (flash_decode_paged,
-    flash_decode, or mla_decode for MLA) exactly one grid per layer per
-    step and ``probe_topk_fused``, and no kernel of another path, and
+    decode dense whatever the engine asks, as do rwkv6 and zamba2).  Each
+    serve must pass ``check_serve``, launch its decode kernel
+    (flash_decode_paged, flash_decode, or mla_decode for MLA) exactly
+    one grid per layer per step (zamba2: flash_decode one grid per
+    group per step; rwkv6: no decode kernel at all) and
+    ``probe_topk_fused``, and no kernel of another path, and
     replay through the happens-before checker with 0 violations; it
     prints ms/step and tokens/s.  ``after`` maps an arch to a function
     of its model run after its serves, whose result is kept under the
@@ -1638,14 +1775,27 @@ def family_serves(serve, setup, counted: dict, smi: str, after=None) -> dict:
             phase("serve", json.dumps({"path": path, **{k: summary[k] for k in
                                                         SERVE_FIELDS}}))
             check_serve(path, summary)
-            kernel = ("mla_decode" if cfg.attn_kind == "mla" else "flash_decode"
+            kind = serve.tf.family_kind(cfg)
+            kernel = (None if kind == "rwkv6" else "mla_decode"
+                      if cfg.attn_kind == "mla" else "flash_decode"
                       if summary["decode"] == "dense" else "flash_decode_paged")
-            check_decode_launches(path, kernel, fam, summary, launches[path])
+            if kind == "zamba2":
+                check_decode_launches(path, kernel, summary, launches[path],
+                                      serve.tf.zamba2_groups(cfg)[0], "groups")
+            elif kernel:
+                check_decode_launches(path, kernel, summary, launches[path],
+                                      cfg.num_layers)
+            elif summary["decode_steps"] < 1:
+                fail(f"{path} serve: no decode step")
+            else:
+                phase("check", f"{path} serve: no decode kernel in "
+                      f"{summary['decode_steps']} steps (attention-free)")
             other = [n for n in counted if n not in (kernel, "probe_topk_fused")]
             if launches[path]["probe_topk_fused"] < 1 or any(
                     launches[path][n] for n in other):
                 fail(f"the {path} serve launched {launches[path]}: want "
-                     f"probe_topk_fused and {kernel} only")
+                     f"probe_topk_fused and {kernel or 'no decode kernel'} "
+                     "only")
             phase("kernels", json.dumps({"path": path, **launches[path]}))
             check_invariants(path, summary)
             steps = summary["decode_steps"]
@@ -2237,17 +2387,19 @@ def retrieval_ab(serve, setup, reps=20):
     return ms["fused"], ms["unfused"], sum(map(len, a.hit_clusters)), alone
 
 
-def check_decode_launches(path, name, setup, summary, counts):
-    """The ``path`` serve's decode kernel ``name``: exactly one grid
-    launch per layer in every decode step (its splits combine inside
-    the launch)."""
-    layers, steps = setup.arch.num_layers, summary["decode_steps"]
-    want = steps * layers
+def check_decode_launches(path, name, summary, counts, per_step,
+                          unit="layers"):
+    """The ``path`` serve's decode kernel ``name``: exactly ``per_step``
+    grid launches in every decode step, one for each of ``per_step``
+    ``unit`` (layers, or zamba2's groups; its splits combine inside the
+    launch)."""
+    steps = summary["decode_steps"]
+    want = steps * per_step
     if steps < 1 or counts[name] != want:
         fail(f"{path} serve: {name} made {counts[name]} grid launches in "
-             f"{steps} steps, want {want} ({layers} layers x 1 grid a step)")
+             f"{steps} steps, want {want} ({per_step} {unit} x 1 grid a step)")
     phase("check", f"{path} serve: {name} {want} grid launches = {steps} "
-          f"steps x {layers} layers x 1 grid a call")
+          f"steps x {per_step} {unit} x 1 grid a call")
 
 
 def chunk_serve(serve, setup, fused: dict, counted: dict) -> dict:
@@ -3119,12 +3271,17 @@ def main() -> None:
     # variant, the MLA kernel; then the reduced gemma2 and minicpm3 steps
     err_cap, err_quant, err_mla = gemma2_mla_checks(fd, mla, ref)
     err_dense = max(err_dense, err_cap)
+    # this slice's: kernel 4 at zamba2's Dh = 80
+    err_dense = max(err_dense, zamba2_checks(fd, ref))
 
     check_model(ttf, get_arch)
     check_moe_layer(get_arch)
     for arch, kv_quant in (("gemma2-27b", False), ("gemma2-27b", True),
-                           ("minicpm3-4b", False)):
+                           ("minicpm3-4b", False), ("rwkv6-3b", False),
+                           ("zamba2-2.7b", False)):
         check_dense_family(ttf, get_arch, arch, kv_quant)
+    for arch in ("rwkv6-3b", "zamba2-2.7b"):
+        check_recurrent_prefill(ttf, get_arch, arch)
 
     # 5) timing of kernel 5, warm and cold (kernels 2 and 3 come after the serves)
     cent_t = centroid_timing(cp, ref, smi)
@@ -3156,8 +3313,8 @@ def main() -> None:
                                                     SERVE_FIELDS}}))
         check_serve(path, summary)
         check_decode_launches(path, "flash_decode" if path == "dense"
-                              else "flash_decode_paged", setup, summary,
-                              launches[path])
+                              else "flash_decode_paged", summary,
+                              launches[path], setup.arch.num_layers)
         phase("kernels", json.dumps({"path": path, **launches[path]}))
         check_invariants(path, summary)
     want = {"fused": ("flash_decode_paged", "probe_topk_fused"),
@@ -3214,6 +3371,7 @@ def main() -> None:
         phase("aim", f"{aim}: {'met' if met else 'NOT met'} ({numbers}; {smi})")
     g48_t = g48_timing(fd, ref, smi)
     gm_t = gemma2_mla_timing(fd, mla, ref, smi)
+    zamba2_t = zamba2_timing(fd, ref, smi)
     phase("aim", "each decode kernel at the serve shape: device time a call no "
           "higher than the parent's; kernels 1 and 4 unchanged; the spliced "
           "kernel faster than the parent's at the long context: judged by "
@@ -3259,7 +3417,8 @@ def main() -> None:
          "max_abs_err": err_dense, **decode_json(decode_t["flash_decode"]),
          "granite20b": g48_t["flash_decode"],
          "gemma2_softcap": gm_t["flash_decode_softcap"],
-         "gemma2_ring": gm_t["flash_decode_ring"]["long"]},
+         "gemma2_ring": gm_t["flash_decode_ring"]["long"],
+         "zamba2_dh80": zamba2_t},
         {"name": "centroid_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/centroid_scores.cu",
          "replaces": "src/repro/kernels/centroid_probe.py:42",

@@ -260,9 +260,9 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    # import the ported arch modules for registration side effects (the
-    # SSM families wait for their slice)
+    # import all arch modules for registration side effects
     from repro_torch.configs import (  # noqa: F401
         gemma2_27b, minicpm3_4b, granite_20b, nemotron4_15b, granite_moe_3b,
-        arctic_480b, internvl2_1b, musicgen_large, llama3_8b,
+        arctic_480b, rwkv6_3b, zamba2_2_7b, internvl2_1b, musicgen_large,
+        llama3_8b,
     )

@@ -44,8 +44,14 @@
 // blockIdx.y is kv-head * ngt + tile, each tile a block of its own over
 // at most kMaxG query rows (compiled for 1, 2, 4 and 8), which reads the
 // (b, kv-head)'s K/V rows once for its rows; the tiles' splits combine apart, each under its own counter, in
-// the scratch of the G rows.  Dh in {32, 64, 128}; K/V in bf16 or fp32;
-// rows 16-byte aligned.
+// the scratch of the G rows.  Dh in {32, 64, 80, 128}; K/V in bf16 or fp32;
+// rows 16-byte aligned.  Dh = 80 (zamba2's heads, the dense kernel in bf16
+// and fp32 only) is staged as 80-element rows, but in registers a row
+// spreads over the next power of two of lanes (16 for bf16, 32 for fp32):
+// the lanes past Dh / kVec hold zeros and read nothing, so the butterflies
+// and the row-slot sums stay over a power of two of lanes and add exact
+// zeros.  At a power-of-two Dh there are no such lanes and the code is
+// what it was.
 //
 // Two options, each a compile-time flag so that a kernel without it
 // compiles to the code it had before: kCap caps every scaled fp32 score
@@ -148,6 +154,18 @@ __device__ __forceinline__ void load16(const int8_t* p, float2 sc, float (&f)[8]
   }
 }
 
+// load16 on a lane that holds a row's data; zeros on a padded lane (Dh =
+// 80), which reads nothing.
+template <typename KT, int V>
+__device__ __forceinline__ void load16_or_zero(const KT* p, bool has, float (&f)[V]) {
+  if (has) {
+    load16(p, f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) f[e] = 0.f;
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
@@ -166,14 +184,18 @@ template <typename KT, int Dh>
 struct Tile {
   static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   static constexpr int kVec = kQuant ? 8 : 16 / (int)sizeof(KT);   // elements a read
-  static constexpr int kLanes = Dh / kVec;            // lanes per row (4..32)
+  static constexpr int kRowVecs = Dh / kVec;          // lanes that hold a row's data
+  static constexpr int kLanes =                       // lanes per row (4..32): the
+      kRowVecs <= 4 ? 4 : kRowVecs <= 8 ? 8 : kRowVecs <= 16 ? 16 : 32;   // next power of 2
+  static constexpr bool kPad = kLanes != kRowVecs;    // lanes past the row (Dh = 80)
   static constexpr int kSlots = kThreads / kLanes;    // rows read at once by the block
   static constexpr int kStage = kChunk * Dh;          // elements of one K or V chunk
   static constexpr int kCopyVec = 16 / (int)sizeof(KT);          // elements per piece
   static constexpr int kCopyLanes = Dh / kCopyVec;               // pieces a row
   static constexpr int kCopies = kChunk * kCopyLanes / kThreads;   // pieces a thread copies
-  static_assert(Dh % kCopyVec == 0 && 32 % kLanes == 0 && kChunk % kSlots == 0 &&
-                    kChunk * kCopyLanes % kThreads == 0,
+  static_assert(Dh % kVec == 0 && Dh % kCopyVec == 0 && kRowVecs <= 32 &&
+                    kChunk % kSlots == 0 && kChunk * kCopyLanes % kThreads == 0 &&
+                    !(kPad && kQuant),
                 "tile");
 };
 
@@ -355,14 +377,16 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   }
 
   // this thread's head dims [sub * V, sub * V + V) of rows slot, slot + kSlots, ...
+  // (none where sub >= kRowVecs: a padded lane's q, K and V are zeros)
   const int sub = lane % T::kLanes;
   const int slot = tid / T::kLanes;
+  const bool has = !T::kPad || sub < T::kRowVecs;
   const QT* q = static_cast<const QT*>(a.q) + obase;
   float qr[GM][V];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
 #pragma unroll
-    for (int e = 0; e < V; ++e) qr[g][e] = g < G ? to_f(q[g * Dh + sub * V + e]) : 0.f;
+    for (int e = 0; e < V; ++e) qr[g][e] = g < G && has ? to_f(q[g * Dh + sub * V + e]) : 0.f;
   }
 
   float m_run[GM], l_run[GM], acc[GM][V];
@@ -452,7 +476,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
         if constexpr (kQuant)
           load16(ks + j * Dh + sub * V, ksc[j], kf);
         else
-          load16(ks + j * Dh + sub * V, kf);
+          load16_or_zero(ks + j * Dh + sub * V, has, kf);
         bool ok = j < n;
         if constexpr (Splice::kOn) ok = pol.live(j, ok);
         live_row[it] = ok;
@@ -533,7 +557,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
         if constexpr (kQuant)
           load16(vs + j * Dh + sub * V, vsc[j], vf);
         else
-          load16(vs + j * Dh + sub * V, vf);
+          load16_or_zero(vs + j * Dh + sub * V, has, vf);
         float pj[GM];   // an int8 block's from shared memory, two at a time at GM = 2
         if constexpr (kPair) {
           const float2 t = reinterpret_cast<const float2*>(pw)[j];
@@ -567,7 +591,7 @@ __device__ __forceinline__ void decode_block(const Args& a, int rid, int lo, int
   }
   __syncthreads();   // the stages are free
   float* red = reinterpret_cast<float*>(smem);   // [kWarps][GM][Dh]
-  if (lane < T::kLanes) {
+  if (lane < T::kRowVecs) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
 #pragma unroll

@@ -3,13 +3,17 @@
 // with per-(position, kv-head) bf16 scales): one block a (split,
 // kv-head G tile, b) over positions pos[b] - window < j <= pos[b] of a
 // [B, S, KVH, Dh] cache, decode_block doing the work.  The ladder picks
-// the instantiation by Dh, the query rows a block holds (1, 2, 4 or 8)
-// and whether the scores are softcapped (a.cap > 0).
+// the instantiation by Dh (32, 64 and 128; 80 for bf16 and fp32 K/V,
+// zamba2's heads), the query rows a block holds (1, 2, 4 or 8) and
+// whether the scores are softcapped (a.cap > 0).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "decode_attn.cuh"
 
@@ -57,6 +61,10 @@ int launch(const Args& a, int Dh, dim3 grid, const int* pos, int S, int KVH, int
     case 32: return launch_dh<QT, KT, 32>(a, grid, pos, S, KVH, window, stream);
     case 64: return launch_dh<QT, KT, 64>(a, grid, pos, S, KVH, window, stream);
     case 128: return launch_dh<QT, KT, 128>(a, grid, pos, S, KVH, window, stream);
+    case 80:
+      if constexpr (!std::is_same<KT, int8_t>::value)
+        return launch_dh<QT, KT, 80>(a, grid, pos, S, KVH, window, stream);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

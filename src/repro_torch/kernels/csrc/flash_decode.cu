@@ -33,7 +33,8 @@
 // count [B, KVH, ngt] int32 (ngt = ceil(G / 8) G tiles), zero before the
 // first launch (each launch leaves it zero).  Takes G = 1..64 (past 8 in
 // tiles of 8 query rows, a block each, decode_attn.cuh), Dh in {32, 64,
-// 128}, any S >= 1, and an optional score softcap (gemma2's 50; a
+// 80, 128} (80: zamba2's shared attention, rows spread over 16 or 32
+// lanes with the lanes past the row idle), any S >= 1, and an optional score softcap (gemma2's 50; a
 // compile-time flag, so the uncapped kernels are the code they were).
 // The kernel and its launch ladder are in dense_decode.cuh, shared with
 // the int8 cache's flash_decode_quant.cu.

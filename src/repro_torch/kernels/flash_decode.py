@@ -14,7 +14,10 @@ launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_quant.cu`` /
 current stream (built on first use) or raises.  All four kernels split every sequence over positions
 (``_splits``: whole 64-position chunks, enough blocks for several per SM)
 and combine the splits inside the same launch, so each wrapper's
-``launches`` counts one grid launch a call.  A kv-head's G query rows
+``launches`` counts one grid launch a call.  Each takes Dh 32, 64 and
+128; ``flash_decode`` also 80 (zamba2's shared attention), and on a CUDA
+tensor every wrapper refuses any other Dh rather than run the plain
+version.  A kv-head's G query rows
 share a block up to ``_MAX_G``; past it (to ``_MAX_ROWS``: granite-20b's
 MQA has G = 48) they go in tiles of ``_MAX_G`` rows, a block each, on
 the grid's kv-head dimension (``_tiles``), in the same single launch.
@@ -38,6 +41,8 @@ from repro_torch.models.layers import rope_frequencies
 _DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
            (torch.float32, torch.float32))      # (q, k/v) pairs the kernels take
 _QUANT_DTYPES = ((torch.bfloat16, torch.int8), (torch.float32, torch.int8))
+_DHS = (32, 64, 128)    # head dims the kernels are built for
+_DENSE_DHS = (32, 64, 80, 128)   # and the dense bf16/fp32 kernel (zamba2's 80)
 _CHUNK = 64             # positions per softmax step (csrc/decode_attn.cuh)
 _MAX_G = 8              # query rows a block holds (kMaxG)
 _MAX_ROWS = 64          # query rows a kv-head may have (kMaxRows)
@@ -78,15 +83,15 @@ def _kernel(name: str):
 
 
 def _check_launch(q: torch.Tensor, kv: torch.Tensor, v: torch.Tensor,
-                  pairs=_DTYPES, **ints: torch.Tensor) -> None:
-    """What the CUDA kernels take: G in 1..64, Dh in (32, 64, 128), q/kv
-    dtypes among ``pairs`` (bf16/bf16, fp32/bf16 or fp32/fp32; the int8
-    kernel bf16/int8 or fp32/int8), int32 index tensors, and every
-    tensor contiguous."""
+                  pairs=_DTYPES, dhs=_DHS, **ints: torch.Tensor) -> None:
+    """What the CUDA kernels take: G in 1..64, Dh in ``dhs`` (32, 64 and
+    128; the dense kernel 80 too), q/kv dtypes among ``pairs``
+    (bf16/bf16, fp32/bf16 or fp32/fp32; the int8 kernel bf16/int8 or
+    fp32/int8), int32 index tensors, and every tensor contiguous."""
     G, Dh = q.shape[2], q.shape[3]
-    if not 1 <= G <= _MAX_ROWS or Dh not in (32, 64, 128):
-        raise ValueError(f"kernel takes G in 1..{_MAX_ROWS} and Dh in (32, "
-                         f"64, 128); got G={G}, Dh={Dh}")
+    if not 1 <= G <= _MAX_ROWS or Dh not in dhs:
+        raise ValueError(f"kernel takes G in 1..{_MAX_ROWS} and Dh in "
+                         f"{dhs}; got G={G}, Dh={Dh}")
     if (q.dtype, kv.dtype) not in pairs or v.dtype != kv.dtype:
         raise ValueError(f"q {q.dtype}, k/v {kv.dtype}/{v.dtype}: kernel "
                          "takes q/kv " + ", ".join(
@@ -203,7 +208,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_decode_ref(q, k, v, pos, window, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
-    _check_launch(q, k, v, pos=pos)
+    _check_launch(q, k, v, dhs=_DENSE_DHS, pos=pos)
     B, KVH, G, Dh = q.shape
     S = k.shape[1]
     out = _launch("flash_decode", q, k, v, S, (pos.data_ptr(),),

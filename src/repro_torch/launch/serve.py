@@ -32,7 +32,9 @@ group-granular discipline.  ``serve`` may run several times over one
 ``--arch`` takes any registered config but musicgen's codebooks, at
 full width: the Llama-3 family, the MoE family, the plain-MLP and vision
 configs decode paged; gemma2-27b (local/global layers over a split
-cache) and minicpm3-4b (MLA's latent cache) always decode dense, since
+cache), minicpm3-4b (MLA's latent cache), rwkv6-3b (RWKV6's shifts and
+wkv state, no attention) and zamba2-2.7b (Mamba2 states and the shared
+block's K/V) always decode dense, since
 ``DecodeRunner.attach`` ANDs the engine's ``paged_decode`` with
 ``supports_paged_decode``, as the reference's.  ``--layers N`` cuts the
 depth and prints the cut.
@@ -100,9 +102,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama3-8b",
                     help="a registered config at its full width: llama3-8b, "
                          "granite-moe-3b-a800m, arctic-480b, granite-20b, "
-                         "nemotron-4-15b, internvl2-1b, gemma2-27b and "
-                         "minicpm3-4b (dense decode only; musicgen-large "
-                         "decodes codebooks and is not served)")
+                         "nemotron-4-15b, internvl2-1b, gemma2-27b, "
+                         "minicpm3-4b, rwkv6-3b and zamba2-2.7b (the last "
+                         "four decode dense only; musicgen-large decodes "
+                         "codebooks and is not served)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model's depth (width is never cut)")
     ap.add_argument("--reduced", action="store_true",

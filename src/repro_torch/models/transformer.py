@@ -1,6 +1,11 @@
-"""The attention decoders (the Llama-3 family, MoE, plain MLPs, a ViT or
+"""Every decoder family of the reference as an ``nn.Module``: the
+attention decoders (the Llama-3 family, MoE, plain MLPs, a ViT or
 EnCodec front-end stub, gemma2's local/global layers with softcaps and
-tied embeddings, MLA) as an ``nn.Module``.
+tied embeddings, MLA) and the two recurrent ones (``family_kind``):
+RWKV6 (time mix and channel mix, ``models/rwkv6.py``) and zamba2
+(Mamba2 blocks, ``models/mamba2.py``, with one shared attention + MLP
+block applied before every group of ``shared_attn_every`` blocks, its
+q and v projections plus a per-group LoRA delta).
 
 Parameters are stacked along a leading layer dim, exactly like the
 reference's pytree (``layers.attn.wq`` [L, d, H, Dh], ...), so
@@ -26,8 +31,12 @@ reference's ``supports_paged_decode``.  The MLP is gated or plain
 [..., codebooks, V].  Training runs through the same ``forward``
 (``remat`` recomputes groups of layers in backward) and ``loss_fn``; a
 model is trainable only after ``set_trainable()``, so serving stays
-gradient-free.  The SSM families (RWKV6, Mamba2/zamba2) are not ported
-yet.
+gradient-free.  The recurrent families carry a per-request state in a
+dense cache instead of K/V that grows: RWKV6's token shifts and fp32
+wkv state a layer (no attention, no decode kernel), zamba2's shared
+block's K/V a group (decoded through ``flash_decode``, one grid a group
+a step) beside each Mamba2 block's conv inputs and fp32 SSD state.
+They serve dense only and do not train yet.
 """
 
 from __future__ import annotations
@@ -43,8 +52,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import mla
 from repro_torch.models import moe
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (largest_divisor, mlp_forward,
                                       rms_norm, softcap, token_nll)
 
@@ -69,10 +80,26 @@ _FAMILY_PATHS = {
     "dense_w_down": ("layers", "mlp", "dense", "w_down"),
     "vit_proj": ("vit_proj",),
     **{name: ("layers", "attn", name) for name in mla.PARAMS},
+    # RWKV6's layers [L, ...]; zamba2's Mamba2 blocks [G, per, ...], its
+    # shared block (unstacked) and the block's LoRA deltas [G, ...]
+    "tm_norm": ("layers", "tm_norm"), "cm_norm": ("layers", "cm_norm"),
+    **{name: ("layers", "tm", name) for name in rwkv6.PARAMS},
+    "norm": ("layers", "norm"),
+    **{name: ("layers", "mamba", name) for name in mamba2.PARAMS},
+    "shared_attn_norm": ("shared", "attn_norm"),
+    **{"shared_" + n: ("shared", "attn", n) for n in ("wq", "wk", "wv", "wo")},
+    "shared_mlp_norm": ("shared", "mlp_norm"),
+    **{"shared_" + n: ("shared", "mlp", n) for n in ("w_up", "w_gate", "w_down")},
+    **{"lora_" + n: ("lora", n) for n in ("qa", "qb", "va", "vb")},
 }
 _LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "router",
                  "w_up", "w_gate", "w_down", "dense_w_up", "dense_w_gate",
-                 "dense_w_down") + mla.PARAMS
+                 "dense_w_down") + mla.PARAMS + (
+                     "tm_norm", "cm_norm", "norm") + rwkv6.PARAMS + mamba2.PARAMS
+# the parameters the reference's makers draw at a scale of their own (the
+# others at 1/sqrt(fan_in), norms ones, conv_b zeros)
+_INIT_SCALES = {**rwkv6.INIT_SCALES, **mamba2.INIT_SCALES, "lora_qb": 0.01,
+                "lora_vb": 0.01}
 
 
 def family_kind(cfg: ArchConfig) -> str:
@@ -91,33 +118,87 @@ def codebooks(cfg: ArchConfig) -> int:
     return fe.num_codebooks if fe is not None and fe.kind == "encodec_stub" else 0
 
 
+def zamba2_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """zamba2's (groups G, Mamba2 blocks a group): one shared-block
+    application before each group."""
+    per = cfg.shared_attn_every
+    if cfg.num_layers % per:
+        raise ValueError(f"zamba2: {cfg.num_layers} layers do not divide "
+                         f"into groups of {per}")
+    return cfg.num_layers // per, per
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is an attention decoder this module
-    implements: GQA (any rotary fraction, a sliding window or gemma2's
-    local/global pattern, logit softcaps) or MLA, a gated or plain MLP
-    or MoE, separate or tied embeddings, a ViT or EnCodec front-end
-    stub.  The SSM families (``family_kind`` rwkv6, zamba2) are not
-    ported yet."""
-    ok = (family_kind(cfg) == "attn" and cfg.ssm is None
-          and (cfg.attn_kind == "gqa"
-               or (cfg.attn_kind == "mla" and cfg.mla is not None))
-          and not (cfg.local_global_pattern and cfg.sliding_window
-                   and cfg.num_layers % 2))
+    """Raise unless ``cfg`` is a decoder this module implements: an
+    attention decoder (GQA with any rotary fraction, a sliding window or
+    gemma2's local/global pattern in pairs, logit softcaps; or MLA; a
+    gated or plain MLP or MoE, separate or tied embeddings, a ViT or
+    EnCodec front-end stub), RWKV6 (attention-free, whole heads) or
+    zamba2 (Mamba2 blocks in whole groups around a GQA shared block)."""
+    kind = family_kind(cfg)
+    if kind == "rwkv6":
+        ok = (cfg.attn_kind == "none"
+              and cfg.d_model % cfg.ssm.head_dim == 0)
+    elif kind == "zamba2":
+        ok = (cfg.ssm is not None and cfg.ssm.kind == "mamba2"
+              and cfg.attn_kind == "gqa"
+              and cfg.num_layers % cfg.shared_attn_every == 0)
+    else:
+        ok = (cfg.ssm is None
+              and (cfg.attn_kind == "gqa"
+                   or (cfg.attn_kind == "mla" and cfg.mla is not None))
+              and not (cfg.local_global_pattern and cfg.sliding_window
+                       and cfg.num_layers % 2))
     if not ok:
-        raise ValueError(f"arch {cfg.name!r} is not a ported attention "
-                         "decoder (GQA or MLA; local/global layers in "
-                         "pairs); the SSM families are not ported yet")
+        raise ValueError(f"arch {cfg.name!r} is not a ported decoder (GQA "
+                         "or MLA attention, local/global layers in pairs; "
+                         "attention-free RWKV6; zamba2's Mamba2 blocks in "
+                         "whole groups around a GQA shared block)")
+
+
+def _shared_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """zamba2's shared attention + MLP block and its per-group LoRA
+    deltas [G, ...] (the reference's ``shared`` and ``lora`` trees)."""
+    d, F, r = cfg.d_model, cfg.d_ff, cfg.shared_attn_lora_rank
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G, _ = zamba2_groups(cfg)
+    shapes = {"shared_attn_norm": (d,), "shared_wq": (d, H, Dh),
+              "shared_wk": (d, KVH, Dh), "shared_wv": (d, KVH, Dh),
+              "shared_wo": (H, Dh, d), "shared_mlp_norm": (d,),
+              "shared_w_up": (d, F)}
+    if cfg.mlp_gated:
+        shapes["shared_w_gate"] = (d, F)
+    shapes["shared_w_down"] = (F, d)
+    shapes.update({"lora_qa": (G, d, r), "lora_qb": (G, r, H * Dh),
+                   "lora_va": (G, d, r), "lora_vb": (G, r, KVH * Dh)})
+    return shapes
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """Shape of every parameter (layer params stacked along dim 0)."""
+    """Shape of every parameter: layer params stacked along dim 0
+    (zamba2's Mamba2 blocks along [G, per], its LoRA deltas along G)."""
     d, L, V, F = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     nc = codebooks(cfg)
     shapes = {"embed": (nc, V, d) if nc else (V, d)}
     if nc or not cfg.tie_embeddings:
         shapes["unembed"] = (nc, d, V) if nc else (d, V)
-    shapes.update({"final_norm": (d,), "attn_norm": (L, d)})
+    shapes["final_norm"] = (d,)
+    kind = family_kind(cfg)
+    if kind == "rwkv6":
+        shapes["tm_norm"] = (L, d)
+        shapes.update({n: (L,) + sh
+                       for n, sh in rwkv6.rwkv6_param_shapes(cfg).items()})
+        shapes["cm_norm"] = (L, d)
+        return shapes
+    if kind == "zamba2":
+        G, per = zamba2_groups(cfg)
+        shapes["norm"] = (G, per, d)
+        shapes.update({n: (G, per) + sh
+                       for n, sh in mamba2.mamba2_param_shapes(cfg).items()})
+        shapes.update(_shared_shapes(cfg))
+        return shapes
+    shapes["attn_norm"] = (L, d)
     if cfg.attn_kind == "mla":
         shapes.update({n: (L,) + sh for n, sh in mla.mla_param_shapes(cfg).items()})
     else:
@@ -142,6 +223,17 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def _stacked(cfg: ArchConfig, name: str) -> int:
+    """How many leading dims of parameter ``name`` stack layers: 2 for
+    zamba2's Mamba2 blocks [G, per], 1 for other layer params and the
+    LoRA deltas, 0 for the rest."""
+    if name.startswith("lora_"):
+        return 1
+    if name not in _LAYER_PARAMS:
+        return 0
+    return 2 if family_kind(cfg) == "zamba2" else 1
+
+
 class Transformer(nn.Module):
     """Decoder weights plus the paged decode step.  The parameters take
     no gradients until ``set_trainable()``."""
@@ -162,6 +254,7 @@ class Transformer(nn.Module):
                                  f"{shapes[name]}")
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         self.layer_names = tuple(n for n in shapes if n in _LAYER_PARAMS)
+        self._per = zamba2_groups(cfg)[1] if family_kind(cfg) == "zamba2" else 0
 
     @property
     def device(self) -> torch.device:
@@ -178,9 +271,16 @@ class Transformer(nn.Module):
             p.requires_grad_(on)
         return self
 
+    def _stack(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` with its layers along dim 0 (zamba2's
+        [G, per] flattened, group-major)."""
+        t = getattr(self, name)
+        return t.flatten(0, 1) if self._per else t
+
     def layer(self, l: int) -> Dict[str, torch.Tensor]:
-        """Layer ``l``'s parameters (views into the stacked tensors)."""
-        return {name: getattr(self, name)[l] for name in self.layer_names}
+        """Layer ``l``'s parameters (views into the stacked tensors;
+        zamba2's Mamba2 block l is block l % per of group l // per)."""
+        return {name: self._stack(name)[l] for name in self.layer_names}
 
     def layers(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's parameters, for a full-sequence pass: each
@@ -189,7 +289,7 @@ class Transformer(nn.Module):
         ``layer(l)`` index a layer would instead allocate a zero tensor
         the size of the whole stack for every layer (3.8 GB for
         Llama-3-8B's stacked MLP weights)."""
-        stacks = [getattr(self, name).unbind(0) for name in self.layer_names]
+        stacks = [self._stack(name).unbind(0) for name in self.layer_names]
         return [dict(zip(self.layer_names, parts)) for parts in zip(*stacks)]
 
     def forward(self, k_slab, v_slab, block_table, lengths, tokens):
@@ -205,7 +305,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``device``): truncated normal in [-2, 2] scaled by 1/sqrt(fan_in)
     (fan_in = the per-layer shape's first dim, as the reference's
     ``InitMaker``: E for the [E, d, F] expert weights), embedding scale
-    0.02, norms ones.  Layer tensors are filled one layer at a time, and
+    0.02, norms ones, RWKV6's and Mamba2's explicitly scaled parameters
+    and zamba2's LoRA B matrices at the reference's scales, the Mamba2
+    conv bias zeros.  Layer tensors are filled one layer at a time, and
     expert tensors one expert at a time, so the fp32 scratch stays one
     layer's matrix big (arctic's [128, 7168, 4864] w_up of a layer would
     take 17.8 GB)."""
@@ -213,14 +315,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     tensors: Dict[str, torch.Tensor] = {}
     for name, shape in param_shapes(cfg).items():
         t = torch.empty(shape, dtype=dtype, device=dev)
-        if name.endswith("norm"):
+        if name.endswith("norm") or name == "gn_scale":
             t.fill_(1.0)
+        elif name == "conv_b":
+            t.zero_()
         else:
-            per = shape[1:] if name in _LAYER_PARAMS else shape
-            scale = 0.02 if name == "embed" else 1.0 / math.sqrt(max(per[0], 1))
+            k = _stacked(cfg, name)
+            per = shape[k:]
+            scale = (0.02 if name == "embed" else _INIT_SCALES.get(
+                name, 1.0 / math.sqrt(max(per[0], 1))))
             experts = cfg.moe is not None and name in ("w_up", "w_gate", "w_down")
-            parts = ([t] if name not in _LAYER_PARAMS
-                     else t.flatten(0, 1) if experts else t)
+            parts = [t] if not k else t.flatten(0, k - 1 + experts)
             for part in parts:
                 tmp = torch.empty(part.shape, dtype=torch.float32, device=dev)
                 nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
@@ -337,13 +442,26 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     path) runs the layers in groups of ``remat_group`` (the largest
     divisor of L not above it) under ``torch.utils.checkpoint``: backward
     recomputes each group from its input, so only L/g residuals are
-    kept.  The values are the same either way."""
+    kept.  The values are the same either way.
+
+    The recurrent families (which do not train yet: ``remat`` does not
+    apply) start every layer from a zero shift and state, as the
+    reference's ``forward``; their cache is RWKV6's {"shift1", "wkv",
+    "shift2"} [L, B, ...] or zamba2's {"shared_k", "shared_v"} [G, B, S,
+    KVH, Dh] and {"conv", "ssd"} [G, per, B, ...] (``cache_shapes``'s
+    layout, the states as the blocks return them)."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)                      # [B, S, d]
     if image_embeds is not None:
         prefix = torch.einsum("bpe,ed->bpd", image_embeds.to(x.dtype),
                               model.vit_proj)
         x = torch.cat([prefix, x], dim=1)
+    kind = family_kind(cfg)
+    if kind != "attn":
+        x, cache = (_rwkv6_forward(model, x, want_cache) if kind == "rwkv6"
+                    else _zamba2_forward(model, x, attn_chunk, want_cache))
+        return (rms_norm(x, model.final_norm, cfg.norm_eps),
+                torch.zeros((), dtype=torch.float32, device=x.device), cache)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     layers = model.layers()
     windows = layer_windows(cfg)
@@ -370,6 +488,104 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     cache = ({names[0]: torch.stack(ks), names[1]: torch.stack(vs)}
              if want_cache else None)
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
+
+
+def _rwkv6_forward(model: Transformer, x: torch.Tensor, want_cache: bool,
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """RWKV6's layers over x [B, S, d] (time mix, then channel mix, each
+    after its norm and from a zero shift and state): (x, cache or
+    None)."""
+    cfg = model.cfg
+    B, d = x.shape[0], cfg.d_model
+    K = cfg.ssm.head_dim
+    states = []
+    for lp in model.layers():
+        zero = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        st = torch.zeros((B, d // K, K, K), dtype=torch.float32,
+                         device=x.device)
+        y, s1, wkv = rwkv6.rwkv6_time_mix(
+            lp, rms_norm(x, lp["tm_norm"], cfg.norm_eps), cfg,
+            shift_in=zero, state_in=st)
+        x = x + y
+        y, s2 = rwkv6.rwkv6_channel_mix(
+            lp, rms_norm(x, lp["cm_norm"], cfg.norm_eps), zero)
+        x = x + y
+        if want_cache:
+            states.append((s1, wkv, s2))
+    if not want_cache:
+        return x, None
+    s1, wkv, s2 = (torch.stack(t) for t in zip(*states))
+    return x, {"shift1": s1, "wkv": wkv, "shift2": s2}
+
+
+def shared_block(model: Transformer, g: int,
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """zamba2's shared block as group ``g`` applies it: (attention
+    weights {"wq", "wk", "wv", "wo"}, MLP weights).  ``wq`` and ``wv``
+    get the group's LoRA delta ``qa @ qb`` / ``va @ vb`` in the weights'
+    dtype, reshaped to [d, H, Dh] / [d, KVH, Dh], each call: the
+    reference merges them where it applies the block, and so does every
+    caller here, so the merged weights are the reference's own sums."""
+    cfg = model.cfg
+    d, H, KVH, Dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    ap = {"wq": model.shared_wq + (model.lora_qa[g] @ model.lora_qb[g]
+                                   ).reshape(d, H, Dh),
+          "wk": model.shared_wk,
+          "wv": model.shared_wv + (model.lora_va[g] @ model.lora_vb[g]
+                                   ).reshape(d, KVH, Dh),
+          "wo": model.shared_wo}
+    mp = {"w_up": model.shared_w_up, "w_down": model.shared_w_down}
+    if cfg.mlp_gated:
+        mp["w_gate"] = model.shared_w_gate
+    return ap, mp
+
+
+def _shared_mlp(model: Transformer, mp: Dict[str, torch.Tensor],
+                h: torch.Tensor) -> torch.Tensor:
+    """h plus the shared block's MLP of its norm."""
+    cfg = model.cfg
+    return h + mlp_forward(mp, rms_norm(h, model.shared_mlp_norm, cfg.norm_eps),
+                           cfg.mlp_act, cfg.mlp_gated)
+
+
+def _zamba2_forward(model: Transformer, x: torch.Tensor, attn_chunk: int,
+                    want_cache: bool,
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """zamba2 over x [B, S, d]: for each group, the shared block (global
+    causal attention at positions 0..S-1, then its MLP) and the group's
+    Mamba2 blocks, each after its norm and from a zero conv input and
+    state: (x, cache or None)."""
+    cfg = model.cfg
+    B, S = x.shape[:2]
+    G, per = zamba2_groups(cfg)
+    d_in, Hm, P, N = mamba2.mamba2_dims(cfg)
+    cw = cfg.ssm.conv_width
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    layers = model.layers()
+    kvs, states = [], []
+    for g in range(G):
+        ap, mp = shared_block(model, g)
+        a_out, kv = attn.attn_forward(
+            ap, rms_norm(x, model.shared_attn_norm, cfg.norm_eps), cfg,
+            positions=positions, window=0, attn_chunk=attn_chunk)
+        x = _shared_mlp(model, mp, x + a_out)
+        kvs.append(kv)
+        for lp in layers[g * per:(g + 1) * per]:
+            ci = torch.zeros((B, cw - 1, d_in + 2 * N), dtype=x.dtype,
+                             device=x.device)
+            si = torch.zeros((B, Hm, P, N), dtype=torch.float32,
+                             device=x.device)
+            y, co, so = mamba2.mamba2_forward(
+                lp, rms_norm(x, lp["norm"], cfg.norm_eps), cfg, conv_in=ci,
+                state_in=si)
+            x = x + y
+            states.append((co, so))
+    if not want_cache:
+        return x, None
+    k, v = (torch.stack(t) for t in zip(*kvs))
+    conv, ssd = (torch.stack(t).unflatten(0, (G, per)) for t in zip(*states))
+    return x, {"shared_k": k, "shared_v": v, "conv": conv, "ssd": ssd}
 
 
 def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
@@ -417,7 +633,8 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
     {"ckv", "kpe"}; gemma2's is split as the reference hands it to
     decode: the local (even) layers' K/V as rings of W slots
     (``ring_from_full``), "k_local"/"v_local" [L/2, B, W, KVH, Dh], the
-    global (odd) layers' whole, "k_global"/"v_global"."""
+    global (odd) layers' whole, "k_global"/"v_global"; RWKV6's and
+    zamba2's are their states after the prompt (``forward``)."""
     cfg = model.cfg
     x, _, cache = forward(model, inputs["tokens"],
                           image_embeds=inputs.get("image_embeds"),
@@ -437,12 +654,30 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
     the reference's: MLA {"ckv" [L, B, S, R], "kpe" [L, B, S, Dr]};
     gemma2's split cache {"k_local", "v_local" [L/2, B, W, KVH, Dh] with
     W = min(window, max_len), "k_global", "v_global" [L/2, B, S, KVH,
-    Dh]}; else {"k", "v"} [L, B, S, KVH, Dh].  ``kv_quant`` stores the
+    Dh]}; RWKV6 {"shift1", "shift2" [L, B, d] and "wkv" [L, B, H, K, K]
+    fp32}; zamba2 {"shared_k", "shared_v" [G, B, S, KVH, Dh], "conv"
+    [G, per, B, cw - 1, d_in + 2N] and "ssd" [G, per, B, Hm, P, N]
+    fp32}; else {"k", "v"} [L, B, S, KVH, Dh].  ``kv_quant`` stores the
     full-length K/V int8 with bf16 scales [..., S, KVH] beside them
     ("k_scale"/"v_scale", or "k_global_scale"/"v_global_scale"; the
-    local rings stay in ``dtype``)."""
+    local rings stay in ``dtype``); the recurrent families ignore it, as
+    the reference's do."""
     check_supported(cfg)
     L, B, S = cfg.num_layers, batch, max_len
+    kind = family_kind(cfg)
+    if kind == "rwkv6":
+        K = cfg.ssm.head_dim
+        return {"shift1": ((L, B, cfg.d_model), dtype),
+                "wkv": ((L, B, cfg.d_model // K, K, K), torch.float32),
+                "shift2": ((L, B, cfg.d_model), dtype)}
+    if kind == "zamba2":
+        G, per = zamba2_groups(cfg)
+        d_in, Hm, P, N = mamba2.mamba2_dims(cfg)
+        kv = (G, B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"shared_k": (kv, dtype), "shared_v": (kv, dtype),
+                "conv": ((G, per, B, cfg.ssm.conv_width - 1, d_in + 2 * N),
+                         dtype),
+                "ssd": ((G, per, B, Hm, P, N), torch.float32)}
     if cfg.attn_kind == "mla":
         m = cfg.mla
         return {"ckv": ((L, B, S, m.kv_lora_rank), dtype),
@@ -516,7 +751,9 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
     cache), MLA's latent cache through ``kernels.ops.mla_decode``.
     gemma2's split cache runs its layers in (local, global) pairs, as
     the reference's pair scan: the local layer over its ring
-    (``attn_decode_ring``), the global one over its full cache.
+    (``attn_decode_ring``), the global one over its full cache.  RWKV6
+    and zamba2 step their recurrences (``_rwkv6_step``,
+    ``_zamba2_step``).
     Returns (logits [B, V] (audio [B, codebooks, V]), cache) — the
     cache's tensors are the same, updated in place.
     """
@@ -525,6 +762,12 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
     B = pos.shape[0]
     rows = torch.arange(B, device=pos.device)          # write index, once a step
     clip = lambda S: pos.long().clamp(0, S - 1)
+    kind = family_kind(cfg)
+    if kind == "rwkv6":
+        return _rwkv6_step(model, cache, inputs["token"]), cache
+    if kind == "zamba2":
+        return _zamba2_step(model, cache, inputs["token"], pos, rows,
+                            clip(cache["shared_k"].shape[2])), cache
 
     if cfg.local_global_pattern and cfg.sliding_window:
         kl, vl = cache["k_local"], cache["v_local"]
@@ -568,12 +811,68 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
     return _decode(model, inputs["token"], attend), cache
 
 
+def _rwkv6_step(model: Transformer, cache: Dict[str, torch.Tensor],
+                tokens: torch.Tensor) -> torch.Tensor:
+    """One RWKV6 token a row: each layer's time mix and channel mix
+    from its shifts and wkv state, which are overwritten in place with
+    the new ones (the reference's scan returns them).  Returns logits
+    [B, V]."""
+    cfg = model.cfg
+    s1, wkv, s2 = cache["shift1"], cache["wkv"], cache["shift2"]
+    h = embed_tokens(model, tokens)                      # [B, d]
+    for l in range(cfg.num_layers):
+        lp = model.layer(l)
+        y, s1o, st = rwkv6.rwkv6_time_mix_step(
+            lp, rms_norm(h, lp["tm_norm"], cfg.norm_eps), cfg,
+            shift_in=s1[l], state_in=wkv[l])
+        h = h + y
+        y, s2o = rwkv6.rwkv6_channel_mix(
+            lp, rms_norm(h, lp["cm_norm"], cfg.norm_eps), s2[l])
+        h = h + y
+        s1[l].copy_(s1o)
+        wkv[l].copy_(st)
+        s2[l].copy_(s2o)
+    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps))
+
+
+def _zamba2_step(model: Transformer, cache: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
+                 at: torch.Tensor) -> torch.Tensor:
+    """One zamba2 token a row: for each group, the shared block's
+    attention over its dense K/V (written in place at (``rows``,
+    ``at``), ``attn_decode``, so one ``flash_decode`` grid a group) and
+    its MLP, then the group's Mamba2 steps, whose conv inputs and SSD
+    states are overwritten in place.  Returns logits [B, V]."""
+    cfg = model.cfg
+    G, per = zamba2_groups(cfg)
+    ck, cv, conv, ssd = (cache[n] for n in ("shared_k", "shared_v", "conv",
+                                            "ssd"))
+    h = embed_tokens(model, tokens)                      # [B, d]
+    for g in range(G):
+        ap, mp = shared_block(model, g)
+        h = h + attn.attn_decode(
+            ap, rms_norm(h, model.shared_attn_norm, cfg.norm_eps), cfg,
+            ck[g], cv[g], pos, rows, at)
+        h = _shared_mlp(model, mp, h)
+        for i in range(per):
+            lp = model.layer(g * per + i)
+            y, co, st = mamba2.mamba2_step(
+                lp, rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
+                conv_in=conv[g, i], state_in=ssd[g, i])
+            h = h + y
+            conv[g, i].copy_(co)
+            ssd[g, i].copy_(st)
+    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps))
+
+
 def _check_paged(cfg: ArchConfig) -> None:
-    """Paged decode takes global-causal GQA attention only (the
-    reference's ``supports_paged_decode``): no window, no MLA."""
-    if cfg.attn_kind != "gqa" or cfg.sliding_window:
+    """Paged decode takes global-causal GQA attention decoders only (the
+    reference's ``supports_paged_decode``): no window, no MLA, no
+    recurrent family."""
+    if (family_kind(cfg) != "attn" or cfg.attn_kind != "gqa"
+            or cfg.sliding_window):
         raise ValueError(f"arch {cfg.name!r} decodes over a dense cache "
-                         "only (sliding window or MLA)")
+                         "only (sliding window, MLA or a recurrent family)")
 
 
 def serve_step_paged(model: Transformer, k_slab: torch.Tensor,

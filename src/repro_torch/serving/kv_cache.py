@@ -1,8 +1,10 @@
 """KV cache manager for the serving engine.
 
 Dense mode (``acquire``/``release``) allocates one decode cache per
-(batch, max_len) bucket and recycles it across requests (stale entries
-are masked by per-sequence ``pos``; ``fresh=True`` zeroes it).  A
+(batch, max_len) bucket and recycles it across requests (stale K/V
+entries are masked by per-sequence ``pos``; ``fresh=True`` zeroes it,
+and a recurrent family's bucket, whose state no mask hides, is zeroed
+whenever it is recycled).  A
 recycled bucket keeps its pool lease (the bytes stay resident) until
 ``drop``/``drop_all``; ``acquire`` of a new bucket spills the manager's
 own recycled buckets before raising ``PoolExhausted``.  A lease is
@@ -108,7 +110,9 @@ class KVCacheManager:
         ``max_len``: the recycled bucket when one is parked, else a fresh
         pool-backed allocation (raises ``PoolExhausted`` when the pool
         cannot fit it, after spilling this manager's recycled buckets).
-        ``fresh=True`` zeroes a recycled cache.  The bucket's pool lease
+        ``fresh=True`` zeroes a recycled cache, and a recycled RWKV6 or
+        zamba2 cache is zeroed always, as the reference's: recurrent
+        state must not leak across requests.  The bucket's pool lease
         carries ``tenant``, so the ledger's ``tenant:<name>`` bytes include
         KV; a recycled bucket is re-attributed to whoever reuses it."""
         key = (batch, max_len)
@@ -144,7 +148,7 @@ class KVCacheManager:
                     and page_lease.tenant != tenant):
                 # the recycled bytes now serve another tenant
                 self.pool.reattribute(page_lease, tenant)
-            if fresh:
+            if fresh or tf.family_kind(self.cfg) != "attn":
                 for t in cache.values():
                     t.zero_()
         self._record("kv.acquire", batch, max_len, nbytes, tenant,
@@ -195,7 +199,8 @@ class KVCacheManager:
     def nbytes(self, batch: int, max_len: int) -> int:
         """Exact tensor bytes of one dense (batch, max_len) bucket: the sum
         over the tensors ``init_cache`` makes (GQA k/v, gemma2's rings and
-        global caches, MLA's latent cache), the ledger's ``"kv"`` charge
+        global caches, MLA's latent cache, RWKV6's and zamba2's states
+        and zamba2's shared-block K/V), the ledger's ``"kv"`` charge
         to the byte, as the reference's; drivers size the pool with it.
         Memoised per (batch, max_len)."""
         key = (batch, max_len)

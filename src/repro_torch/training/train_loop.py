@@ -27,10 +27,11 @@ def check_trainable(cfg: ArchConfig) -> None:
     global-causal GQA decoder with a gated MLP, separate embeddings, no
     softcap and no MoE or front-end (the Llama-3 family).  The MoE,
     plain-MLP, vision, audio, gemma2 (window, softcaps, tied
-    embeddings) and MLA families serve, and train in a later slice of
-    the port."""
+    embeddings), MLA and recurrent (RWKV6, zamba2) families serve, and
+    train in a later slice of the port."""
     tf.check_supported(cfg)
-    if (cfg.moe is not None or cfg.frontend is not None
+    if (tf.family_kind(cfg) != "attn"
+            or cfg.moe is not None or cfg.frontend is not None
             or not cfg.mlp_gated or cfg.rope_fraction != 1.0
             or cfg.attn_kind != "gqa" or cfg.sliding_window
             or cfg.local_global_pattern or cfg.tie_embeddings
@@ -38,8 +39,9 @@ def check_trainable(cfg: ArchConfig) -> None:
             or cfg.final_logit_softcap is not None):
         raise ValueError(f"arch {cfg.name!r}: training is ported for the "
                          "Llama-3 family only; the MoE, plain-MLP, vision, "
-                         "audio, window/softcap/tied-embedding and MLA "
-                         "families train in a later slice")
+                         "audio, window/softcap/tied-embedding, MLA and "
+                         "recurrent (RWKV6, zamba2) families train in a "
+                         "later slice")
 
 
 def make_loss_fn(cfg: ArchConfig, *, attn_chunk: int = 1024,

@@ -1234,13 +1234,17 @@ def test_flash_decode_quant_dequantizes_every_int8_value_exactly():
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,kv_quant", [("gemma2-27b", False),
                                            ("gemma2-27b", True),
-                                           ("minicpm3-4b", False)])
+                                           ("minicpm3-4b", False),
+                                           ("rwkv6-3b", False),
+                                           ("zamba2-2.7b", False)])
 def test_dense_family_serve_step_on_card_matches_cpu(arch, kv_quant):
-    """The reduced gemma2 (4 layers, window 8: 12 steps wrap the rings)
-    and minicpm3, fp32, ``serve_step`` on the card against the CPU:
-    logits within 2e-3 each step; one decode grid per layer per step
-    (rings and global layers through flash_decode, or flash_decode_quant
-    on the global layers; MLA through mla_decode)."""
+    """The reduced gemma2 (4 layers, window 8: 12 steps wrap the rings),
+    minicpm3, rwkv6 and zamba2, fp32, ``serve_step`` on the card against
+    the CPU: logits within 2e-3 each step; one decode grid per layer per
+    step (rings and global layers through flash_decode, or
+    flash_decode_quant on the global layers; MLA through mla_decode),
+    none for RWKV6 and one flash_decode grid per group for zamba2's
+    shared attention."""
     dev = _card()
     from repro_torch.kernels import mla_decode as tmla
     cfg = get_arch(arch).reduced()
@@ -1270,9 +1274,63 @@ def test_dense_family_serve_step_on_card_matches_cpu(arch, kv_quant):
         pos = pos + 1
     made = [f.launches - b for f, b in zip(counted, before)]
     L = cfg.num_layers
-    if arch == "minicpm3-4b":
+    if arch == "rwkv6-3b":
+        assert made == [0, 0, 0, 0]
+    elif arch == "zamba2-2.7b":
+        assert made == [steps * ttf.zamba2_groups(cfg)[0], 0, 0, 0]
+    elif arch == "minicpm3-4b":
         assert made == [0, 0, steps * L, 0]
     elif kv_quant:
         assert made == [steps * L // 2, steps * L // 2, 0, 0]
     else:
         assert made == [steps * L, 0, 0, 0]
+
+
+# -- zamba2's shared attention: kernel 4 at Dh = 80 ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,pos,window", [
+    (128, [127, 96, 40, 0], 0),          # zamba2's serve bucket, ragged
+    (1000, [999, 500, 63, 64], 300),     # a window across split boundaries
+    (8192, [8191, 6143, 4999, 4095], 0)])  # the long context
+def test_flash_decode_dh80_matches_plain(dtype, S, pos, window):
+    """zamba2's shape (B 4, KVH 32, G 1, Dh 80: rows spread over 16 bf16
+    or 32 fp32 lanes, the lanes past 80 idle) against the plain version
+    within atol=rtol=2e-3 (fp32 sums in another order), one grid a
+    call."""
+    dev = _card()
+    case = _dense(4, S, 32, 1, 80, pos, 80, dtype)
+    want = tref.flash_decode_ref(*case, window)
+    before = tfd.flash_decode.launches
+    got = tfd.flash_decode(*(t.to(dev) for t in case), window=window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_dh_outside_the_kernels_is_refused_on_the_card():
+    """On a CUDA tensor the wrappers launch or raise: Dh = 48 is refused
+    by every decode wrapper, and Dh = 80 by all but the dense bf16/fp32
+    kernel (the int8 and paged kernels are not built for it); no plain
+    version runs and nothing is counted."""
+    dev = _card()
+    counted = (tfd.flash_decode, tfd.flash_decode_quant, tfd.flash_decode_paged)
+    before = [f.launches for f in counted]
+    for Dh in (48, 80):
+        q, k, v, pos = (t.to(dev) for t in _dense(2, 64, 2, 1, Dh, [63, 5],
+                                                  7, torch.bfloat16))
+        if Dh == 48:
+            with pytest.raises(ValueError, match="Dh"):
+                tfd.flash_decode(q, k, v, pos)
+        ki, vi = k.to(torch.int8), v.to(torch.int8)
+        sc = torch.ones(k.shape[:3], dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="Dh"):
+            tfd.flash_decode_quant(q, ki, vi, sc, sc, pos)
+        bt = torch.arange(2 * 4, dtype=torch.int32, device=dev).reshape(2, 4)
+        with pytest.raises(ValueError, match="Dh"):
+            tfd.flash_decode_paged(q, k.reshape(8, 16, 2, Dh),
+                                   v.reshape(8, 16, 2, Dh), bt, pos + 1)
+    assert [f.launches for f in counted] == before

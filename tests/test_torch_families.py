@@ -4,9 +4,11 @@ granite-20b (MQA, plain GELU MLP), nemotron (partial rotary,
 squared-ReLU MLP), internvl2 (a ViT prefix through ``vit_proj``),
 musicgen (four EnCodec codebooks summed in, logits [..., 4, V]), and the
 dense-decode families gemma2 (local/global layers over a split cache,
-softcaps, tied embeddings) and minicpm3 (MLA's latent cache), which
-take every test but the paged one, and a CPU serve each against the
-reference's server.
+softcaps, tied embeddings), minicpm3 (MLA's latent cache) and the
+recurrent rwkv6 (RWKV6's shifts and wkv state) and zamba2 (Mamba2
+blocks around a shared attention block with per-group LoRA deltas),
+which take every test but the paged one, and a CPU serve each against
+the reference's server.
 
 Each ``.reduced()`` config's parameters come from the reference's own
 ``tf.init_params(cfg, PRNGKey(0), dtype=float32)``, carried across with
@@ -51,8 +53,9 @@ from repro_torch.serving import decode as tdecode
 ARCHS = ["granite-moe-3b-a800m", "arctic-480b", "granite-20b",
          "nemotron-4-15b", "internvl2-1b", "musicgen-large"]
 # the families that decode over a dense cache only (no paged decode, as
-# the reference's supports_paged_decode)
-DENSE_ONLY = ["gemma2-27b", "minicpm3-4b"]
+# the reference's supports_paged_decode): gemma2's split cache, MLA's
+# latents and the recurrent families' states
+DENSE_ONLY = ["gemma2-27b", "minicpm3-4b", "rwkv6-3b", "zamba2-2.7b"]
 BF16_SCALE_TOL = 3e-2
 
 

@@ -184,3 +184,39 @@ def test_nbytes_is_the_init_cache_bytes_for_every_arch(kv_quant):
             if not kv_quant:
                 assert TKV(tc, device="cpu").nbytes(B, S) == want == \
                     JKV(jc).nbytes(B, S), (name, B, S)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_recycled_recurrent_bucket_is_zeroed_as_the_reference(arch):
+    """A released RWKV6 or zamba2 bucket comes back zeroed without
+    ``fresh=True``, as the reference's does for every family but the
+    attention one (recurrent state must not leak across requests; a
+    Llama bucket comes back as it was, above): the port reuses its
+    tensors, zeroed, and both managers hand out equal caches."""
+    import jax.numpy as jnp
+    jkv = JKV(jget_arch(arch).reduced())
+    tkv = TKV(tget_arch(arch).reduced(), device="cpu")
+    jl, tl = jkv.acquire(2, 8), tkv.acquire(2, 8)
+    assert sorted(jl.cache) == sorted(tl.cache)
+    for t in tl.cache.values():
+        t.fill_(1.0)
+    jl.cache = {n: jnp.ones_like(a) for n, a in jl.cache.items()}
+    jkv.release(jl)
+    tkv.release(tl)
+    j2, t2 = jkv.acquire(2, 8), tkv.acquire(2, 8)
+    for name, t in t2.cache.items():
+        assert t is tl.cache[name], name                 # recycled
+        assert not t.any(), name
+        assert not np.asarray(j2.cache[name]).any(), name
+
+
+@pytest.mark.parametrize("arch,want", [("rwkv6-3b", 85_196_800),
+                                       ("zamba2-2.7b", 337_102_848)])
+def test_recurrent_nbytes_at_full_width_is_the_reference(arch, want):
+    """The serve's bucket (batch 4, 128 tokens, bf16) of the full
+    configs, to the byte as the reference's ``nbytes``: rwkv6-3b's wkv
+    [32, 4, 40, 64, 64] fp32 and two [32, 4, 2560] bf16 shifts; zamba2's
+    shared K/V [9, 4, 128, 32, 80] bf16, conv [9, 6, 4, 3, 5248] bf16 and
+    SSD state [9, 6, 4, 80, 64, 64] fp32."""
+    got = TKV(tget_arch(arch), device="cpu").nbytes(4, 128)
+    assert got == JKV(jget_arch(arch)).nbytes(4, 128) == want

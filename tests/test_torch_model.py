@@ -240,8 +240,9 @@ def test_init_params_default_device_needs_a_card(monkeypatch):
 
 
 def test_unsupported_arch_is_refused():
-    """An SSM family (RWKV6), which the port does not implement yet, is
-    refused (a sliding window is ported since gemma2)."""
+    """An RWKV6 block in a config that also declares attention (GQA) is
+    not a config the port implements, and is refused (RWKV6 itself is
+    attention-free; a sliding window is ported since gemma2)."""
     from repro_torch.configs.base import SSMConfig
     jc, tc = _cfgs()
     with pytest.raises(ValueError):
