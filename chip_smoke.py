@@ -147,13 +147,23 @@ Phases, one line each, every one fatal on failure:
      last below the first.  Then where a step's time goes, on a model of
      its own built as main builds it (the update alone, a profiled
      step's device ms by aten op, one step each in turn at main's
-     attention/loss chunks and at make_train_step's defaults).  Then the "100m" preset through main
-     with --ckpt-dir: 4 steps uninterrupted, and a resume from the
-     step-2 checkpoint alone; the resumed steps' metrics and the step-4
-     checkpoints equal to the bit; and that checkpoint restored into a
-     fresh state (in place) and saved again, equal to the bit.
-     Training runs no hand-written kernel (the reference trains through
-     jnp attention, with no Pallas kernel).
+     attention/loss chunks and at make_train_step's defaults).  Then
+     every other family, one model at a time (each freed before the
+     next), through init_training and make_train_step at main's chunks
+     (remat), 3 steps on one repeated 2 x 512 batch: minicpm3-4b,
+     granite-moe-3b-a800m, rwkv6-3b, musicgen-large (codebooks),
+     zamba2-2.7b and internvl2-1b (its 256-embedding image prefix) at
+     full width and depth, gemma2-27b at full width cut to 4 of 46
+     layers (2 local, 2 global); one line each (ms/step, tokens/s, peak
+     memory, moments, first and last loss; every loss finite, the last
+     below the first; granite-moe's recompute routing every layer as
+     its forward did).  Then the "100m" preset of llama3-8b and of
+     zamba2-2.7b through main with --ckpt-dir: 4 steps uninterrupted,
+     and a resume from the step-2 checkpoint alone; the resumed steps'
+     metrics and the step-4 checkpoints equal to the bit; and that
+     checkpoint restored into a fresh state (in place) and saved again,
+     equal to the bit.  Training runs no hand-written kernel (the
+     reference trains through jnp attention, with no Pallas kernel).
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -270,10 +280,24 @@ TRAIN_ARGS = ["--preset", "full", "--steps", str(TRAIN_STEPS), "--batch",
               str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup", "1",
               "--repeat-batch", "--log-every", "1", "--device", "cuda"]
 
-# the checkpoint round trip: launch/train's "100m" preset, CKPT_STEPS
-# steps with a checkpoint every CKPT_STEPS // 2
+# the checkpoint round trip: launch/train's "100m" preset of each of
+# CKPT_ARCHS (zamba2: per-group LoRA, a shared block, [G, per] blocks),
+# CKPT_STEPS steps with a checkpoint every CKPT_STEPS // 2
 CKPT_STEPS = 4
 CKPT_BATCH, CKPT_SEQ = 4, 256
+CKPT_ARCHS = ("llama3-8b", "zamba2-2.7b")
+
+# the other families' training in phase 8, one model at a time: (arch,
+# layers or None for full depth), each through init_training and
+# make_train_step at main's chunks, FAMILY_TRAIN_STEPS steps on one
+# repeated TokenStream batch of TRAIN_BATCH x TRAIN_SEQ tokens; gemma2-27b
+# (27.2 B) does not fit one card with its moments: 4 of 46 layers (2
+# local, 2 global; 3.45 B) do
+FAMILY_TRAINS = [("minicpm3-4b", None), ("granite-moe-3b-a800m", None),
+                 ("rwkv6-3b", None), ("musicgen-large", None),
+                 ("zamba2-2.7b", None), ("internvl2-1b", None),
+                 ("gemma2-27b", 4)]
+FAMILY_TRAIN_STEPS = 3
 
 # the decode kernels' checks at the new configs' G and past 8 (phase 3):
 # (label, KVH, G, Dh, rope fraction): granite-moe's 24/8 heads, nemotron's
@@ -2600,6 +2624,124 @@ def train_phase(smi: str) -> dict:
     return out
 
 
+def family_train(arch: str, layers, smi: str) -> dict:
+    """One family's training on the card: the arch's config (full
+    width; ``layers`` cuts the depth by ``dataclasses.replace``), its
+    model and AdamW state from ``init_training`` (random bf16 weights
+    from seed 0, the moment dtype ``launch/train``'s memory check
+    picks), FAMILY_TRAIN_STEPS steps of ``make_train_step`` at main's
+    chunks (attention 256, loss 128, remat) on one repeated TokenStream
+    batch (an image prefix for internvl2, codebooks for musicgen).  One
+    line: steps, ms/step after the first, tokens/s, peak memory, the
+    moments, the first and last loss, and the device's busy ms in one
+    more step under torch.profiler.  For MoE, backward's recompute
+    must route each layer of the first step as its forward did.  Fails
+    unless every loss and grad norm is finite and the last loss is below
+    the first; an out-of-memory error fails the run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.train import moment_dtype, param_count
+    from repro_torch.models import moe
+    from repro_torch.training import (OptConfig, init_training,
+                                      make_train_step)
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    moments = moment_dtype(cfg, torch.device("cuda"))
+    opt = OptConfig(warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS,
+                    moment_dtype=moments)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state = init_training(cfg, opt,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        seed=0)).next_batch().items()}
+    step = make_train_step(cfg, opt, attn_chunk=min(256, TRAIN_SEQ),
+                           loss_chunk=128)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    routes, real_route = {}, moe.route
+
+    def record(router, x, c):      # each layer's routings, by its router
+        r = real_route(router, x, c)
+        routes.setdefault(router.data_ptr(), []).append(
+            (r.experts, r.weights, r.slot))
+        return r
+
+    rows = []
+    for i in range(FAMILY_TRAIN_STEPS):
+        if i == 0 and cfg.moe is not None:
+            moe.route = record          # the first step's forward and recompute
+        t1 = time.perf_counter()
+        try:
+            model, state, m = step(model, state, batch)
+        finally:
+            moe.route = real_route
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "ms": 1e3 * (time.perf_counter() - t1)})
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under the profiler: the device's busy ms in a step
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(model, state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t1)
+    busy, by_op = _device_ms(prof)
+    del model, state, batch, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows]
+    steady = [r["ms"] for r in rows[1:]]
+    out = {"arch": arch, "layers": cfg.num_layers, "params": param_count(cfg),
+           "moments": moments, "steps": len(rows), "losses": losses,
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "ms": [r["ms"] for r in rows],
+           "steady_ms": sum(steady) / len(steady),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 * len(steady)
+           / sum(steady), "peak_bytes": peak, "init_s": init_s,
+           "profiled_ms": profiled_ms, "device_busy_ms": busy,
+           "device_ms_by_op": dict(sorted(by_op.items(),
+                                          key=lambda kv: -kv[1])[:4])}
+    cut = (f"{cfg.num_layers} of {get_arch(arch).num_layers} layers" if layers
+           else f"{cfg.num_layers} layers (no cut)")
+    phase("train", f"{arch}: {cut}, d_model {cfg.d_model}, "
+          f"{out['params'] / 1e9:.3f} B parameters, {moments} moments; "
+          f"{len(rows)} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+          f"{out['steady_ms']:.1f} ms/step after the first "
+          f"({rows[0]['ms']:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; a profiled step "
+          f"{profiled_ms:.1f} ms wall, "
+          + (f"device busy {busy:.1f} ms" if busy else
+             "device time not measured (the profiler saw no kernel)")
+          + f"; on {smi}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in rows):
+        fail(f"train {arch}: a loss or grad norm is not finite: {rows}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {arch}: the loss did not fall on the repeated batch: "
+             f"{losses}")
+    if cfg.moe is not None:
+        same = [len(c) == 2 and all(torch.equal(a, b)
+                                    for a, b in zip(*c))
+                for c in routes.values()]
+        if len(routes) != cfg.num_layers or not all(same):
+            fail(f"train {arch}: backward's recompute routed "
+                 f"{same.count(False)} of {len(routes)} layers otherwise "
+                 f"than the forward")
+        out["routes_recomputed_alike"] = len(same)
+        phase("train", f"{arch}: backward's recompute routed all "
+              f"{len(same)} layers as the forward did (experts, gates, "
+              "capacity slots)")
+    return out
+
+
 def _device_ms(prof) -> tuple:
     """(device ms of every kernel, device ms by the aten op that launched
     it) from a profile; both 0 / empty when the profiler saw no device
@@ -2703,8 +2845,8 @@ def _files_differ(a: tuple, b: tuple) -> list:
     return [f for f in xa if not np.array_equal(xa[f], xb[f])]
 
 
-def checkpoint_phase() -> dict:
-    """launch/train's ``main`` at the ``100m`` preset with --ckpt-dir:
+def checkpoint_phase(arch: str) -> dict:
+    """launch/train's ``main`` at ``arch``'s ``100m`` preset with --ckpt-dir:
     CKPT_STEPS steps uninterrupted (a checkpoint every CKPT_STEPS // 2),
     then a second run that finds only the uninterrupted run's middle
     checkpoint (as after a stop there) and resumes from it.  The resumed
@@ -2715,12 +2857,13 @@ def checkpoint_phase() -> dict:
     again, equal to the bit.  Fails otherwise."""
     import shutil
     from repro_torch.configs import get_arch
-    from repro_torch.launch.train import main, preset_config
+    from repro_torch.launch.train import main, param_count, preset_config
     from repro_torch.training import (OptConfig, init_training,
                                       restore_checkpoint, save_checkpoint)
-    cfg = preset_config(get_arch("llama3-8b"), "100m")
+    cfg = preset_config(get_arch(arch), "100m")
     mid = CKPT_STEPS // 2
-    args = ["--preset", "100m", "--steps", str(CKPT_STEPS), "--batch",
+    args = ["--preset", "100m", "--arch", arch, "--steps", str(CKPT_STEPS),
+            "--batch",
             str(CKPT_BATCH), "--seq", str(CKPT_SEQ), "--ckpt-every",
             str(mid), "--log-every", "1", "--warmup", "1",
             "--device", "cuda"]
@@ -2759,11 +2902,12 @@ def checkpoint_phase() -> dict:
             fail(f"checkpoint: save(restore(x)) differs from x: {differ[:5]}")
         nbytes = sum(x.nbytes for x in final[1].values())
         del model, state, back
-    out = {"preset": cfg.name, "tensors": len(final[1]), "bytes": nbytes,
+    out = {"arch": arch, "preset": cfg.name, "tensors": len(final[1]),
+           "bytes": nbytes,
            "save_s": save_s, "restore_s": restore_s,
            "losses": [r["loss"] for r in whole],
            "resumed_losses": [r["loss"] for r in resumed]}
-    phase("checkpoint", f"{cfg.name} ({cfg.param_count() / 1e6:.1f}M "
+    phase("checkpoint", f"{cfg.name} ({param_count(cfg) / 1e6:.1f}M "
           f"parameters) through launch/train with --ckpt-dir: steps "
           f"{mid + 1}-{CKPT_STEPS} resumed from the step-{mid} checkpoint "
           f"equal to the uninterrupted run's (losses {out['resumed_losses']}),"
@@ -3377,12 +3521,15 @@ def main() -> None:
           "kernel faster than the parent's at the long context: judged by "
           "--decode-ab PARENT")
 
-    # 8) training on one card, with the serves' state freed
+    # 8) training on one card, with the serves' state freed: Llama-3-8B
+    #    through launch/train, then every other family, one at a time
     del setup
     train = train_phase(smi)
-    ckpt = checkpoint_phase()
-    phase("train", json.dumps({"train": train, "checkpoint": ckpt,
-                               "card": smi}))
+    families = [family_train(arch, layers, smi)
+                for arch, layers in FAMILY_TRAINS]
+    ckpt = [checkpoint_phase(arch) for arch in CKPT_ARCHS]
+    phase("train", json.dumps({"train": train, "families": families,
+                               "checkpoint": ckpt, "card": smi}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [

@@ -3,9 +3,10 @@ reference's ``data/pipeline.py``, numpy only.
 
 Token batches are a pure function of (seed, step), so resuming from a
 checkpoint cursor reproduces the byte-identical stream, and the same
-seed gives the reference's batches.  The reference's audio and vision
-front-end branches (codebook tokens, image embeddings) wait for those
-model families.
+seed gives the reference's batches: an audio model's codebook tokens
+and labels [B, S, codebooks], a vision model's "image_embeds" [B, P, e]
+(fp32 normal draws after the tokens'), from the reference's draws in
+its order.
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ class DataConfig:
 
 class TokenStream:
     def __init__(self, cfg: ArchConfig, data: DataConfig):
-        if cfg.frontend is not None:
-            raise ValueError(f"arch {cfg.name!r} has a {cfg.frontend.kind} "
-                             "front end; only text streams are ported")
         self.cfg = cfg
         self.data = data
         self.step = 0
@@ -54,15 +52,28 @@ class TokenStream:
     def _gen(self, step: int) -> Dict[str, np.ndarray]:
         d = self.data
         v = self.cfg.vocab_size
+        fe = self.cfg.frontend
         rng = np.random.default_rng((d.seed << 20) ^ step)
-        shape = (d.global_batch, d.seq_len + 1)
+        B, S = d.global_batch, d.seq_len
+        nc = (fe.num_codebooks if fe is not None and fe.kind == "encodec_stub"
+              else 0)
+        shape = (B, S + 1, nc) if nc else (B, S + 1)
         toks = rng.integers(0, min(v, 4096), size=shape)
         # markov smoothing: next token drawn from cur's transition row
         pick = rng.integers(0, 8, size=shape)
-        toks[:, 1:] = self._trans[toks[:, :-1] % len(self._trans),
-                                  pick[:, 1:]]
+        if nc:
+            for c in range(nc):
+                toks[:, 1:, c] = self._trans[toks[:, :-1, c] % len(self._trans),
+                                             pick[:, 1:, c]]
+        else:
+            toks[:, 1:] = self._trans[toks[:, :-1] % len(self._trans),
+                                      pick[:, 1:]]
         toks = toks.astype(np.int32) % v
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if fe is not None and fe.kind == "vit_stub":
+            batch["image_embeds"] = rng.standard_normal(
+                (B, fe.num_prefix_embeddings, fe.embed_dim)).astype(np.float32)
+        return batch
 
     def next_batch(self) -> Dict[str, np.ndarray]:
         b = self._gen(self.step)

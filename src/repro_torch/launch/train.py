@@ -1,9 +1,11 @@
 """Training entry point: token stream -> train step -> checkpoints, on one
 card (the reference's ``launch/train.py``).
 
-Trains a preset of the arch from random weights (a seeded
-``torch.Generator`` on the device; nothing is downloaded) on the
-synthetic ``TokenStream``, logs loss, learning rate, gradient norm and
+Trains a preset of any registered arch (every family the port serves)
+from random weights (a seeded ``torch.Generator`` on the device; nothing
+is downloaded) on the synthetic ``TokenStream`` (an audio model's
+codebook tokens, a vision model's fp32 image embeddings beside its
+tokens), logs loss, learning rate, gradient norm and
 tokens/s, checkpoints every ``--ckpt-every`` steps and at the end, and
 resumes from the newest checkpoint in ``--ckpt-dir`` exactly: the
 weights, the optimizer state and the data cursor, restored into the
@@ -21,7 +23,7 @@ activations.
   PYTHONPATH=src python -m repro_torch.launch.train --preset full \\
       --steps 4 --batch 2 --seq 512 --warmup 1 --repeat-batch
   PYTHONPATH=src python -m repro_torch.launch.train --preset smoke \\
-      --steps 4 --device cpu          # the plain versions, on the CPU
+      --arch zamba2-2.7b --steps 4 --device cpu      # on the CPU
 """
 
 from __future__ import annotations
@@ -62,13 +64,20 @@ def preset_config(cfg: ArchConfig, preset: str) -> ArchConfig:
     raise KeyError(preset)
 
 
+def param_count(cfg: ArchConfig) -> int:
+    """The parameters the port builds for ``cfg`` (``param_shapes``):
+    every family's own, zamba2's shared block and LoRA deltas and an
+    audio model's per-codebook embeddings included."""
+    return sum(math.prod(s) for s in param_shapes(cfg).values())
+
+
 def moment_dtype(cfg: ArchConfig, device: torch.device) -> str:
     """The AdamW moments' dtype: fp32, or bf16 on a card where bf16
     weights and gradients with fp32 moments would take more than 85% of
     its memory."""
     if device.type != "cuda":
         return "float32"
-    n = sum(math.prod(s) for s in param_shapes(cfg).values())
+    n = param_count(cfg)
     total = torch.cuda.get_device_properties(device).total_memory
     return "float32" if n * (2 + 2 + 8) <= 0.85 * total else "bfloat16"
 
@@ -105,7 +114,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
     cfg = preset_config(get_arch(args.arch), args.preset)
     card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     moments = moment_dtype(cfg, dev)
-    print(f"# arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+    print(f"# arch={cfg.name} params={param_count(cfg) / 1e6:.1f}M "
           f"moments={moments} device={card}")
     warmup = max(args.steps // 20, 5) if args.warmup is None else args.warmup
     opt = OptConfig(lr=args.lr, warmup_steps=warmup, total_steps=args.steps,

@@ -4,7 +4,9 @@
 A per-head scalar decay makes the sequence mixing 1-semiseparable:
 within a chunk it is an attention-like masked sum with decay ratios <= 1
 (their logs clipped to [-60, 0]); across chunks the state is carried,
-here by a Python loop where the reference scans.  Decode is the exact
+here by a Python loop where the reference scans; with gradients on,
+each chunk runs under ``torch.utils.checkpoint``, as the reference
+checkpoints its scan's body.  Decode is the exact
 O(1) recurrence.  Both are plain PyTorch ops, on the card too: the
 reference runs them as jnp einsums, with no Pallas kernel to port.
 
@@ -22,6 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import rms_norm
@@ -89,6 +92,27 @@ def _output(p: Dict[str, torch.Tensor], y: torch.Tensor, xc: torch.Tensor,
     return rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps) @ p["w_out"]
 
 
+def _chunk(S_in: torch.Tensor, xcc: torch.Tensor, Bc: torch.Tensor,
+           Cc: torch.Tensor, dtc: torch.Tensor, lac: torch.Tensor,
+           upper: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the SSD: x [B, C, H, P], B and C [B, C, N], dt and
+    log-decay [B, C, H], all fp32, from the state S_in [B, H, P, N] ->
+    (y [B, C, H, P], state out)."""
+    cum = torch.cumsum(lac, dim=1)                           # Σ_{s<=t}
+    # intra: y_t = Σ_{j<=t} exp(cum_t - cum_j) dt_j (C_t·B_j) x_j
+    L = torch.exp(torch.clamp(cum[:, :, None] - cum[:, None], -60.0, 0.0))
+    G = torch.einsum("btn,bjn->btj", Cc, Bc)
+    M = G[..., None] * L * dtc[:, None]                      # [B, t, j, H]
+    M = torch.where(upper, M, torch.zeros_like(M))
+    y = torch.einsum("btjh,bjhp->bthp", M, xcc)
+    # inter: y_t += exp(cum_t) S_in C_t
+    y = y + torch.einsum("btn,bhpn->bthp", Cc, S_in) * torch.exp(cum)[..., None]
+    dec_end = torch.exp(cum[:, -1])                          # [B, H]
+    w = torch.exp(torch.clamp(cum[:, -1][:, None] - cum, -60.0, 0.0)) * dtc
+    return y, S_in * dec_end[..., None, None] + torch.einsum(
+        "bthp,btn->bhpn", xcc * w[..., None], Bc)
+
+
 def mamba2_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: ArchConfig, *, conv_in: torch.Tensor,
                    state_in: torch.Tensor,
@@ -113,26 +137,19 @@ def mamba2_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     xc32 = xc.float()
     upper = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device)
                        )[None, :, :, None]                   # j <= t
+    # with gradients on, backward recomputes each chunk's [B, C, C, H]
+    # masks from its inputs, as the reference's checkpointed body
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc32, Bm, Cm, dt, la, state_in))
 
     S_run = state_in.float()
     ys = []
     for c0 in range(0, S, C):
-        xcc, Bc, Cc, dtc, lac = (t[:, c0:c0 + C]
-                                 for t in (xc32, Bm, Cm, dt, la))
-        cum = torch.cumsum(lac, dim=1)                       # Σ_{s<=t}
-        # intra: y_t = Σ_{j<=t} exp(cum_t - cum_j) dt_j (C_t·B_j) x_j
-        L = torch.exp(torch.clamp(cum[:, :, None] - cum[:, None], -60.0, 0.0))
-        G = torch.einsum("btn,bjn->btj", Cc, Bc)
-        M = G[..., None] * L * dtc[:, None]                  # [B, t, j, H]
-        M = torch.where(upper, M, torch.zeros_like(M))
-        y = torch.einsum("btjh,bjhp->bthp", M, xcc)
-        # inter: y_t += exp(cum_t) S_in C_t
-        y = y + torch.einsum("btn,bhpn->bthp", Cc, S_run) * torch.exp(cum)[..., None]
+        args = (S_run, *(t[:, c0:c0 + C] for t in (xc32, Bm, Cm, dt, la)),
+                upper)
+        y, S_run = (checkpoint(_chunk, *args, use_reentrant=False) if remat
+                    else _chunk(*args))
         ys.append(y)
-        dec_end = torch.exp(cum[:, -1])                      # [B, H]
-        w = torch.exp(torch.clamp(cum[:, -1][:, None] - cum, -60.0, 0.0)) * dtc
-        S_run = S_run * dec_end[..., None, None] + torch.einsum(
-            "bthp,btn->bhpn", xcc * w[..., None], Bc)
     y = _output(p, torch.cat(ys, dim=1), xc, z, cfg, x.dtype)
     return y, conv_out, S_run.to(state_in.dtype)
 

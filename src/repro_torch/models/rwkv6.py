@@ -5,7 +5,9 @@ The WKV recurrence runs in the reference's *chunked linear-attention*
 form: within a chunk of C positions it is a masked attention-like sum
 with per-channel decay ratios (each <= 1, their logs clipped to
 [-60, 0]), and the state is carried from chunk to chunk, here by a
-Python loop where the reference scans.  Decode is the exact O(1)
+Python loop where the reference scans; with gradients on, each chunk
+runs under ``torch.utils.checkpoint``, as the reference checkpoints its
+scan's body, so backward keeps no [B, C, C, H, K] tensor.  Decode is the exact O(1)
 recurrence.  Both are plain PyTorch ops, on the card too: the reference
 runs them as jnp einsums, with no Pallas kernel to port.
 
@@ -22,6 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -85,6 +88,30 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return y.flatten(-2) * scale.float()
 
 
+def _chunk(S_in: torch.Tensor, rc: torch.Tensor, kc: torch.Tensor,
+           vc: torch.Tensor, lwc: torch.Tensor, u: torch.Tensor,
+           below: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the WKV recurrence: r, k, v, log w [B, C, H, K] fp32
+    from the state S_in [B, H, K, K] -> (y [B, C, H, K], state out)."""
+    cum = torch.cumsum(lwc, dim=1)                           # Σ_{s<=t}
+    cum_prev = cum - lwc                                     # Σ_{s<=t-1}
+    # intra-chunk scores: A[t,j] = Σ_k r_t k_j exp(cum_prev_t - cum_j), j<t
+    ratio = torch.clamp(cum_prev[:, :, None] - cum[:, None], -60.0, 0.0)
+    scores = torch.einsum("btjhk,bjhk->btjh",
+                          rc[:, :, None] * torch.exp(ratio), kc)
+    scores = torch.where(below, scores, torch.zeros_like(scores))
+    diag = (rc * u * kc).sum(-1)                             # bonus term [B,C,H]
+    y = torch.einsum("btjh,bjhk->bthk", scores, vc)
+    y = y + diag[..., None] * vc
+    # state contribution: r_t ⊙ exp(cum_prev_t) against S_in
+    y = y + torch.einsum("bthk,bhkn->bthn", rc * torch.exp(cum_prev), S_in)
+    decay_out = torch.exp(cum[:, -1])                        # [B, H, K]
+    k_scaled = kc * torch.exp(torch.clamp(cum[:, -1][:, None] - cum,
+                                          -60.0, 0.0))
+    return y, S_in * decay_out[..., None] + torch.einsum(
+        "bthk,bthn->bhkn", k_scaled, vc)
+
+
 def rwkv6_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
                    cfg: ArchConfig, *, shift_in: torch.Tensor,
                    state_in: torch.Tensor,
@@ -111,29 +138,18 @@ def rwkv6_time_mix(p: Dict[str, torch.Tensor], x: torch.Tensor,
     u = p["bonus"].float()                                   # [H, K]
     below = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device),
                        -1)[None, :, :, None]                 # j < t
+    # with gradients on, backward recomputes each chunk's [B, C, C, H, K]
+    # decay tensors from its inputs, as the reference's checkpointed body
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, logw, u, state_in))
 
     S_run = state_in.float()
     ys = []
     for c0 in range(0, S, C):
-        rc, kc, vc, lwc = (t[:, c0:c0 + C] for t in (r, k, v, logw))
-        cum = torch.cumsum(lwc, dim=1)                       # Σ_{s<=t}
-        cum_prev = cum - lwc                                 # Σ_{s<=t-1}
-        # intra-chunk scores: A[t,j] = Σ_k r_t k_j exp(cum_prev_t - cum_j), j<t
-        ratio = torch.clamp(cum_prev[:, :, None] - cum[:, None], -60.0, 0.0)
-        scores = torch.einsum("btjhk,bjhk->btjh",
-                              rc[:, :, None] * torch.exp(ratio), kc)
-        scores = torch.where(below, scores, torch.zeros_like(scores))
-        diag = (rc * u * kc).sum(-1)                         # bonus term [B,C,H]
-        y = torch.einsum("btjh,bjhk->bthk", scores, vc)
-        y = y + diag[..., None] * vc
-        # state contribution: r_t ⊙ exp(cum_prev_t) against S_in
-        y = y + torch.einsum("bthk,bhkn->bthn", rc * torch.exp(cum_prev), S_run)
+        args = (S_run, *(t[:, c0:c0 + C] for t in (r, k, v, logw)), u, below)
+        y, S_run = (checkpoint(_chunk, *args, use_reentrant=False) if remat
+                    else _chunk(*args))
         ys.append(y)
-        decay_out = torch.exp(cum[:, -1])                    # [B, H, K]
-        k_scaled = kc * torch.exp(torch.clamp(cum[:, -1][:, None] - cum,
-                                              -60.0, 0.0))
-        S_run = S_run * decay_out[..., None] + torch.einsum(
-            "bthk,bthn->bhkn", k_scaled, vc)
     y = _group_norm(torch.cat(ys, dim=1), p["gn_scale"])     # [B, S, d] fp32
     out = (y.to(x.dtype) * g) @ p["w_o"]
     return out, x[:, -1, :], S_run.to(state_in.dtype)

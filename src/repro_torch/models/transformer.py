@@ -36,7 +36,7 @@ dense cache instead of K/V that grows: RWKV6's token shifts and fp32
 wkv state a layer (no attention, no decode kernel), zamba2's shared
 block's K/V a group (decoded through ``flash_decode``, one grid a group
 a step) beside each Mamba2 block's conv inputs and fp32 SSD state.
-They serve dense only and do not train yet.
+They serve dense only.  Every family trains through ``loss_fn``.
 """
 
 from __future__ import annotations
@@ -444,12 +444,15 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     recomputes each group from its input, so only L/g residuals are
     kept.  The values are the same either way.
 
-    The recurrent families (which do not train yet: ``remat`` does not
-    apply) start every layer from a zero shift and state, as the
-    reference's ``forward``; their cache is RWKV6's {"shift1", "wkv",
-    "shift2"} [L, B, ...] or zamba2's {"shared_k", "shared_v"} [G, B, S,
-    KVH, Dh] and {"conv", "ssd"} [G, per, B, ...] (``cache_shapes``'s
-    layout, the states as the blocks return them)."""
+    The recurrent families start every layer from a zero shift and
+    state, as the reference's ``forward``; under ``remat`` RWKV6 runs its
+    layers in groups of ``remat_group`` (the largest divisor of L not
+    above it) and zamba2 each group (the shared block with its LoRA
+    merge, then its Mamba2 blocks) under one checkpoint, as the
+    reference does.  Their cache is RWKV6's {"shift1", "wkv", "shift2"}
+    [L, B, ...] or zamba2's {"shared_k", "shared_v"} [G, B, S, KVH, Dh]
+    and {"conv", "ssd"} [G, per, B, ...] (``cache_shapes``'s layout, the
+    states as the blocks return them)."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)                      # [B, S, d]
     if image_embeds is not None:
@@ -458,8 +461,10 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
         x = torch.cat([prefix, x], dim=1)
     kind = family_kind(cfg)
     if kind != "attn":
-        x, cache = (_rwkv6_forward(model, x, want_cache) if kind == "rwkv6"
-                    else _zamba2_forward(model, x, attn_chunk, want_cache))
+        remat = remat and not want_cache
+        x, cache = (_rwkv6_forward(model, x, want_cache, remat, remat_group)
+                    if kind == "rwkv6" else
+                    _zamba2_forward(model, x, attn_chunk, want_cache, remat))
         return (rms_norm(x, model.final_norm, cfg.norm_eps),
                 torch.zeros((), dtype=torch.float32, device=x.device), cache)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -490,28 +495,51 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
 
 
-def _rwkv6_forward(model: Transformer, x: torch.Tensor, want_cache: bool,
-                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """RWKV6's layers over x [B, S, d] (time mix, then channel mix, each
-    after its norm and from a zero shift and state): (x, cache or
-    None)."""
-    cfg = model.cfg
+def _rwkv6_layer(cfg: ArchConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One RWKV6 layer over x [B, S, d] (time mix, then channel mix, each
+    after its norm and from a zero shift and state): (x, (shift1, wkv,
+    shift2) after it)."""
     B, d = x.shape[0], cfg.d_model
     K = cfg.ssm.head_dim
+    zero = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    st = torch.zeros((B, d // K, K, K), dtype=torch.float32, device=x.device)
+    y, s1, wkv = rwkv6.rwkv6_time_mix(
+        lp, rms_norm(x, lp["tm_norm"], cfg.norm_eps), cfg, shift_in=zero,
+        state_in=st)
+    x = x + y
+    y, s2 = rwkv6.rwkv6_channel_mix(
+        lp, rms_norm(x, lp["cm_norm"], cfg.norm_eps), zero)
+    return x + y, (s1, wkv, s2)
+
+
+def _rwkv6_group(cfg: ArchConfig, x: torch.Tensor,
+                 lps: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+    """``lps``' RWKV6 layers in turn over x."""
+    for lp in lps:
+        x, _ = _rwkv6_layer(cfg, x, lp)
+    return x
+
+
+def _rwkv6_forward(model: Transformer, x: torch.Tensor, want_cache: bool,
+                   remat: bool, remat_group: int,
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """RWKV6's layers over x [B, S, d]: (x, cache or None); ``remat``
+    runs them in groups of ``largest_divisor(L, remat_group)``, each
+    under ``torch.utils.checkpoint``."""
+    cfg = model.cfg
+    layers = model.layers()
+    if remat:
+        g = largest_divisor(cfg.num_layers, remat_group)
+        for i in range(0, cfg.num_layers, g):
+            x = checkpoint(_rwkv6_group, cfg, x, layers[i:i + g],
+                           use_reentrant=False)
+        return x, None
     states = []
-    for lp in model.layers():
-        zero = torch.zeros((B, d), dtype=x.dtype, device=x.device)
-        st = torch.zeros((B, d // K, K, K), dtype=torch.float32,
-                         device=x.device)
-        y, s1, wkv = rwkv6.rwkv6_time_mix(
-            lp, rms_norm(x, lp["tm_norm"], cfg.norm_eps), cfg,
-            shift_in=zero, state_in=st)
-        x = x + y
-        y, s2 = rwkv6.rwkv6_channel_mix(
-            lp, rms_norm(x, lp["cm_norm"], cfg.norm_eps), zero)
-        x = x + y
+    for lp in layers:
+        x, st = _rwkv6_layer(cfg, x, lp)
         if want_cache:
-            states.append((s1, wkv, s2))
+            states.append(st)
     if not want_cache:
         return x, None
     s1, wkv, s2 = (torch.stack(t) for t in zip(*states))
@@ -549,38 +577,57 @@ def _shared_mlp(model: Transformer, mp: Dict[str, torch.Tensor],
                            cfg.mlp_act, cfg.mlp_gated)
 
 
-def _zamba2_forward(model: Transformer, x: torch.Tensor, attn_chunk: int,
-                    want_cache: bool,
-                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """zamba2 over x [B, S, d]: for each group, the shared block (global
-    causal attention at positions 0..S-1, then its MLP) and the group's
-    Mamba2 blocks, each after its norm and from a zero conv input and
-    state: (x, cache or None)."""
+def _zamba2_group(model: Transformer, x: torch.Tensor, g: int,
+                 lps: List[Dict[str, torch.Tensor]], attn_chunk: int,
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+                            List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """zamba2's group ``g`` over x [B, S, d]: the shared block (its LoRA
+    deltas merged; global causal attention at positions 0..S-1, then
+    its MLP) and the group's Mamba2 blocks ``lps``, each after its norm
+    and from a zero conv input and state: (x, the shared block's (k, v),
+    each block's (conv, ssd) state)."""
     cfg = model.cfg
     B, S = x.shape[:2]
-    G, per = zamba2_groups(cfg)
     d_in, Hm, P, N = mamba2.mamba2_dims(cfg)
     cw = cfg.ssm.conv_width
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    ap, mp = shared_block(model, g)
+    a_out, kv = attn.attn_forward(
+        ap, rms_norm(x, model.shared_attn_norm, cfg.norm_eps), cfg,
+        positions=positions, window=0, attn_chunk=attn_chunk)
+    x = _shared_mlp(model, mp, x + a_out)
+    states = []
+    for lp in lps:
+        ci = torch.zeros((B, cw - 1, d_in + 2 * N), dtype=x.dtype,
+                         device=x.device)
+        si = torch.zeros((B, Hm, P, N), dtype=torch.float32, device=x.device)
+        y, co, so = mamba2.mamba2_forward(
+            lp, rms_norm(x, lp["norm"], cfg.norm_eps), cfg, conv_in=ci,
+            state_in=si)
+        x = x + y
+        states.append((co, so))
+    return x, kv, states
+
+
+def _zamba2_forward(model: Transformer, x: torch.Tensor, attn_chunk: int,
+                    want_cache: bool, remat: bool,
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """zamba2 over x [B, S, d], group by group (``_zamba2_group``): (x,
+    cache or None); ``remat`` runs each group under
+    ``torch.utils.checkpoint``, so backward merges its LoRA deltas
+    again."""
+    G, per = zamba2_groups(model.cfg)
     layers = model.layers()
     kvs, states = [], []
     for g in range(G):
-        ap, mp = shared_block(model, g)
-        a_out, kv = attn.attn_forward(
-            ap, rms_norm(x, model.shared_attn_norm, cfg.norm_eps), cfg,
-            positions=positions, window=0, attn_chunk=attn_chunk)
-        x = _shared_mlp(model, mp, x + a_out)
+        lps = layers[g * per:(g + 1) * per]
+        if remat:           # the group's x alone: its states are dropped
+            x = checkpoint(_zamba2_group, model, x, g, lps, attn_chunk,
+                           use_reentrant=False)[0]
+            continue
+        x, kv, st = _zamba2_group(model, x, g, lps, attn_chunk)
         kvs.append(kv)
-        for lp in layers[g * per:(g + 1) * per]:
-            ci = torch.zeros((B, cw - 1, d_in + 2 * N), dtype=x.dtype,
-                             device=x.device)
-            si = torch.zeros((B, Hm, P, N), dtype=torch.float32,
-                             device=x.device)
-            y, co, so = mamba2.mamba2_forward(
-                lp, rms_norm(x, lp["norm"], cfg.norm_eps), cfg, conv_in=ci,
-                state_in=si)
-            x = x + y
-            states.append((co, so))
+        states.extend(st)
     if not want_cache:
         return x, None
     k, v = (torch.stack(t) for t in zip(*kvs))
@@ -592,22 +639,31 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
             attn_chunk: int = 1024, remat: bool = True, remat_group: int = 4,
             loss_chunk: int = 512,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Token-mean LM loss of ``batch`` {"tokens", "labels"} [B, S] (and an
-    optional "loss_mask" [B, S]): ``forward``, then the unembedding and
-    the fp32 NLL over sequence chunks of S/n positions (n the largest
-    divisor of S not above S // loss_chunk, at least 1), each chunk
-    under ``torch.utils.checkpoint``, so backward recomputes its [B, c, V]
+    """Token-mean LM loss of ``batch`` {"tokens", "labels"} [B, S] (an
+    audio model's [B, S, codebooks]), an optional "loss_mask" [B, S] and
+    a vision model's "image_embeds" [B, P, e]: ``forward`` (the image
+    prefix first), the prefix's P positions cut, then the unembedding
+    and the fp32 NLL (an audio model's mean over its codebooks) over
+    sequence chunks of S/n positions (n the largest divisor of S not
+    above S // loss_chunk, at least 1), each chunk under
+    ``torch.utils.checkpoint``, so backward recomputes its [B, c, V]
     logits and the whole sequence's are never kept, as the reference's
-    ``loss_fn`` does.  Returns (loss, {"ce", "aux", "tokens"}), all fp32
-    scalars."""
+    ``loss_fn`` does.  Returns (loss = ce + the MoE aux loss, {"ce",
+    "aux", "tokens"}), all fp32 scalars."""
     labels, mask = batch["labels"], batch.get("loss_mask")
-    x, aux, _ = forward(model, batch["tokens"], attn_chunk=attn_chunk,
-                        remat=remat, remat_group=remat_group)
+    image_embeds = batch.get("image_embeds")
+    x, aux, _ = forward(model, batch["tokens"], image_embeds=image_embeds,
+                        attn_chunk=attn_chunk, remat=remat,
+                        remat_group=remat_group)
+    if image_embeds is not None:
+        x = x[:, image_embeds.shape[1]:]        # the loss on text positions
     S = x.shape[1]
     c = S // largest_divisor(S, max(S // loss_chunk, 1))
 
     def chunk_loss(xc, lc, mc):
         nll = token_nll(unembed(model, xc), lc)
+        if nll.dim() == 3:                      # audio: [B, c, codebooks]
+            nll = nll.mean(-1)
         return torch.sum(nll * mc), torch.sum(mc)
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -13,8 +13,10 @@ tree of tensors is ``{"kind": "arrays", "treedef", "leaves": [{key,
 file, dtype}]}`` with one ``.npy`` a leaf, bf16 stored widened to fp32
 and tagged ``"bfloat16"``.  Leaf keys and their order are the
 reference's pytree paths: a port parameter name maps through
-``transformer._JAX_PATHS`` (``wq`` is ``layers/attn/wq``) and the keys
-are sorted at every level, as JAX flattens a dict.  Trees are a
+``transformer._JAX_PATHS`` and ``_FAMILY_PATHS``, as ``from_jax_params``
+reads them (``wq`` is ``layers/attn/wq``, ``router`` is
+``layers/mlp/router``, ``lora_qa`` is ``lora/qa``), and the keys are
+sorted at every level, as JAX flattens a dict.  Trees are a
 ``Transformer`` (its parameters), nested dicts of tensors (the
 optimizer state, keyed by parameter name), or JSON values.
 Restore matches leaves by key and copies each into its template leaf,
@@ -27,35 +29,51 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import _JAX_PATHS, Transformer
+from repro_torch.models.transformer import (_FAMILY_PATHS, _JAX_PATHS,
+                                            Transformer)
 
 Path = Tuple[str, ...]
 
+# port parameter name -> its path in the reference's pytree
+_PATHS = {**_JAX_PATHS, **_FAMILY_PATHS}
+
 
 def _children(tree: Any) -> Iterator[Tuple[Path, Any]]:
-    """(key path, child) of a mapping or a ``Transformer``, sorted."""
+    """(key path, child) of a mapping or a ``Transformer``, sorted; a
+    parameter name at its reference path."""
     if isinstance(tree, Transformer):
         tree = dict(tree.named_parameters())
-    items = [(_JAX_PATHS.get(k, (k,)), v) for k, v in tree.items()]
+    items = [(_PATHS.get(k, (k,)), v) for k, v in tree.items()]
     return iter(sorted(items, key=lambda kv: kv[0]))
 
 
-def _leaves(tree: Any, prefix: Path = ()) -> Iterator[Tuple[Path, Any]]:
-    """(path, leaf) of every tensor of ``tree``, in the reference's
-    pytree order."""
+def _walk(tree: Any, prefix: Path) -> Iterator[Tuple[Path, Any]]:
     if isinstance(tree, torch.Tensor):
         yield prefix, tree
     elif isinstance(tree, (Mapping, Transformer)):
         for path, child in _children(tree):
-            yield from _leaves(child, prefix + path)
+            yield from _walk(child, prefix + path)
     else:
         raise TypeError(f"checkpoint leaf {'/'.join(prefix)!r} is a "
                         f"{type(tree).__name__}, not a tensor")
+
+
+def _leaves(tree: Any) -> List[Tuple[Path, Any]]:
+    """(path, leaf) of every tensor of ``tree``, in the reference's
+    pytree order; two leaves at one path (which the reference, reading
+    by order, would take for one) are refused."""
+    out, seen = list(_walk(tree, ())), set()
+    for path, _ in out:
+        if path in seen:
+            raise ValueError(f"two checkpoint leaves at {'/'.join(path)!r}")
+        seen.add(path)
+    return out
 
 
 def _has_arrays(tree: Any) -> bool:

@@ -23,31 +23,19 @@ Batch = Mapping[str, torch.Tensor]
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is the family training is ported for: the
-    global-causal GQA decoder with a gated MLP, separate embeddings, no
-    softcap and no MoE or front-end (the Llama-3 family).  The MoE,
-    plain-MLP, vision, audio, gemma2 (window, softcaps, tied
-    embeddings), MLA and recurrent (RWKV6, zamba2) families serve, and
-    train in a later slice of the port."""
+    """Raise unless ``cfg`` is a decoder the port implements
+    (``transformer.check_supported``): every family that serves also
+    trains, as the reference trains every registered arch."""
     tf.check_supported(cfg)
-    if (tf.family_kind(cfg) != "attn"
-            or cfg.moe is not None or cfg.frontend is not None
-            or not cfg.mlp_gated or cfg.rope_fraction != 1.0
-            or cfg.attn_kind != "gqa" or cfg.sliding_window
-            or cfg.local_global_pattern or cfg.tie_embeddings
-            or cfg.attn_logit_softcap is not None
-            or cfg.final_logit_softcap is not None):
-        raise ValueError(f"arch {cfg.name!r}: training is ported for the "
-                         "Llama-3 family only; the MoE, plain-MLP, vision, "
-                         "audio, window/softcap/tied-embedding, MLA and "
-                         "recurrent (RWKV6, zamba2) families train in a "
-                         "later slice")
 
 
 def make_loss_fn(cfg: ArchConfig, *, attn_chunk: int = 1024,
                  remat: bool = True, remat_group: int = 4,
                  loss_chunk: int = 512) -> Callable:
-    """(model, batch) -> (loss, {"ce", "aux", "tokens"}) for ``cfg``."""
+    """(model, batch) -> (loss, {"ce", "aux", "tokens"}) for ``cfg``:
+    ``batch`` holds "tokens" and "labels" [B, S] (an audio model's [B, S,
+    codebooks]), optionally "loss_mask" [B, S] and a vision model's
+    "image_embeds" [B, P, e]."""
     check_trainable(cfg)
 
     def loss_fn(model: tf.Transformer, batch: Batch):
@@ -64,7 +52,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     metrics), the model's parameters and the state updated in place.
 
     ``accum_steps > 1`` splits the batch into that many microbatches
-    along its first dim, one backward each, and scales the summed
+    (every entry, image embeddings too, along its first dim), one
+    backward each, and scales the summed
     gradients, loss, ce and aux by 1/accum_steps (tokens stay summed), as
     the reference's scan does: activation memory scales 1/accum.  Metrics
     are fp32 scalars on the device: loss, ce, aux, tokens, lr, grad_norm.

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain versions, on a
-card, and one train step and a checkpoint round trip there (training
-runs no hand-written kernel).  Every test is marked ``cuda`` and skips inside its body when
+card, and train steps (Llama-3 and one arch of each other family kind,
+against the CPU's) and a checkpoint round trip there (training runs no
+hand-written kernel).  Every test is marked ``cuda`` and skips inside its body when
 ``torch.cuda.is_available()`` is False.  The file imports neither JAX nor
 the JAX package, so it runs on a card host that has neither:
 
@@ -934,6 +935,47 @@ def test_train_main_on_the_card_checkpoints_and_resumes(tmp_path):
     assert train.moment_dtype(cfg, torch.device("cuda")) == "float32"
     more = train.main(args[:3] + ["3"] + args[4:])
     assert [h["step"] for h in more] == [3]
+
+
+# one arch of each family kind beside Llama-3 (whose step is above)
+FAMILY_TRAIN = ["gemma2-27b", "minicpm3-4b", "granite-moe-3b-a800m",
+                "musicgen-large", "internvl2-1b", "rwkv6-3b", "zamba2-2.7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_TRAIN)
+def test_family_train_step_on_the_card_matches_cpu(arch):
+    """One reduced fp32 step (remat) of each family on the card from the
+    CPU model's weights, on a TokenStream batch (an image prefix,
+    codebooks): the loss and grad norm within rtol 1e-4 of the CPU
+    step's (fp32 sums in another order), every gradient on the card and
+    finite."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_train_step)
+    dev = _card()
+    cfg = get_arch(arch).reduced()
+    opt = OptConfig(warmup_steps=1, total_steps=10)
+    weights = ttf.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu", dtype=torch.float32)
+    batch = TokenStream(cfg, DataConfig(global_batch=2, seq_len=32,
+                                        seed=0)).next_batch()
+    step = make_train_step(cfg, opt, attn_chunk=16, loss_chunk=8)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        model = ttf.Transformer(cfg, {n: p.detach().clone().to(d) for n, p
+                                      in weights.named_parameters()})
+        model.set_trainable()
+        state = init_opt_state(dict(model.named_parameters()), opt)
+        model, state, m = step(model, state, {k: torch.from_numpy(v).to(d)
+                                              for k, v in batch.items()})
+        out.append((model, m))
+    (_, c), (card, g) = out
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(g[k].item(), c[k].item(), rtol=1e-4,
+                                   err_msg=k)
+    for n, p in card.named_parameters():
+        assert p.is_cuda and torch.isfinite(p.grad).all(), n
 
 
 # the decode kernels at the new configs' G and past 8 in tiles:

@@ -605,25 +605,3 @@ def test_presets_and_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ttrain.main(["--preset", "smoke", "--steps", "1"])
-
-
-@pytest.mark.parametrize("arch,change", [
-    ("gemma2-27b", {}), ("minicpm3-4b", {}), ("rwkv6-3b", {}),
-    ("zamba2-2.7b", {}),
-    ("llama3-8b", {"sliding_window": 8}),
-    ("llama3-8b", {"attn_logit_softcap": 50.0}),
-    ("llama3-8b", {"final_logit_softcap": 30.0}),
-    ("llama3-8b", {"tie_embeddings": True})])
-def test_check_trainable_refuses_the_families_not_ported_for_training(arch,
-                                                                      change):
-    """gemma2, minicpm3, rwkv6 and zamba2 serve, but training is ported
-    for the Llama-3 family only: a window, either softcap, tied
-    embeddings, MLA and the recurrent families are refused (zamba2 by
-    its family alone: its gated MLP, GQA and no window or softcap pass
-    every other test; the reduced Llama-3 itself is taken)."""
-    from repro_torch.training.train_loop import check_trainable
-    cfg = dataclasses.replace(tget_arch(arch).reduced(), **change)
-    ttf.check_supported(cfg)
-    with pytest.raises(ValueError, match="training is ported"):
-        check_trainable(cfg)
-    check_trainable(tget_arch("llama3-8b").reduced())
