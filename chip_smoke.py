@@ -7,6 +7,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py --attn-ab PARENT     # the same for mla_decode, int8
     python3 chip_smoke.py --retrieval-ab PARENT   # the same for kernels 2, 3
     python3 chip_smoke.py --centroid-ab PARENT    # the same for kernel 5
+    python3 chip_smoke.py --distributed        # phase 9 alone
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -163,7 +164,32 @@ Phases, one line each, every one fatal on failure:
      metrics and the step-4 checkpoints equal to the bit; and that
      checkpoint restored into a fresh state (in place) and saved again,
      equal to the bit.  Training runs no hand-written kernel (the
-     reference trains through jnp attention, with no Pallas kernel).
+     reference trains through jnp attention, with no Pallas kernel);
+  9. the distributed layer (``--distributed`` runs it alone, the index
+     built again with a reduced model): 9a make_manual_dp_train_step
+     (uncompressed) over an NCCL world of 1 on launch/train's full
+     Llama-3-8B (phase 8's weights, moments, attention chunk and
+     repeated 2 x 512 batch), 3 steps: ms/step, peak memory, the losses,
+     the first within 1e-4 of phase 8's first (only the loss chunk, 512
+     against 128, differs), and the bf16 gradient all-reduce alone; 9b
+     internvl2-1b at full width and depth over the same world: 3
+     uncompressed DP steps against make_train_step with the same
+     arguments from the same seed, every parameter and moment equal to
+     the bit, then 3 compressed steps (losses finite and falling, the
+     error feedback nonzero) and both all-reduces alone with their
+     payload bytes; 9c two ranks sharing the card over gloo (NCCL takes
+     one rank a device), one process each (--dist-rank): (i)
+     sharded_device_search over every page of phase 6's index (trimmed
+     to an even count; each rank reads its half from a file), 4
+     queries, k 3, an all-true mask, each rank's kernel-3 launches
+     counted from 0 just before and read after, the doc ids equal to
+     kernel 3's over the whole slab in this process and the scores within
+     6.1e-05; each rank's kernel-3 device ms on its half against its
+     byte bound, the exchange and merge ms (the ranks share one card's
+     bandwidth: not a two-card figure); (ii) internvl2-1b compressed DP
+     steps on a global batch of 4, both ranks' parameters equal to the
+     bit after each step, the int32 payload beside a bf16 all-reduce's;
+     (iii) which collectives gloo takes on CUDA tensors (a finding).
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -364,6 +390,18 @@ PREFILL_TOL = 1e-3
 # after one untimed, for 4 rows from these contexts, on int8 and bf16
 GEMMA2_STEPS = 32
 GEMMA2_LENGTHS = [95, 64, 7, 0]
+
+# phase 9, the distributed layer: 9a and 9b DIST_STEPS DP steps each over
+# an NCCL world of 1 on phase 8's 2 x 512 batch; 9c two ranks on the card
+# over gloo: the sharded search (SEARCH_B queries, top SEARCH_K, ids equal
+# to kernel 3's over the whole slab, scores within RET_SCORE_TOL, phase
+# 4's largest kernel-3 error) and DIST_C_STEPS compressed internvl2-1b
+# steps on a global batch of DIST_C_BATCH x TRAIN_SEQ
+DIST_STEPS = 3
+DIST_C_STEPS, DIST_C_BATCH = 2, 4
+SEARCH_B, SEARCH_K = 4, 3
+RET_SCORE_TOL = 6.1e-05
+DIST_RANK_TIMEOUT = 600
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -2920,6 +2958,562 @@ def checkpoint_phase(arch: str) -> dict:
     return out
 
 
+def _steps(step, model, state, err, batch, n: int) -> list:
+    """``n`` steps of a DP ``step`` (``err`` None: a ``make_train_step``
+    step): one row each, loss, grad norm and host ms after the metrics'
+    host read (which waits for the step)."""
+    rows = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        if err is None:
+            model, state, m = step(model, state, batch)
+        else:
+            model, state, err, m = step(model, state, err, batch)
+        rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "ms": 1e3 * (time.perf_counter() - t0)})
+    return rows
+
+
+def _steady_ms(rows) -> float:
+    return sum(r["ms"] for r in rows[1:]) / max(len(rows) - 1, 1)
+
+
+def _all_reduce_ms(grads, group=None) -> float:
+    """Host ms of one averaging all-reduce of ``grads`` (SUM, then / W,
+    as the uncompressed DP step does), synchronized on both sides."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in grads.values():
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        g.div_(dist.get_world_size(group))
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _compressed_ms(grads, err, group=None) -> float:
+    """Host ms of one ``compressed_all_reduce`` of ``grads`` on a copy of
+    ``err``, synchronized on both sides."""
+    from repro_torch.distributed.compression import compressed_all_reduce
+    err = {n: e.clone() for n, e in err.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compressed_all_reduce(grads, err, group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def payload_bytes(params, compress: bool) -> int:
+    """Bytes one rank hands a step's gradient all-reduce: the int32 sums
+    and one fp32 scale a leaf when ``compress``, else the gradients in
+    the parameters' own dtype."""
+    if compress:
+        return sum(4 * p.numel() + 4 for p in params.values())
+    return sum(p.numel() * p.element_size() for p in params.values())
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def dp_llama(smi: str, phase8_loss) -> dict:
+    """9a: ``make_manual_dp_train_step(compress=False)`` over a world of 1
+    (NCCL) on launch/train's ``full`` Llama-3-8B (its weights from seed
+    0, its bf16 moments, its attention chunk), DIST_STEPS steps on phase
+    8's repeated 2 x 512 batch.  The first loss must be within 1e-4
+    (relative) of the same loss at main's loss chunk (128, computed here
+    without gradients) and of ``phase8_loss`` when given."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.train import moment_dtype, preset_config
+    from repro_torch.training import (OptConfig, init_training, make_loss_fn,
+                                      make_manual_dp_train_step)
+    cfg = preset_config(get_arch("llama3-8b"), "full")
+    moments = moment_dtype(cfg, torch.device("cuda"))
+    opt = OptConfig(warmup_steps=1, total_steps=DIST_STEPS,
+                    moment_dtype=moments)
+    _free()
+    model, state = init_training(cfg, opt,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        seed=0)).next_batch().items()}
+    with torch.no_grad():
+        main_loss = float(make_loss_fn(cfg, attn_chunk=min(256, TRAIN_SEQ),
+                                       loss_chunk=128)(model, batch)[0])
+    step = make_manual_dp_train_step(cfg, opt, attn_chunk=min(256, TRAIN_SEQ))
+    rows = _steps(step, model, state, {}, batch, DIST_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    ar_ms = _all_reduce_ms(grads)
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    del model, state, batch, step, grads
+    _free()
+    losses = [r["loss"] for r in rows]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "moments": moments,
+           "losses": losses, "ms": [r["ms"] for r in rows],
+           "steady_ms": _steady_ms(rows), "peak_bytes": peak,
+           "main_chunk_loss": main_loss, "phase8_first_loss": phase8_loss,
+           "all_reduce_ms": ar_ms, "all_reduce_bytes": nbytes}
+    phase("dist", f"9a {cfg.name} ({cfg.num_layers} layers, full width, "
+          f"{moments} moments) make_manual_dp_train_step(compress=False), "
+          f"world 1 over nccl, {DIST_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: {out['steady_ms']:.1f} ms/step after the first "
+          f"({rows[0]['ms']:.1f} ms), peak {peak / 1e9:.2f} GB, loss "
+          + " -> ".join(f"{x:.4f}" for x in losses) + f"; first loss against "
+          f"loss chunk 128's {main_loss:.6f}"
+          + (f" and phase 8's {phase8_loss:.6f}" if phase8_loss is not None
+             else "") + f"; the bf16 gradient all-reduce ({nbytes / 1e9:.2f} "
+          f"GB) {ar_ms:.2f} ms; on {smi}")
+    refs = [main_loss] + ([phase8_loss] if phase8_loss is not None else [])
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"9a: losses not finite or not falling: {losses}")
+    for want in refs:
+        if abs(losses[0] - want) > 1e-4 * abs(want):
+            fail(f"9a: first loss {losses[0]} is not within 1e-4 of {want}")
+    return out
+
+
+def dp_internvl2(smi: str) -> dict:
+    """9b: internvl2-1b at full width and depth over a world of 1 (NCCL):
+    DIST_STEPS uncompressed DP steps against ``make_train_step`` with the
+    same arguments, each from seed 0's weights: every parameter equal to
+    the bit.  Then DIST_STEPS compressed steps from seed 0: every loss
+    finite and falling, the error feedback nonzero."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.launch.train import moment_dtype
+    from repro_torch.training import (OptConfig, init_training,
+                                      make_manual_dp_train_step,
+                                      make_train_step)
+    cfg = get_arch("internvl2-1b")
+    moments = moment_dtype(cfg, torch.device("cuda"))
+    opt = OptConfig(warmup_steps=1, total_steps=DIST_STEPS,
+                    moment_dtype=moments)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                        seed=0)).next_batch().items()}
+    chunk = min(256, TRAIN_SEQ)
+
+    def fresh():
+        return init_training(cfg, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+
+    _free()
+    model_a, state_a = fresh()
+    rows_a = _steps(make_train_step(cfg, opt, attn_chunk=chunk), model_a,
+                    state_a, None, batch, DIST_STEPS)
+    model_b, state_b = fresh()
+    rows_b = _steps(make_manual_dp_train_step(cfg, opt, attn_chunk=chunk),
+                    model_b, state_b, {}, batch, DIST_STEPS)
+    pa, pb = dict(model_a.named_parameters()), dict(model_b.named_parameters())
+    n_params = len(pa)
+    differ = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    moments_differ = [n for n in pa for k in ("m", "v")
+                      if not torch.equal(state_a[k][n], state_b[k][n])]
+    del model_a, state_a, model_b, state_b, pa, pb
+    _free()
+    model, state = fresh()
+    params = dict(model.named_parameters())
+    err = init_error_feedback(params)
+    rows_c = _steps(make_manual_dp_train_step(cfg, opt, compress=True,
+                                              attn_chunk=chunk),
+                    model, state, err, batch, DIST_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    err_max = max(float(e.abs().max()) for e in err.values())
+    grads = {n: p.grad for n, p in params.items()}
+    car_ms = _compressed_ms(grads, err)
+    ar_ms = _all_reduce_ms(grads)
+    wire = {"int32": payload_bytes(params, True),
+            "bf16": payload_bytes(params, False)}
+    del model, state, err, params, grads, batch
+    _free()
+    out = {"arch": cfg.name, "moments": moments,
+           "train_step": {"losses": [r["loss"] for r in rows_a],
+                          "steady_ms": _steady_ms(rows_a)},
+           "dp": {"losses": [r["loss"] for r in rows_b],
+                  "steady_ms": _steady_ms(rows_b)},
+           "params_differ": differ, "moments_differ": moments_differ,
+           "compressed": {"losses": [r["loss"] for r in rows_c],
+                          "steady_ms": _steady_ms(rows_c),
+                          "err_max_abs": err_max, "peak_bytes": peak},
+           "compressed_all_reduce_ms": car_ms, "all_reduce_ms": ar_ms,
+           "payload_bytes": wire}
+    phase("dist", f"9b {cfg.name} ({cfg.num_layers} layers, full width, "
+          f"{moments} moments), world 1 over nccl, {DIST_STEPS} steps each "
+          f"from seed 0: make_train_step {out['train_step']['steady_ms']:.1f} "
+          f"ms/step, the DP step {out['dp']['steady_ms']:.1f} ms/step, "
+          f"{n_params - len(differ)} of {n_params} parameters equal to the bit (moments: {len(moments_differ)} "
+          f"differ); compressed {out['compressed']['steady_ms']:.1f} ms/step, "
+          f"loss " + " -> ".join(f"{x:.4f}" for x in out['compressed']['losses'])
+          + f", error feedback max |e| {err_max:.3e}, peak {peak / 1e9:.2f} GB; "
+          f"all-reduce alone: compressed {car_ms:.2f} ms ({wire['int32'] / 1e9:.3f}"
+          f" GB of int32), bf16 {ar_ms:.2f} ms ({wire['bf16'] / 1e9:.3f} GB); "
+          f"on {smi}")
+    if differ or moments_differ:
+        fail(f"9b: the DP step over one rank differs from make_train_step in "
+             f"{differ} {moments_differ}")
+    losses = out["compressed"]["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"9b: compressed losses not finite or not falling: {losses}")
+    if not err_max > 0:
+        fail("9b: the error feedback stayed 0")
+    return out
+
+
+def save_slab(paged, queries: np.ndarray, work: Path) -> dict:
+    """The index's pages (bf16) and ids, trimmed to an even page count as
+    ``examples/sharded_retrieval.py`` trims them, and ``queries``, as raw
+    files under ``work`` that each rank reads its half of."""
+    from repro_torch.core.prefetch_buffer import host_pages
+    pages = host_pages(paged, torch.bfloat16, pin=True)     # serve's copy
+    P = pages.shape[0] // 2 * 2
+    pages[:P].view(torch.int16).numpy().tofile(work / "pages.bin")
+    np.ascontiguousarray(paged.page_ids[:P]).tofile(work / "page_ids.bin")
+    np.save(work / "queries.npy", queries.astype(np.float32))
+    spec = {"pages": P, "page_size": int(pages.shape[1]),
+            "dim": int(pages.shape[2]), "total_pages": int(pages.shape[0])}
+    (work / "slab.json").write_text(json.dumps(spec))
+    return spec
+
+
+def _read_pages(work: Path, spec: dict, rows: slice):
+    """Pages [rows] (bf16) and their ids from ``save_slab``'s files, on
+    the card."""
+    ps, d = spec["page_size"], spec["dim"]
+    n = rows.stop - rows.start
+    raw = np.fromfile(work / "pages.bin", dtype=np.int16, count=n * ps * d,
+                      offset=rows.start * ps * d * 2)
+    ids = np.fromfile(work / "page_ids.bin", dtype=np.int32, count=n * ps,
+                      offset=rows.start * ps * 4)
+    pages = torch.from_numpy(raw).view(torch.bfloat16).reshape(n, ps, d)
+    return pages.cuda(), torch.from_numpy(ids).reshape(n, ps).cuda()
+
+
+def counted_kernels() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
+    from repro_torch.kernels import centroid_probe as cp
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ivf_topk as it
+    from repro_torch.kernels import mla_decode as mla
+    from repro_torch.kernels import probe_topk as pt
+    return {"flash_decode_paged": fd.flash_decode_paged,
+            "probe_topk_fused": pt.probe_topk_fused, "ivf_topk": it.ivf_topk,
+            "flash_decode": fd.flash_decode,
+            "centroid_scores": cp.centroid_scores,
+            "flash_decode_spliced": fd.flash_decode_spliced,
+            "flash_decode_quant": fd.flash_decode_quant,
+            "mla_decode": mla.mla_decode}
+
+
+def gloo_cuda_probe() -> dict:
+    """Which collectives gloo takes on CUDA tensors here: each is called
+    once on small CUDA tensors and its result checked; "ok", "wrong" or
+    the exception it raises.  A finding, not a phase: no failure here
+    stops the run."""
+    import torch.distributed as dist
+    W, r = dist.get_world_size(), dist.get_rank()
+    dev = torch.device("cuda")
+
+    def full(v, dt=torch.float32, n=4):
+        return torch.full((n,), float(v), dtype=dt, device=dev)
+
+    def ar(op, dt):
+        t = full(r + 1, dt)
+        dist.all_reduce(t, op=op)
+        want = sum(range(1, W + 1)) if op == dist.ReduceOp.SUM else W
+        return bool((t == want).all())
+
+    def bcast():
+        t = full(r + 5)
+        dist.broadcast(t, src=0)
+        return bool((t == 5).all())
+
+    def gather_list():
+        out = [full(-1) for _ in range(W)]
+        dist.all_gather(out, full(r))
+        return all(bool((o == i).all()) for i, o in enumerate(out))
+
+    def gather_tensor():
+        out = full(-1, n=4 * W)
+        dist.all_gather_into_tensor(out, full(r))
+        return bool((out.view(W, 4)[:, 0] == torch.arange(W, device=dev)).all())
+
+    def reduce_scatter():
+        out = full(-1)
+        dist.reduce_scatter_tensor(out, full(1, n=4 * W))
+        return bool((out == W).all())
+
+    def all_to_all():
+        out = full(-1, n=W)
+        dist.all_to_all_single(out, full(r, n=W))
+        return bool((out == torch.arange(W, device=dev)).all())
+
+    probes = {"broadcast": bcast,
+              "all_reduce SUM fp32": lambda: ar(dist.ReduceOp.SUM, torch.float32),
+              "all_reduce MAX fp32": lambda: ar(dist.ReduceOp.MAX, torch.float32),
+              "all_reduce SUM int32": lambda: ar(dist.ReduceOp.SUM, torch.int32),
+              "all_reduce SUM bf16": lambda: ar(dist.ReduceOp.SUM, torch.bfloat16),
+              "all_gather": gather_list, "all_gather_into_tensor": gather_tensor,
+              "reduce_scatter_tensor": reduce_scatter,
+              "all_to_all_single": all_to_all}
+    out = {}
+    for name, fn in probes.items():
+        try:
+            out[name] = "ok" if fn() else "wrong"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"raises {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def dist_rank_main(rank: int, world: int, init: str, work: Path) -> None:
+    """One rank of 9c, on the card, over gloo: (i) ``sharded_device_search``
+    over its half of the slab (kernel 3's launches counted from 0 just
+    before, read just after), then kernel 3 alone on the half, the
+    exchange alone and the merge, timed; (ii) internvl2-1b's compressed
+    DP steps on a global batch of DIST_C_BATCH, each followed by the
+    check that rank 1's parameters equal rank 0's to the bit, and the
+    compressed all-reduce alone; (iii) which collectives gloo takes on
+    CUDA tensors.  Writes ``work``/rank<rank>.json."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hybrid_search import (_all_gather, page_shard,
+                                                sharded_device_search)
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.distributed.compression import init_error_feedback
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import moment_dtype
+    from repro_torch.training import (OptConfig, init_training,
+                                      make_manual_dp_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    # (i) the sharded search over this rank's half
+    spec = json.loads((work / "slab.json").read_text())
+    rows = page_shard(spec["pages"])
+    pages, ids = _read_pages(work, spec, rows)
+    q = torch.from_numpy(np.load(work / "queries.npy")).cuda()
+    mask = torch.ones(pages.shape[0], dtype=torch.bool, device="cuda")
+    counted = counted_kernels()
+    torch.cuda.synchronize()
+    dist.barrier()
+    for fn in counted.values():
+        fn.launches = 0
+    s, i = sharded_device_search(q, pages, ids, mask, k=SEARCH_K)
+    torch.cuda.synchronize()
+    out["launches"] = {n: fn.launches for n, fn in counted.items()}
+    out["scores"], out["ids"] = s.cpu().tolist(), i.cpu().tolist()
+    dist.barrier()
+    out["kernel_ms"] = device_ms(lambda: ops.ivf_topk(pages, ids, mask, q,
+                                                      SEARCH_K), calls=20)
+    local = torch.cat([s, i.view(torch.float32)], dim=-1)
+    times = []
+    for _ in range(20):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _all_gather(local, None)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["exchange_ms"] = float(np.median(times))
+    s_all = torch.randn((q.shape[0], world * SEARCH_K), device="cuda")
+    out["merge_ms"] = time_ms(lambda: torch.sort(s_all, dim=-1, descending=True,
+                                                 stable=True), 50)
+    times = []
+    for _ in range(10):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded_device_search(q, pages, ids, mask, k=SEARCH_K)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["search_ms"] = float(np.median(times))
+    out["half_bytes"] = (pages.numel() * 2 + ids.numel() * 4 + mask.numel()
+                         + q.numel() * 4 + 2 * q.shape[0] * SEARCH_K * 4)
+    out["half_pages"] = pages.shape[0]
+    del pages, ids, mask
+    torch.cuda.empty_cache()
+    # (ii) internvl2-1b, compressed, on a global batch of DIST_C_BATCH
+    cfg = get_arch("internvl2-1b")
+    opt = OptConfig(warmup_steps=1, total_steps=DIST_C_STEPS,
+                    moment_dtype=moment_dtype(cfg, torch.device("cuda")))
+    model, state = init_training(cfg, opt,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    params = dict(model.named_parameters())
+    err = init_error_feedback(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenStream(
+        cfg, DataConfig(global_batch=DIST_C_BATCH, seq_len=TRAIN_SEQ,
+                        seed=0)).next_batch().items()}
+    step = make_manual_dp_train_step(cfg, opt, compress=True,
+                                     attn_chunk=min(256, TRAIN_SEQ))
+    rows = []
+    for _ in range(DIST_C_STEPS):
+        dist.barrier()
+        rows.extend(_steps(step, model, state, err, batch, 1))
+        same = 0
+        for p in params.values():
+            theirs = p.detach().clone()
+            dist.broadcast(theirs, src=0)
+            same += bool(torch.equal(theirs, p.detach()))
+        rows[-1]["params_equal_rank0"] = same
+    out["train"] = rows
+    out["params"] = len(params)
+    out["payload_bytes"] = {"int32": payload_bytes(params, True),
+                            "bf16": payload_bytes(params, False)}
+    grads = {n: p.grad for n, p in params.items()}
+    dist.barrier()
+    out["compressed_all_reduce_ms"] = _compressed_ms(grads, err)
+    out["err_max_abs"] = max(float(e.abs().max()) for e in err.values())
+    del model, state, err, params, grads, batch, step
+    torch.cuda.empty_cache()
+    # (iii) gloo on CUDA tensors
+    out["gloo_cuda"] = gloo_cuda_probe()
+    dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dist_two_ranks(smi: str, work: Path, spec: dict) -> dict:
+    """9c: two ranks on the one card over gloo (``dist_rank_main``, one
+    process each, the kernels built already): their search against
+    kernel 3 over the whole slab in this process, their parameters equal
+    after each compressed step.  The two ranks share one card's
+    bandwidth: their times are not a two-card figure."""
+    from repro_torch.kernels import ivf_topk as it
+    pages, ids = _read_pages(work, spec, slice(0, spec["pages"]))
+    q = torch.from_numpy(np.load(work / "queries.npy")).cuda()
+    mask = torch.ones(pages.shape[0], dtype=torch.bool, device="cuda")
+    want_s, want_i = it.ivf_topk(pages, ids, mask, q, SEARCH_K)
+    want_s, want_i = want_s.cpu(), want_i.cpu()
+    whole_ms = device_ms(lambda: it.ivf_topk(pages, ids, mask, q, SEARCH_K),
+                         calls=20)
+    whole_bytes = (pages.numel() * 2 + ids.numel() * 4 + mask.numel()
+                   + q.numel() * 4 + 2 * q.shape[0] * SEARCH_K * 4)
+    del pages, ids, mask
+    _free()
+    init = work / "pg"
+    procs, logs = [], [work / f"rank{r}.log" for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+                     str(r), "2", str(init), str(work)],
+                    stdout=log, stderr=subprocess.STDOUT))
+        for r, p in enumerate(procs):
+            if p.wait(timeout=DIST_RANK_TIMEOUT) != 0:
+                fail(f"9c: rank {r} exited {p.returncode}:\n"
+                     + logs[r].read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    for r in ranks:
+        got_i = torch.tensor(r["ids"], dtype=torch.int32)
+        err = float((torch.tensor(r["scores"]) - want_s).abs().max())
+        if not torch.equal(got_i, want_i) or not err <= RET_SCORE_TOL:
+            fail(f"9c: rank {r['rank']}'s sharded search differs from kernel 3 "
+                 f"over the whole slab: ids {r['ids']} against "
+                 f"{want_i.tolist()}, scores {err:.2e} apart")
+        if r["launches"]["ivf_topk"] < 1:
+            fail(f"9c: rank {r['rank']} launched no ivf_topk: {r['launches']}")
+        for i, row in enumerate(r["train"]):
+            if row["params_equal_rank0"] != r["params"]:
+                fail(f"9c: after compressed step {i + 1} rank {r['rank']} holds "
+                     f"{row['params_equal_rank0']} of {r['params']} parameters "
+                     "equal to rank 0's")
+        losses = [row["loss"] for row in r["train"]]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"9c: rank {r['rank']} losses not finite: {losses}")
+    bound = [r["half_bytes"] / HBM_BYTES_PER_S * 1e3 for r in ranks]
+    phase("dist", f"9c(i) sharded_device_search over {spec['pages']} of "
+          f"{spec['total_pages']} pages ({spec['pages'] * spec['page_size']} "
+          f"slots x {spec['dim']}, bf16; {spec['pages'] // 2} a rank), "
+          f"{q.shape[0]} queries, k {SEARCH_K}, 2 ranks on one card over gloo: "
+          f"doc ids equal to kernel 3's over the whole slab on both ranks, "
+          f"scores within {RET_SCORE_TOL}; ivf_topk launches "
+          f"{[r['launches']['ivf_topk'] for r in ranks]}; kernel 3 on a half "
+          f"{[round(r['kernel_ms'], 4) for r in ranks]} ms device against its "
+          f"byte bound {[round(b, 4) for b in bound]} ms; the whole slab in one "
+          f"process {whole_ms:.4f} ms (bound "
+          f"{whole_bytes / HBM_BYTES_PER_S * 1e3:.4f}); exchange (gloo "
+          f"all-gather through the host) {[round(r['exchange_ms'], 3) for r in ranks]}"
+          f" ms, merge {[round(r['merge_ms'], 4) for r in ranks]} ms, a whole "
+          f"search {[round(r['search_ms'], 3) for r in ranks]} ms; the two ranks "
+          f"share one card's bandwidth: not a two-card figure; on {smi}")
+    phase("dist", f"9c(ii) internvl2-1b compressed DP steps, 2 ranks over gloo "
+          f"on one card, global batch {DIST_C_BATCH} x {TRAIN_SEQ}: "
+          + "; ".join(f"rank {r['rank']} loss "
+                      + " -> ".join(f"{row['loss']:.4f}" for row in r["train"])
+                      + f", ms/step {[round(row['ms'], 1) for row in r['train']]}"
+                      for r in ranks)
+          + f"; after each step all {ranks[1]['params']} parameters of rank 1 "
+          f"equal rank 0's to the bit; payload a step {ranks[0]['payload_bytes']['int32'] / 1e9:.3f}"
+          f" GB of int32 against {ranks[0]['payload_bytes']['bf16'] / 1e9:.3f} GB "
+          f"for a bf16 all-reduce; the compressed all-reduce alone "
+          f"{[round(r['compressed_all_reduce_ms'], 1) for r in ranks]} ms; on {smi}")
+    phase("dist", "9c(iii) gloo on CUDA tensors: " + json.dumps(ranks[0]["gloo_cuda"]))
+    return {"ranks": ranks, "whole_slab_ms": whole_ms,
+            "whole_slab_bytes": whole_bytes, "rank_bytes_bound_ms": bound,
+            "wall_s": wall_s}
+
+
+def distributed_phase(smi: str, work: Path, spec: dict,
+                      phase8_loss=None) -> dict:
+    """Phase 9: 9a and 9b over an NCCL world of 1 (its group destroyed
+    after), then 9c's two ranks over gloo."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        out = {"9a": dp_llama(smi, phase8_loss), "9b": dp_internvl2(smi)}
+    finally:
+        dist.destroy_process_group()
+    out["9c"] = dist_two_ranks(smi, work, spec)
+    out["s"] = time.perf_counter() - t0
+    phase("dist", f"phase 9 in {out['s']:.1f} s")
+    return out
+
+
+def distributed_main() -> None:
+    """Phase 9 alone: the kernels built, the serve phase's index built
+    again (with a reduced model), then ``distributed_phase``."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    phase("card", f"{smi} | torch: {torch.cuda.get_device_name(0)}")
+    _build.build_all(_build.SOURCES)
+    setup = serve.build(serve.parse_args(SERVE_ARGS + ["--reduced", "--quiet"]))
+    with tempfile.TemporaryDirectory() as d:
+        spec = save_slab(setup.index.paged, serve.make_queries(
+            setup.store, SEARCH_B, setup.args.seed + 11), Path(d))
+        del setup
+        _free()
+        out = distributed_phase(smi, Path(d), spec)
+    print(smi)
+    print(json.dumps({"distributed": {k: v for k, v in out.items()
+                                      if k != "9c"}}))
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3523,6 +4117,10 @@ def main() -> None:
 
     # 8) training on one card, with the serves' state freed: Llama-3-8B
     #    through launch/train, then every other family, one at a time
+    #    (phase 9's slab saved first, the index's pages and ids)
+    dist_dir = tempfile.TemporaryDirectory()
+    slab = save_slab(setup.index.paged, serve.make_queries(
+        setup.store, SEARCH_B, setup.args.seed + 11), Path(dist_dir.name))
     del setup
     train = train_phase(smi)
     families = [family_train(arch, layers, smi)
@@ -3530,6 +4128,17 @@ def main() -> None:
     ckpt = [checkpoint_phase(arch) for arch in CKPT_ARCHS]
     phase("train", json.dumps({"train": train, "families": families,
                                "checkpoint": ckpt, "card": smi}))
+
+    # 9) the distributed layer: the DP step over an NCCL world of 1, then
+    #    two ranks on the card over gloo (the sharded search over the
+    #    index's slab, each rank's launches set to 0 just before it)
+    dist_out = distributed_phase(smi, Path(dist_dir.name), slab,
+                                 train["losses"][0])
+    dist_dir.cleanup()
+    launches["distributed"] = {n: sum(r["launches"][n] for r in
+                                      dist_out["9c"]["ranks"]) for n in counted}
+    phase("kernels", json.dumps({"path": "distributed",
+                                 **launches["distributed"]}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -3630,10 +4239,15 @@ if __name__ == "__main__":
         centroid_timing_main(Path(sys.argv[2]).resolve())
     elif len(sys.argv) == 3 and sys.argv[1] == "--centroid-ab":
         centroid_ab_main(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) == 2 and sys.argv[1] == "--distributed":
+        distributed_main()
+    elif len(sys.argv) == 6 and sys.argv[1] == "--dist-rank":
+        dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                       Path(sys.argv[5]))
     elif len(sys.argv) == 1:
         main()
     else:
         fail(f"usage: {sys.argv[0]} [--decode-timing DIR BITS | --decode-ab "
              "PARENT | --attn-timing DIR BITS | --attn-ab PARENT | "
              "--retrieval-timing DIR | --retrieval-ab PARENT | "
-             "--centroid-timing DIR | --centroid-ab PARENT]")
+             "--centroid-timing DIR | --centroid-ab PARENT | --distributed]")

@@ -17,7 +17,9 @@
   ("GPU sorting", §4.3 — transferring distances, not vectors), then one
   top-k on the device.
 
-The datastore-sharded search waits for the distributed slice.
+Beyond the paper (its §7): ``sharded_device_search``, the datastore
+sharded over the ranks of a process group along the page dim: a local
+top-k a rank (kernel 3), then an all-gather of the k candidates alone.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.datastore import PagedClusters
 from repro_torch.core.prefetch_buffer import PrefetchBuffer
@@ -205,3 +208,63 @@ def hybrid_retrieve(buffer: PrefetchBuffer, queries: np.ndarray,
     return RetrievalResult(doc_ids=fi.cpu().numpy(), scores=fs.cpu().numpy(),
                            hit_clusters=hit, missed_clusters=miss,
                            nprobe=nprobe)
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: datastore-sharded distributed search (paper §7)
+# ---------------------------------------------------------------------------
+
+
+def page_shard(num_pages: int, group: Optional[dist.ProcessGroup] = None,
+               ) -> slice:
+    """This rank's pages of a slab of ``num_pages`` sharded over
+    ``group``: the rank-th contiguous 1/W of the page dim, as the
+    reference's ``P(axis)`` slices it.  A count W does not divide is
+    refused, as the reference's ``shard_map`` refuses it."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if num_pages % world:
+        raise ValueError(f"{num_pages} pages do not shard over {world} ranks")
+    n = num_pages // world
+    return slice(rank * n, (rank + 1) * n)
+
+
+def _all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup],
+                ) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order [W, ...], on ``t``'s
+    device.  gloo all-gathers host tensors only, so a CUDA tensor
+    crosses through the host there."""
+    host = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = t.cpu() if host else t
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(t.device)
+
+
+def sharded_device_search(queries: torch.Tensor, pages: torch.Tensor,
+                          page_ids: torch.Tensor, page_mask: torch.Tensor, *,
+                          k: int, group: Optional[dist.ProcessGroup] = None,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a slab sharded over the ranks of ``group`` (the
+    reference's ``sharded_device_search``): ``pages`` [P/W, ps, d],
+    ``page_ids`` [P/W, ps] and ``page_mask`` [P/W] are this rank's block
+    (``page_shard``), ``queries`` [B, d] the same on every rank.
+
+    Each rank searches its block (``ops.ivf_topk``: kernel 3 on a CUDA
+    tensor), the ranks all-gather the [B, k] scores and ids in rank
+    order, and each takes the top k of the [B, W*k] candidates, ties to
+    the lower position (a stable sort, as ``lax.top_k`` over the tiled
+    gather).  Returns (scores [B, k] fp32, doc ids [B, k] int32), the
+    same on every rank.  The exchange moves 8 * B * k bytes a rank:
+    candidates, never vectors."""
+    if page_mask.dim() != 1:
+        raise ValueError("sharded_device_search takes a [P] page mask: the "
+                         "reference's P(axis) would shard a [B, P] mask's "
+                         "batch dim")
+    s, i = ops.ivf_topk(pages, page_ids, page_mask, queries, k)
+    # one exchange: the ids' bits ride beside the scores
+    both = _all_gather(torch.cat([s, i.view(torch.float32)], dim=-1), group)
+    B = queries.shape[0]
+    s_all = both[..., :k].transpose(0, 1).reshape(B, -1)       # [B, W*k]
+    i_all = both[..., k:].transpose(0, 1).reshape(B, -1).view(torch.int32)
+    top_s, idx = torch.sort(s_all, dim=-1, descending=True, stable=True)
+    return top_s[:, :k], torch.gather(i_all, -1, idx[:, :k])

@@ -34,6 +34,11 @@ PARAMS = ("w_in", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
 # each parameter's explicit init scale in the reference's mamba2_params
 # (the others are 1/sqrt(fan_in)); "conv_b" is a bias (zeros)
 INIT_SCALES = {"conv_w": 0.5, "a_log": 0.5, "dt_bias": 0.5, "d_skip": 1.0}
+# each parameter's logical axes in the reference's mamba2_params (one block)
+AXES = {"w_in": ("embed", "heads_flat"), "conv_w": (None, "heads_flat"),
+        **{n: ("heads_flat",) for n in ("conv_b", "a_log", "dt_bias",
+                                        "d_skip", "out_norm")},
+        "w_out": ("heads_flat", "embed")}
 
 
 def mamba2_dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:

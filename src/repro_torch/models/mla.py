@@ -31,6 +31,12 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import apply_rope, chunked_attention, rms_norm
 
 PARAMS = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv")
+# each parameter's logical axes in the reference's mla_params (one layer;
+# ``wo`` is the attention's)
+AXES = {"w_dq": ("embed", None), "q_norm": (None,),
+        "w_uq": (None, "heads", None), "w_dkv": ("embed", None),
+        "kv_norm": (None,), "w_uk": (None, "heads", None),
+        "w_uv": (None, "heads", None)}
 
 
 def mla_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:

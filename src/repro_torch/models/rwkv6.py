@@ -39,6 +39,16 @@ PARAMS = ("mu_x", "mu", "lora_a", "lora_b", "w_r", "w_k", "w_v", "w_g", "w_o",
 INIT_SCALES = {"mu_x": 0.1, "mu": 0.1, "lora_b": 0.01, "w0": 0.5,
                "w_lora_b": 0.01, "bonus": 0.3, "cm_mu_k": 0.1,
                "cm_mu_r": 0.1}
+# each parameter's logical axes in the reference's rwkv6_params (one layer)
+AXES = {"mu_x": ("embed",), "mu": (None, "embed"),
+        "lora_a": (None, "embed", None), "lora_b": (None, None, "embed"),
+        **{n: ("embed", "heads_flat") for n in ("w_r", "w_k", "w_v", "w_g")},
+        "w_o": ("heads_flat", "embed"), "w0": ("embed",),
+        "w_lora_a": ("embed", None), "w_lora_b": (None, "embed"),
+        "bonus": ("heads_flat", None), "gn_scale": ("embed",),
+        "cm_mu_k": ("embed",), "cm_mu_r": ("embed",),
+        "cm_w_r": ("embed", "embed2"), "cm_w_k": ("embed", "mlp"),
+        "cm_w_v": ("mlp", "embed")}
 
 
 def rwkv6_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:

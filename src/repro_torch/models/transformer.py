@@ -223,6 +223,48 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+# each parameter's logical axes, one layer's (the reference's makers'
+# ``axes``; ``param_axes`` puts "layers" in front of a stacked one); the
+# MoE experts' and an audio model's embeddings are set by ``param_axes``
+_ATTN_AXES = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+              "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+_MLP_AXES = {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
+_AXES = {
+    "embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+    "final_norm": ("embed",), "vit_proj": (None, "embed"),
+    **{n: ("embed",) for n in ("attn_norm", "mlp_norm", "tm_norm", "cm_norm",
+                               "norm", "shared_attn_norm", "shared_mlp_norm")},
+    **_ATTN_AXES, **_MLP_AXES, "router": ("embed", None),
+    **{"dense_" + n: ax for n, ax in _MLP_AXES.items()},
+    **mla.AXES, **rwkv6.AXES, **mamba2.AXES,
+    **{"shared_" + n: ax for n, ax in {**_ATTN_AXES, **_MLP_AXES}.items()},
+    "lora_qa": ("embed", None), "lora_qb": (None, "heads_flat"),
+    "lora_va": ("embed", None), "lora_vb": (None, "heads_flat"),
+}
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each parameter's logical axes, by name (``param_shapes``'s keys):
+    the reference's ``param_axes`` at the leaf each name maps to, a
+    stacked parameter's layer dims named "layers" (zamba2's Mamba2
+    blocks ("layers", "layers", ...))."""
+    experts = cfg.moe is not None
+    audio = codebooks(cfg) > 0
+    out = {}
+    for name, shape in param_shapes(cfg).items():
+        ax = _AXES[name]
+        if experts and name in _MLP_AXES:
+            ax = ("experts",) + ax
+        if audio and name in ("embed", "unembed"):
+            ax = (None,) + ax
+        ax = ("layers",) * _stacked(cfg, name) + ax
+        if len(ax) != len(shape):
+            raise ValueError(f"{name}: axes {ax} for shape {shape}")
+        out[name] = ax
+    return out
+
+
 def _stacked(cfg: ArchConfig, name: str) -> int:
     """How many leading dims of parameter ``name`` stack layers: 2 for
     zamba2's Mamba2 blocks [G, per], 1 for other layer params and the
@@ -754,6 +796,39 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
         Ls = L
     if kv_quant:
         out.update({name: ((Ls, B, S, KVH), torch.bfloat16) for name in scales})
+    return out
+
+
+def cache_axes(cfg: ArchConfig, kv_quant: bool = False,
+               ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Each cache tensor's logical axes, by ``cache_shapes``'s keys (the
+    reference's ``cache_axes``): K/V (layers, batch, kv_seq, kv_heads,
+    None), their int8 scales without the last; MLA's latents (layers,
+    batch, kv_seq, None); RWKV6's shifts and wkv state; zamba2's shared
+    K/V a group and its blocks' conv and SSD states."""
+    kind = family_kind(cfg)
+    if kind == "rwkv6":
+        return {"shift1": ("layers", "batch", "embed"),
+                "wkv": ("layers", "batch", "heads_flat", None, None),
+                "shift2": ("layers", "batch", "embed")}
+    if kind == "zamba2":
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"shared_k": kv, "shared_v": kv,
+                "conv": ("layers", "layers", "batch", None, "heads_flat"),
+                "ssd": ("layers", "layers", "batch", "heads_flat", None, None)}
+    if cfg.attn_kind == "mla":
+        return {"ckv": ("layers", "batch", "kv_seq", None),
+                "kpe": ("layers", "batch", "kv_seq", None)}
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    sc = ("layers", "batch", "kv_seq", "kv_heads")
+    if cfg.local_global_pattern and cfg.sliding_window:
+        out = {"k_local": kv, "v_local": kv, "k_global": kv, "v_global": kv}
+        scales = ("k_global_scale", "v_global_scale")
+    else:
+        out = {"k": kv, "v": kv}
+        scales = ("k_scale", "v_scale")
+    if kv_quant:
+        out.update({name: sc for name in scales})
     return out
 
 

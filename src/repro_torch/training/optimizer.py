@@ -70,7 +70,7 @@ def init_opt_state(params: Mapping[str, torch.Tensor],
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _pieces(t: torch.Tensor) -> List[torch.Tensor]:
+def pieces(t: torch.Tensor) -> List[torch.Tensor]:
     """``t`` as views of at most ``PIECE`` elements along its first dim."""
     if t.dim() == 0 or t.numel() <= PIECE:
         return [t]
@@ -81,7 +81,7 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
     total = None
     for t in tensors:
-        for piece in _pieces(t):
+        for piece in pieces(t):
             sq = torch.sum(torch.square(piece.float()))
             total = sq if total is None else total + sq
     return torch.sqrt(total)
@@ -105,9 +105,9 @@ def adamw_update(params: Mapping[str, torch.Tensor],
     bc2 = 1.0 - cfg.b2 ** step.float()
     with torch.no_grad():
         for name, p in params.items():
-            for pp, g, m, v in zip(_pieces(p), _pieces(grads[name]),
-                                   _pieces(state["m"][name]),
-                                   _pieces(state["v"][name])):
+            for pp, g, m, v in zip(pieces(p), pieces(grads[name]),
+                                   pieces(state["m"][name]),
+                                   pieces(state["v"][name])):
                 g32 = g.float() * clip
                 m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
                 v32 = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g32)

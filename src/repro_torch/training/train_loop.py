@@ -1,20 +1,27 @@
-"""The single-card train step: the reference's SPMD ``make_train_step``
-(``training/train_loop.py``) on one device, with autograd in place of
-``jax.value_and_grad`` and the update in place.
+"""Train steps (the reference's ``training/train_loop.py``), with autograd
+in place of ``jax.value_and_grad`` and the update in place:
 
-The reference's ``make_manual_dp_train_step`` (an explicit data-parallel
-all-reduce, optionally int8-compressed) and its ``act_spec`` activation
-sharding wait for the distributed slice, with ``distributed/``.
+* ``make_train_step``: the reference's SPMD step on one device;
+* ``make_manual_dp_train_step``: its explicit-collective data-parallel
+  step over a ``torch.distributed`` process group: each rank's slice of
+  the global batch, then an all-reduce of the gradients, averaged or
+  int8-compressed with error feedback (``distributed/compression.py``).
+
+The reference's ``act_spec`` (a GSPMD sharding constraint on the saved
+residual stream) changes nothing on one device and has no counterpart:
+its eager form is tensor parallelism inside the layers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import DeviceLike
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import compression as comp
 from repro_torch.models import transformer as tf
 from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                             init_opt_state)
@@ -94,6 +101,59 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         return model, opt_state, metrics
 
     return train_step
+
+
+def make_manual_dp_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
+                              compress: bool = False,
+                              group: Optional[dist.ProcessGroup] = None,
+                              attn_chunk: int = 1024,
+                              remat: bool = True) -> Callable:
+    """Pure data-parallel train step with an explicit all-reduce over
+    ``group`` (the reference's ``make_manual_dp_train_step``): (model,
+    opt_state, err, batch) -> (model, opt_state, err, {"loss", "lr",
+    "grad_norm"}), the parameters, moments and ``err`` updated in place.
+
+    Every rank holds the same parameters.  ``batch`` is the global
+    batch; rank r trains on rows [r B/W, (r+1) B/W) of every entry, as
+    the reference's ``in_specs`` ``P(axis)`` gives them (a batch W does
+    not divide is refused).  The loss is ``make_loss_fn``'s defaults
+    (loss chunk 512, remat groups of 4).  The gradients are averaged (an
+    all-reduce SUM then / W, in their own dtype, as ``pmean``) or, with
+    ``compress``, go through ``compressed_all_reduce`` (fp32 out; ``err``
+    the rank's fp32 residuals, ``compression.init_error_feedback``;
+    without ``compress`` it passes through).  The loss is averaged over
+    the ranks; ``adamw_update`` takes the bf16 or fp32 gradients alike,
+    computing in fp32 as the reference does."""
+    loss_fn = make_loss_fn(cfg, attn_chunk=attn_chunk, remat=remat)
+
+    def step(model: tf.Transformer, opt_state: Dict[str, object],
+             err: Dict[str, torch.Tensor], batch: Batch):
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        B = next(iter(batch.values())).shape[0]
+        if B % world:
+            raise ValueError(f"a batch of {B} rows does not shard over "
+                             f"{world} ranks")
+        b = B // world
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss, _ = loss_fn(model, {k: v[rank * b:(rank + 1) * b]
+                                  for k, v in batch.items()})
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        if compress:
+            grads, err = comp.compressed_all_reduce(grads, err, group)
+        else:
+            for g in grads.values():
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+                g.div_(world)
+        loss = loss.detach()
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        loss = loss / world
+        _, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+        return model, opt_state, err, {"loss": loss, **om}
+
+    return step
 
 
 def init_training(cfg: ArchConfig, opt_cfg: OptConfig,

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain versions, on a
 card, and train steps (Llama-3 and one arch of each other family kind,
 against the CPU's) and a checkpoint round trip there (training runs no
-hand-written kernel).  Every test is marked ``cuda`` and skips inside its body when
+hand-written kernel); and, over an NCCL process group of one rank, the
+data-parallel step against the train step (to the bit) and the sharded
+search against kernel 3.  Every test is marked ``cuda`` and skips inside its body when
 ``torch.cuda.is_available()`` is False.  The file imports neither JAX nor
 the JAX package, so it runs on a card host that has neither:
 
@@ -1376,3 +1378,77 @@ def test_dh_outside_the_kernels_is_refused_on_the_card():
             tfd.flash_decode_paged(q, k.reshape(8, 16, 2, Dh),
                                    v.reshape(8, 16, 2, Dh), bt, pos + 1)
     assert [f.launches for f in counted] == before
+
+
+@pytest.fixture
+def nccl_world_of_one(tmp_path):
+    """A default process group of one rank over NCCL (file:// store in a
+    temporary directory), destroyed after the test."""
+    _card()
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1, device_id=dev)
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "internvl2-1b"])
+def test_dp_step_over_one_nccl_rank_equals_the_train_step(nccl_world_of_one,
+                                                          arch):
+    """make_manual_dp_train_step over an NCCL world of 1 (an average over
+    one rank is the identity) against make_train_step with the same
+    arguments, 3 steps each from one seed's reduced bf16 weights: every
+    parameter and moment equal to the bit, the losses equal."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.training import (OptConfig, init_training,
+                                      make_manual_dp_train_step,
+                                      make_train_step)
+    dev = nccl_world_of_one
+    cfg = get_arch(arch).reduced()
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+        cfg, DataConfig(global_batch=4, seq_len=32, seed=3)).next_batch().items()}
+    runs = []
+    for dp in (False, True):
+        model, state = init_training(cfg, opt, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        step = (make_manual_dp_train_step(cfg, opt, attn_chunk=16) if dp
+                else make_train_step(cfg, opt, attn_chunk=16))
+        losses = []
+        for _ in range(3):
+            if dp:
+                model, state, _, m = step(model, state, {}, batch)
+            else:
+                model, state, m = step(model, state, batch)
+            losses.append(m["loss"].item())
+        runs.append((dict(model.named_parameters()), state, losses))
+    (pa, sa, la), (pb, sb, lb) = runs
+    assert la == lb
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
+        assert torch.equal(sa["m"][n], sb["m"][n]), n
+        assert torch.equal(sa["v"][n], sb["v"][n]), n
+
+
+@pytest.mark.cuda
+def test_sharded_search_over_one_nccl_rank_equals_kernel_3(nccl_world_of_one):
+    """sharded_device_search at W = 1 on the card: kernel 3 once (counted)
+    and the merge of its own k candidates, the same ids and bits as
+    ivf_topk alone."""
+    from repro_torch.core.hybrid_search import page_shard, sharded_device_search
+    dev = nccl_world_of_one
+    rng = np.random.default_rng(12)
+    pages = torch.from_numpy(rng.standard_normal((64, 128, 768)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ids = torch.arange(64 * 128, dtype=torch.int32, device=dev).reshape(64, 128)
+    mask = torch.from_numpy(rng.random(64) < 0.7).to(dev)
+    q = torch.from_numpy(rng.standard_normal((4, 768)).astype(np.float32)).to(dev)
+    assert page_shard(64) == slice(0, 64)
+    want_s, want_i = tivf.ivf_topk(pages, ids, mask, q, 3)
+    before = tivf.ivf_topk.launches
+    s, i = sharded_device_search(q, pages, ids, mask, k=3)
+    torch.cuda.synchronize()
+    assert tivf.ivf_topk.launches == before + 1
+    assert torch.equal(i, want_i) and torch.equal(s, want_s)

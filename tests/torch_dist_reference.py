@@ -1,0 +1,168 @@
+"""The reference's side of the port's multi-device CPU tests, in a child
+process of its own: JAX with 4 host CPU devices, so the reference's
+``shard_map`` paths (``make_manual_dp_train_step``,
+``sharded_device_search``) run over real device meshes.
+
+``run(job, inputs, out, parts)`` (or ``start`` then ``wait``) starts
+``python tests/torch_dist_reference.py JOB INPUTS OUT PART`` for each
+part, all at once, under ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and
+``JAX_PLATFORMS=cpu``; each reads the ``.npz`` at ``inputs`` (a JSON
+``meta`` entry beside the arrays) and writes its outputs beside
+``out``, which gets them all:
+
+* ``dp_train``: the steps of each case of the part's arch (one compile
+  a case, so the archs compile in parallel) from the given initial
+  weights, each step's metrics and its state after (weights, moments,
+  step, and the error feedback of every device, device order);
+* ``search``: ``sharded_device_search`` over 2 and 4 devices.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def start(job: str, inputs: Path, out: Path, parts=("all",)) -> tuple:
+    """Start ``job``, one child process a part; the handle ``wait`` takes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    runs = []
+    for i, part in enumerate(parts):
+        o, log = out.with_suffix(f".{i}.npz"), out.with_suffix(f".{i}.log")
+        with open(log, "w") as f:
+            runs.append((subprocess.Popen(
+                [sys.executable, __file__, job, str(inputs), str(o), part],
+                env=env, stdout=f, stderr=subprocess.STDOUT), o, log))
+    return job, out, runs
+
+
+def wait(handle: tuple, timeout: float = 300.0) -> dict:
+    """The outputs of every part of a started job, also saved to its
+    ``out``.  A child that fails raises with its output."""
+    job, out, runs = handle
+    try:
+        for p, _, log in runs:
+            if p.wait(timeout=timeout) != 0:
+                raise RuntimeError(f"reference {job} exited {p.returncode}:\n"
+                                   + log.read_text()[-4000:])
+    finally:
+        for p, _, _ in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    merged = {}
+    for _, o, _ in runs:
+        with np.load(o) as f:
+            merged.update(f)
+    np.savez(out, **merged)
+    return merged
+
+
+def run(job: str, inputs: Path, out: Path, parts=("all",),
+        timeout: float = 300.0) -> dict:
+    """``wait(start(...))``."""
+    return wait(start(job, inputs, out, parts), timeout)
+
+
+def _mesh(n: int, axis: str):
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.launch.mesh import _axis_type_kwargs
+    return Mesh(np.array(jax.devices()[:n]), (axis,), **_axis_type_kwargs(1))
+
+
+def _flat(tree, prefix: str) -> dict:
+    """{prefix/path: array} over a nested dict of arrays."""
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{key}"))
+        else:
+            out[f"{prefix}/{key}"] = v
+    return out
+
+
+def job_dp_train(inp: dict, meta: dict, part: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.distributed import init_error_feedback
+    from repro.training import OptConfig, init_opt_state
+    from repro.training.train_loop import make_manual_dp_train_step
+
+    mesh = _mesh(meta["world"], "data")
+    out = {}
+    for arch, compress in meta["cases"]:
+        if part not in ("all", arch):
+            continue
+        cfg = get_arch(arch).reduced()
+        params: dict = {}
+        for key, v in inp.items():
+            if key.startswith(f"init/{arch}/"):
+                node = params
+                path = key.split("/")[2:]
+                for name in path[:-1]:
+                    node = node.setdefault(name, {})
+                node[path[-1]] = jnp.asarray(v)
+        opt = OptConfig(**meta["opt"])
+        state = init_opt_state(params, opt)
+        err = init_error_feedback(params)
+        step = make_manual_dp_train_step(cfg, opt, mesh, compress=compress,
+                                         **meta["kw"])
+        for s in range(meta["steps"]):
+            batch = {k: jnp.asarray(inp[f"batch/{arch}/{s}/{k}"])
+                     for k in meta["batch_keys"][arch]}
+            with mesh:
+                params, state, err, m = step(params, state, err, batch)
+            at = f"{arch}/{int(compress)}/{s}"
+            for k in ("loss", "lr", "grad_norm"):
+                out[f"{at}/{k}"] = np.asarray(m[k])
+            out[f"{at}/step"] = np.asarray(state["step"])
+            for name, tree in (("params", params), ("m", state["m"]),
+                               ("v", state["v"])):
+                out.update({k: np.asarray(v) for k, v in
+                            _flat(tree, f"{at}/{name}").items()})
+            for k, v in _flat(err, f"{at}/err").items():
+                shards = sorted(v.addressable_shards, key=lambda sh: sh.device.id)
+                out[k] = np.stack([np.asarray(sh.data) for sh in shards])
+    return out
+
+
+def job_search(inp: dict, meta: dict, part: str) -> dict:
+    import jax.numpy as jnp
+
+    from repro.core.hybrid_search import sharded_device_search
+
+    out = {}
+    for case in meta["cases"]:
+        q = jnp.asarray(inp[f"{case}/queries"])
+        pages = jnp.asarray(inp[f"{case}/pages"]).astype(jnp.bfloat16)
+        ids = jnp.asarray(inp[f"{case}/page_ids"])
+        mask = jnp.asarray(inp[f"{case}/page_mask"])
+        for W in meta["worlds"]:
+            s, i = sharded_device_search(_mesh(W, "model"), q, pages, ids, mask,
+                                         k=meta["k"], axis="model")
+            out[f"{case}/{W}/scores"] = np.asarray(s)
+            out[f"{case}/{W}/ids"] = np.asarray(i)
+    return out
+
+
+JOBS = {"dp_train": job_dp_train, "search": job_search}
+
+
+if __name__ == "__main__":
+    job, inputs, out_path, part = sys.argv[1:5]
+    with np.load(inputs) as f:
+        arrays = dict(f)
+    meta = json.loads(str(arrays.pop("meta")))
+    np.savez(out_path, **JOBS[job](arrays, meta, part))
