@@ -99,13 +99,14 @@ Phases, one line each, every one fatal on failure:
      each path's kernel alone on that buffer state.  Then, Llama-3-8B's
      weights freed, the other families on the same datastore and index,
      one model at a time: granite-moe-3b (MoE, full depth), granite-20b
-     (MQA G=48, full depth; paged, then dense), nemotron-4-15b and
+     (MQA G=48, 16 of 52 layers; paged, then dense), nemotron-4-15b and
      internvl2-1b (full depth) and arctic-480b (full width, 2 of 35
-     layers), each fused with paged decode, and gemma2-27b and
-     minicpm3-4b, rwkv6-3b and zamba2-2.7b (full depth), fused with
-     dense decode (the arch cannot page): one decode grid per layer per
-     step (flash_decode_paged, flash_decode over gemma2's 23 rings and 23
-     global layers, mla_decode for MLA; zamba2's shared attention one
+     layers), each fused with paged decode, and gemma2-27b (16 of 46
+     layers), minicpm3-4b (20 of 62), rwkv6-3b and zamba2-2.7b (full
+     depth), fused with dense decode (the arch cannot page): one decode
+     grid per layer per step (flash_decode_paged, flash_decode over
+     gemma2's rings and global layers, half each, mla_decode for MLA;
+     zamba2's shared attention one
      flash_decode grid per group, 9 a step; rwkv6 none at all) and no
      other decode kernel, probe_topk_fused launched, the
      exact-search check, 0 invariant violations, ms/step and tokens/s
@@ -189,7 +190,22 @@ Phases, one line each, every one fatal on failure:
      bandwidth: not a two-card figure); (ii) internvl2-1b compressed DP
      steps on a global batch of 4, both ranks' parameters equal to the
      bit after each step, the int32 payload beside a bf16 all-reduce's;
-     (iii) which collectives gloo takes on CUDA tensors (a finding).
+     (iii) which collectives gloo takes on CUDA tensors (a finding);
+ 10. the launch tooling (repro_torch.launch; no run of its own, its meta
+     traces on the host's CPU): (a) launch.env.validate() of this
+     process, one line (a finding); (b) dryrun.dry_run_cell's per-card
+     peak for each of phase 8's trainings at the shape it ran (2 x 512
+     tokens, main's chunks, remat groups of 4, its moments, gemma2 at 4
+     layers, a 1 x 1 mesh; one spawned process each) beside phase 8's
+     max_memory_allocated less what was held at its reset, the aim
+     (within 10% or 2 GB) printed met or NOT met; (c) the roofline's
+     bound and model-FLOPs share for phase 8's Llama-3-8B step and a
+     dense Llama-3-8B decode step (4 rows of 128 positions) beside the
+     measured ms/step (phase 8; phase 6's dense serve); (d) the
+     flash_decode, flash_decode_quant and mla_decode wrappers traced on
+     meta (directly and in dry-run decode steps): no launch counter may
+     move, and their card outputs on seeded phase-3 cases must equal the
+     ones taken in phase 3, before any meta trace, bit for bit.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -227,10 +243,14 @@ with the retrieval aims, the device-time aim judged on every run.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import functools
 import gc
 import json
 import math
+import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
@@ -336,21 +356,26 @@ G_CASES = [("granite-moe G=3", 8, 3, 64, 1.0), ("nemotron G=6", 8, 6, 128, 0.5),
 # contexts in phase 7
 G48 = (1, 48, 128)
 
+# the depth of three of phase 6's family serves, cut (from 52, 46 and 62
+# layers) so that the script, with phase 10, stays within its time: the
+# full-depth serves took 20-37 s each, host-bound a layer a step
+FAMILY_SERVE_CUT = {"granite-20b": 16, "gemma2-27b": 16, "minicpm3-4b": 20}
+
 # the other families' serves in phase 6, on the same datastore and index,
 # each model built after the one before is freed: (arch, --layers cut or
 # None for full depth, EngineConfig overrides of each serve).  arctic's
 # 35 layers of 27.3 GB do not fit one card: 2 layers do (54.6 GB).
 FAMILY_SERVES = [
     ("granite-moe-3b-a800m", None, [{}]),
-    ("granite-20b", None, [{}, {"paged_decode": False}]),
+    ("granite-20b", FAMILY_SERVE_CUT["granite-20b"], [{}, {"paged_decode": False}]),
     ("nemotron-4-15b", None, [{}]),
     ("internvl2-1b", None, [{}]),
     ("arctic-480b", 2, [{}]),
     # dense decode whatever the engine asks (supports_paged_decode):
     # gemma2's rings and global layers through flash_decode, MLA's latent
     # cache through mla_decode
-    ("gemma2-27b", None, [{}]),
-    ("minicpm3-4b", None, [{}]),
+    ("gemma2-27b", FAMILY_SERVE_CUT["gemma2-27b"], [{}]),
+    ("minicpm3-4b", FAMILY_SERVE_CUT["minicpm3-4b"], [{}]),
     # the recurrent families, dense as well: RWKV6 launches no decode
     # kernel, zamba2's shared attention one flash_decode grid a group
     ("rwkv6-3b", None, [{}]),
@@ -1526,8 +1551,8 @@ def gemma2_mla_timing(fd, mla, ref, smi: str) -> dict:
 def gemma2_quant_steps(ttf, model, counted: dict, smi: str) -> dict:
     """gemma2-27b at full width (the model phase 6 served): 1 +
     GEMMA2_STEPS ``serve_step`` steps of a batch of 4 over an int8 split
-    cache (``kv_quant=True``: the 23 global layers' K/V int8 with bf16
-    scales, the 23 local rings bf16), then the same steps, the same
+    cache (``kv_quant=True``: the global layers' K/V int8 with bf16
+    scales, the local rings bf16), then the same steps, the same
     tokens, over a bf16 cache holding the same contexts (random K/V, the
     int8 cache its ``quantize_heads``), and over a bf16 cache holding
     the int8 contexts dequantized (``dequantize_heads``), rows from
@@ -1535,8 +1560,8 @@ def gemma2_quant_steps(ttf, model, counted: dict, smi: str) -> dict:
     GEMMA2_STEPS of each (no profiler runs here: a profiled session
     before the serves after it may slow their host side).  Fails
     unless the logits are finite, the int8 run launches
-    flash_decode_quant and flash_decode 23 grids a step each and each
-    bf16 run flash_decode 46, and nothing else.  Prints the logits'
+    flash_decode_quant and flash_decode L/2 grids a step each and each
+    bf16 run flash_decode L, and nothing else.  Prints the logits'
     largest difference relative to their scale between the runs.
     Returns the runs' launches and numbers."""
     from repro_torch.models.attention import dequantize_heads, quantize_heads
@@ -2643,7 +2668,7 @@ def train_phase(smi: str) -> dict:
            "ms": [r["ms"] for r in rows], "steady_ms": sum(steady) / len(steady),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3
            * len(steady) / sum(steady),
-           "peak_bytes": peak, "main_s": wall_s}
+           "peak_bytes": peak, "held_bytes": held, "main_s": wall_s}
     phase("train", f"{out['steady_ms']:.1f} ms/step after the first "
           f"({rows[0]['ms']:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, "
           f"peak {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated), "
@@ -2690,6 +2715,7 @@ def family_train(arch: str, layers, smi: str) -> dict:
                     moment_dtype=moments)
     gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, state = init_training(cfg, opt,
@@ -2742,7 +2768,8 @@ def family_train(arch: str, layers, smi: str) -> dict:
            "ms": [r["ms"] for r in rows],
            "steady_ms": sum(steady) / len(steady),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 * len(steady)
-           / sum(steady), "peak_bytes": peak, "init_s": init_s,
+           / sum(steady), "peak_bytes": peak, "held_bytes": held,
+           "init_s": init_s,
            "profiled_ms": profiled_ms, "device_busy_ms": busy,
            "device_ms_by_op": dict(sorted(by_op.items(),
                                           key=lambda kv: -kv[1])[:4])}
@@ -3004,12 +3031,11 @@ def _compressed_ms(grads, err, group=None) -> float:
 
 
 def payload_bytes(params, compress: bool) -> int:
-    """Bytes one rank hands a step's gradient all-reduce: the int32 sums
-    and one fp32 scale a leaf when ``compress``, else the gradients in
-    the parameters' own dtype."""
-    if compress:
-        return sum(4 * p.numel() + 4 for p in params.values())
-    return sum(p.numel() * p.element_size() for p in params.values())
+    """Bytes one rank hands a step's gradient all-reduce
+    (``compression.payload_bytes`` of the parameters)."""
+    from repro_torch.distributed import compression
+    return compression.payload_bytes(
+        [(p.numel(), p.element_size()) for p in params.values()], compress)
 
 
 def _free() -> None:
@@ -3514,6 +3540,191 @@ def distributed_main() -> None:
                                       if k != "9c"}}))
 
 
+def _call(fn):
+    """``fn()``, in a worker process."""
+    return fn()
+
+
+def meta_bits_cases() -> list:
+    """Phase 10(d)'s seeded phase-3 cases: (name, wrapper, args, kwargs)
+    of flash_decode (softcapped, gemma2's shape), flash_decode_quant and
+    mla_decode (minicpm3's shape), each at the serve length."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mla_decode as mla
+    KVH, G, Dh = GEMMA2_SHAPE
+    dense = dense_case(4, 128, KVH, G, Dh, RAGGED_POS, seed=140)
+    quant = quant_case(dense_case(4, 128, KVH, G, Dh, [127, 96, 40, 0],
+                                  seed=150))
+    H, R, Dr = MLA_SHAPE
+    lat = mla_case(4, 128, H, R, Dr, [127, 96, 40, 0], seed=160)
+    return [("flash_decode", fd.flash_decode, dense,
+             {"softcap": GEMMA2_SOFTCAP}),
+            ("flash_decode_quant", fd.flash_decode_quant, quant,
+             {"softcap": GEMMA2_SOFTCAP}),
+            ("mla_decode", mla.mla_decode, lat + (MLA_SCALE,), {})]
+
+
+def launch_phase(smi: str, train: dict, families: list, dense: dict,
+                 bits_before: dict) -> dict:
+    """Phase 10, the launch tooling on the card host (no training or
+    serving of its own; the meta traces run on the host's CPU):
+    (a) ``launch.env.validate()`` of this process, a finding;
+    (b) ``dryrun.dry_run_cell``'s per-card peak for each of phase 8's
+        trainings at the shape phase 8 ran (TRAIN_BATCH x TRAIN_SEQ,
+        main's chunks, remat groups of 4, the moments it used, gemma2 at
+        4 layers, a 1 x 1 mesh) beside phase 8's measured
+        max_memory_allocated less what was held when it was reset; the
+        aim: within 10% or 2 GB, printed met or NOT met;
+    (c) the roofline's bound and model-FLOPs share for phase 8's
+        Llama-3-8B step and a dense Llama-3-8B decode step (4 rows of
+        128 positions, the dense serve's bucket) beside phase 6's dense
+        serve's measured ms/step;
+    (d) flash_decode, flash_decode_quant and mla_decode on their meta
+        branches (their dry-run cells and direct calls under a counter):
+        no launch counter moves, and their card outputs on seeded cases
+        equal ``bits_before`` (taken before any meta trace) bit for bit.
+    (d) fails the run; a missed (b) aim does not."""
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.sharding import MeshAxes
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.launch import env as launch_env
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    diffs = launch_env.validate()
+    out["env"] = [list(d) for d in diffs]
+    phase("launch", "env: " + ("all recommendations active" if not diffs else
+                               "; ".join(f"{k} = {have!r} (want {want!r})"
+                                         for k, want, have in diffs))
+          + " (a finding, not a failure)")
+
+    cases = meta_bits_cases()
+    counters = {name: fn for name, fn, _, _ in cases}
+    launches0 = {n: fn.launches for n, fn in counters.items()}
+    one = MeshAxes(("data", "model"), (1, 1))
+    suite = ShapeSuite("phase8", "train_step", TRAIN_SEQ, TRAIN_BATCH)
+    runs = [("llama3-8b", None, train)] + [
+        (arch, layers, fam) for (arch, layers), fam in zip(FAMILY_TRAINS,
+                                                           families)]
+    out["memory"] = []
+    # the meta traces are host work: one spawned process a training
+    jobs = []
+    for arch, layers, run in runs:
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dc.replace(cfg, num_layers=layers)
+        jobs.append(functools.partial(
+            dryrun.dry_run_cell, arch, "phase8", mesh=one, cfg=cfg,
+            suite=suite, attn_chunk=min(256, TRAIN_SEQ), loss_chunk=128,
+            remat_group=4, variant={
+                "accum": 1, "moment_bf16": run["moments"] == "bfloat16"},
+            verbose=False))
+    t1 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1),
+            mp_context=ctx) as pool:
+        cells = list(pool.map(_call, jobs))
+    phase("launch", f"{len(jobs)} dry runs of phase 8's trainings in "
+          f"{time.perf_counter() - t1:.1f} s ({min(len(jobs), os.cpu_count() or 1)} "
+          "processes)")
+    for (arch, layers, run), d in zip(runs, cells):
+        cfg = get_arch(arch)
+        if layers:
+            cfg = dc.replace(cfg, num_layers=layers)
+        if d["status"] != "ok":
+            fail(f"launch: dry run of {arch}'s phase-8 training: "
+                 f"{d.get('error')}")
+        pred = d["memory"]["peak_bytes"]
+        meas = run["peak_bytes"] - run["held_bytes"]
+        met = abs(pred - meas) <= max(0.10 * meas, 2e9)
+        row = {"arch": arch, "layers": cfg.num_layers,
+               "moments": run["moments"], "predicted_bytes": pred,
+               "argument_bytes": d["memory"]["argument_bytes"],
+               "temp_bytes": d["memory"]["temp_bytes"],
+               "measured_bytes": meas, "met": met,
+               "trace_s": d["t_lower_s"]}
+        out["memory"].append(row)
+        if arch == "llama3-8b":
+            out["train_roofline"] = d["roofline"]
+        phase("launch", f"memory {arch} ({cfg.num_layers} layers, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {run['moments']} moments, "
+              f"1 x 1 mesh): predicted {pred / 1e9:.2f} GB (arguments "
+              f"{d['memory']['argument_bytes'] / 1e9:.2f} + temporaries "
+              f"{d['memory']['temp_bytes'] / 1e9:.2f}) against measured "
+              f"{meas / 1e9:.2f} GB (phase 8's max_memory_allocated "
+              f"{run['peak_bytes'] / 1e9:.2f} less "
+              f"{run['held_bytes'] / 1e9:.2f} held): "
+              f"{100 * (pred / meas - 1):+.1f}%; aim within 10% or 2 GB: "
+              f"{'met' if met else 'NOT met'} (traced in "
+              f"{row['trace_s']:.1f} s; {smi})")
+
+    # (c) the roofline beside the measured steps
+    r = out["train_roofline"]
+    ms = train["steady_ms"]
+    phase("launch", f"roofline llama3-8b train step ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, 1 card): bound {1e3 * max(r['t_compute_s'], r['t_memory_s'], r['t_collective_s']):.2f} "
+          f"ms ({r['bottleneck']}; compute {1e3 * r['t_compute_s']:.2f}, "
+          f"memory {1e3 * r['t_memory_s']:.2f}), measured {ms:.1f} ms/step "
+          f"(the bound is {100 * max(r['t_compute_s'], r['t_memory_s']) / (ms / 1e3):.1f}% of it); "
+          f"model FLOPs {r['model_flops'] / 1e12:.2f} T = "
+          f"{100 * r['model_flops'] / (ms / 1e3 * BF16_TC_FLOPS):.2f}% of the "
+          f"measured step at the bf16 peak (counted FLOPs "
+          f"{r['hlo_flops_global'] / 1e12:.2f} T); on {smi}")
+    d = dryrun.dry_run_cell(
+        "llama3-8b", "phase6", mesh=one,
+        suite=ShapeSuite("phase6", "serve_step", 128, 4), verbose=False)
+    if d["status"] != "ok":
+        fail(f"launch: dry run of llama3-8b's decode step: {d.get('error')}")
+    rd = d["roofline"]
+    ms_dec = 1e3 * dense["decode_s"] / dense["decode_steps"]
+    bound = max(rd["t_compute_s"], rd["t_memory_s"], rd["t_collective_s"])
+    phase("launch", f"roofline llama3-8b dense decode step (4 rows, 128 "
+          f"positions): bound {1e3 * bound:.3f} ms ({rd['bottleneck']}; "
+          f"bytes {rd['hlo_bytes_global'] / 1e9:.2f} GB), measured "
+          f"{ms_dec:.2f} ms/step in phase 6's dense serve (waves of 1-4 "
+          f"rows): the bound is {100 * bound / (ms_dec / 1e3):.1f}% of it; model "
+          f"FLOPs share {100 * rd['model_flops'] / (ms_dec / 1e3 * BF16_TC_FLOPS):.4f}% "
+          f"at the bf16 peak; on {smi}")
+    out["decode_roofline"] = rd
+    out["decode_ms"] = ms_dec
+
+    # (d) the three wrappers on meta directly, then the card's bits
+    for name, fn, args, kw in cases:
+        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args]
+        c = op_cost.op_cost(lambda *a: fn(*a, **kw), *meta)
+        if not c["flops"]:
+            fail(f"launch: {name}'s meta branch counted no work")
+    for arch, shape in (("gemma2-27b", "decode_32k"), ("minicpm3-4b",
+                                                       "decode_32k")):
+        d = dryrun.dry_run_cell(arch, shape, mesh=one,
+                                suite=ShapeSuite(shape, "serve_step", 128, 4),
+                                variant={"kv_quant": arch == "gemma2-27b"},
+                                verbose=False)
+        if d["status"] != "ok":
+            fail(f"launch: dry run of {arch} decode: {d.get('error')}")
+    moved = {n: fn.launches - launches0[n] for n, fn in counters.items()}
+    if any(moved.values()):
+        fail(f"launch: the meta traces moved launch counters: {moved}")
+    same = {}
+    for name, fn, args, kw in cases:
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        same[name] = bool(torch.equal(got, bits_before[name]))
+    if not all(same.values()):
+        fail(f"launch: card outputs after the meta traces differ: {same}")
+    out["bits_equal"] = same
+    phase("launch", "meta branches: flash_decode, flash_decode_quant and "
+          "mla_decode traced on meta (directly and in the dry runs' decode "
+          "steps): no launch counter moved; their card outputs on seeded "
+          f"phase-3 cases equal the ones before, bit for bit: {same}")
+    out["phase_s"] = time.perf_counter() - t0
+    phase("launch", f"phase 10 took {out['phase_s']:.1f} s")
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4011,6 +4222,9 @@ def main() -> None:
     err_dense = max(err_dense, err_cap)
     # this slice's: kernel 4 at zamba2's Dh = 80
     err_dense = max(err_dense, zamba2_checks(fd, ref))
+    # phase 10(d)'s bits, taken before anything runs on the meta device
+    bits_before = {name: fn(*args, **kw).clone()
+                   for name, fn, args, kw in meta_bits_cases()}
 
     check_model(ttf, get_arch)
     check_moe_layer(get_arch)
@@ -4139,6 +4353,12 @@ def main() -> None:
                                       dist_out["9c"]["ranks"]) for n in counted}
     phase("kernels", json.dumps({"path": "distributed",
                                  **launches["distributed"]}))
+
+    # 10) the launch tooling: env, predicted against measured memory, the
+    #     roofline beside the measured steps, the meta branches' bits
+    launch = launch_phase(smi, train, families, summaries["dense"],
+                          bits_before)
+    phase("launch", json.dumps(launch))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [

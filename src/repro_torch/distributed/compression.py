@@ -29,7 +29,7 @@ the reference's docstring says "4x fewer bytes" and its
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -95,6 +95,16 @@ def init_error_feedback(params: Mapping[str, torch.Tensor],
     """Zero fp32 residuals, by parameter name, on the parameters' device."""
     return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for n, p in params.items()}
+
+
+def payload_bytes(leaves: Iterable[Tuple[int, int]], compress: bool) -> int:
+    """Bytes a rank puts into a step's gradient all-reduce, for leaves of
+    (elements, bytes an element): the gradients in their own dtype, or,
+    compressed, 4 bytes an element (the int32 sum) and one fp32 scale a
+    leaf (the max)."""
+    if compress:
+        return sum(4 * n + 4 for n, _ in leaves)
+    return sum(n * size for n, size in leaves)
 
 
 def compression_ratio(params: Mapping[str, torch.Tensor]) -> float:

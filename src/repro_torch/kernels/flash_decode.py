@@ -11,7 +11,9 @@ tensor runs ``flash_decode_ref`` / ``flash_decode_quant_ref`` /
 ``flash_decode_paged_ref`` / ``flash_decode_spliced_ref``; a CUDA tensor
 launches ``csrc/flash_decode.cu`` / ``csrc/flash_decode_quant.cu`` /
 ``csrc/flash_decode_paged.cu`` / ``csrc/flash_decode_spliced.cu`` on the
-current stream (built on first use) or raises.  All four kernels split every sequence over positions
+current stream (built on first use) or raises.  On a meta tensor (a dry
+run's trace) ``flash_decode`` and ``flash_decode_quant`` launch nothing
+and report ``decode_work`` to ``launch.op_cost``; the other two raise.  All four kernels split every sequence over positions
 (``_splits``: whole 64-position chunks, enough blocks for several per SM)
 and combine the splits inside the same launch, so each wrapper's
 ``launches`` counts one grid launch a call.  Each takes Dh 32, 64 and
@@ -190,6 +192,30 @@ def _check_dense(q, k, v, pos) -> None:
         raise ValueError(f"pos {tuple(pos.shape)} does not match batch {B}")
 
 
+def decode_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                *scales: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``flash_decode`` / ``flash_decode_quant``
+    call over every cache position: the q·K and P·V products, 4·B·KVH·G
+    ·S·Dh, and q, K, V (with an int8 cache's scales) read once and the
+    fp32 output written once."""
+    B, KVH, G, Dh = q.shape
+    flops = 4.0 * B * KVH * G * k.shape[1] * Dh
+    nbytes = sum(float(t.numel()) * t.element_size()
+                 for t in (q, k, v, *scales)) + 4.0 * q.numel()
+    return flops, nbytes
+
+
+def _meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          *scales: torch.Tensor) -> torch.Tensor:
+    """The meta branch of the dense wrappers: an empty fp32 output of the
+    kernel's shape, nothing launched and no count moved; the kernel's
+    work (``decode_work``) goes to the active ``launch.op_cost``
+    counter."""
+    from repro_torch.launch import op_cost
+    op_cost.add(*decode_work(q, k, v, *scales))
+    return torch.empty(q.shape, dtype=torch.float32, device=q.device)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor, *, window: int = 0,
                  softcap: float = 0.0) -> torch.Tensor:
@@ -201,11 +227,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softcap * tanh(s / softcap)``).  Returns [B, KVH, G, Dh] fp32,
     equal to ``flash_decode_ref`` within fp32 summation-order error.  On
     the card it runs one grid launch, splits and their combine together;
-    ``flash_decode.launches`` counts it.
+    ``flash_decode.launches`` counts it.  On meta tensors it launches
+    nothing and reports ``decode_work`` to ``launch.op_cost``.
     """
     _check_dense(q, k, v, pos)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, pos, window, softcap)
+    if q.device.type == "meta":
+        return _meta(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
     _check_launch(q, k, v, dhs=_DENSE_DHS, pos=pos)
@@ -231,7 +260,7 @@ def flash_decode_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dequantizes each row in the kernel.  Returns [B, KVH, G, Dh] fp32,
     equal to ``flash_decode_quant_ref`` within fp32 summation-order
     error; ``flash_decode_quant.launches`` counts its grid launches, one
-    a call."""
+    a call (a meta call: as ``flash_decode``'s)."""
     _check_dense(q, k, v, pos)
     B, S, KVH, _ = k.shape
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -241,6 +270,8 @@ def flash_decode_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_quant_ref(q, k, v, k_scale, v_scale, pos,
                                       window=window, softcap=softcap)
+    if q.device.type == "meta":
+        return _meta(q, k, v, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_quant runs on cpu or cuda, not "
                          f"{q.device}")

@@ -3,7 +3,9 @@ minicpm3): the CUDA kernel's wrapper and its plain version.
 
 ``mla_decode`` dispatches by the tensor's device alone: a CPU tensor runs
 ``mla_decode_ref``; a CUDA tensor launches ``csrc/mla_decode.cu`` on the
-current stream (built on first use) or raises.  The reference has no
+current stream (built on first use) or raises; a meta tensor (a dry
+run's trace) launches nothing and reports ``mla_work`` to
+``launch.op_cost``.  The reference has no
 Pallas kernel here (its ``models/mla.py`` attends in jnp).  Over a bf16
 cache the kernel runs both products on the tensor cores as three bf16
 products of exact pieces of the fp32 queries and probabilities, a block
@@ -78,6 +80,20 @@ def _check(q_abs, q_pe, ckv, kpe, pos) -> None:
                          f"kpe {tuple(kpe.shape)}, pos {tuple(pos.shape)}")
 
 
+def mla_work(q_abs: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+             kpe: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one ``mla_decode`` call over every cache
+    position: the scores (q_abs·ckv and q_pe·kpe) and P·ckv,
+    2·B·H·S·(2R + Dr), and q_abs, q_pe, ckv, kpe read once and the fp32
+    output [B, H, R] written once."""
+    B, H, R = q_abs.shape
+    S, Dr = ckv.shape[1], kpe.shape[2]
+    flops = 2.0 * B * H * S * (2 * R + Dr)
+    nbytes = sum(float(t.numel()) * t.element_size()
+                 for t in (q_abs, q_pe, ckv, kpe)) + 4.0 * q_abs.numel()
+    return flops, nbytes
+
+
 def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
                kpe: torch.Tensor, pos: torch.Tensor, scale: float,
                ) -> torch.Tensor:
@@ -90,10 +106,17 @@ def mla_decode(q_abs: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
     kpe_t) * scale``, softmax over t, then the probabilities times ckv,
     all fp32.  Returns [B, H, R] fp32, equal to ``mla_decode_ref`` within
     fp32 summation-order error.  On the card: H up to 64, (R, Dr) of
-    minicpm3 (256, 32) or its reduced config (32, 16)."""
+    minicpm3 (256, 32) or its reduced config (32, 16).  On meta tensors
+    it launches nothing and reports ``mla_work`` to
+    ``launch.op_cost``."""
     _check(q_abs, q_pe, ckv, kpe, pos)
     if q_abs.device.type == "cpu":
         return mla_decode_ref(q_abs, q_pe, ckv, kpe, pos, scale)
+    if q_abs.device.type == "meta":
+        from repro_torch.launch import op_cost
+        op_cost.add(*mla_work(q_abs, q_pe, ckv, kpe))
+        return torch.empty(q_abs.shape, dtype=torch.float32,
+                           device=q_abs.device)
     if q_abs.device.type != "cuda":
         raise ValueError(f"mla_decode runs on cpu or cuda, not {q_abs.device}")
     B, H, R = q_abs.shape

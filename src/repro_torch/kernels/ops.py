@@ -3,7 +3,8 @@
 
 There is no mode switch: each call goes by its tensors' device.  CPU
 tensors run the plain PyTorch versions; CUDA tensors launch the
-hand-written kernels or raise.  Launch counts live on the wrappers,
+hand-written kernels or raise; meta tensors, on the three decode
+wrappers a dry run traces, launch nothing and report their work.  Launch counts live on the wrappers,
 and each adds to its count only where it launches on the card:
 ``flash_decode.launches``, ``flash_decode_quant.launches``,
 ``flash_decode_paged.launches``, ``flash_decode_spliced.launches``,

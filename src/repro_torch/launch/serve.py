@@ -37,7 +37,8 @@ wkv state, no attention) and zamba2-2.7b (Mamba2 states and the shared
 block's K/V) always decode dense, since
 ``DecodeRunner.attach`` ANDs the engine's ``paged_decode`` with
 ``supports_paged_decode``, as the reference's.  ``--layers N`` cuts the
-depth and prints the cut.
+depth and prints the cut.  ``--print-env`` prints the recommended
+launch environment (``launch/env.py``) and exits.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from repro_torch.core.hybrid_search import host_search
 from repro_torch.core.ivf import IVFIndex, build_ivf, probe
 from repro_torch.core.prefetch_buffer import host_pages
 from repro_torch.data.chunk_kv import ChunkKVStore
+from repro_torch.launch import env as launch_env
 from repro_torch.models import transformer as tf
 from repro_torch.obs.analyze import analyze
 from repro_torch.obs.clock import SystemClock
@@ -139,6 +141,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "Chrome/Perfetto trace-event JSON, and the "
                          "lossless JSONL stream beside it")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--print-env", action="store_true",
+                    help="print the recommended launch environment "
+                         "(tcmalloc preload) and exit")
     return ap.parse_args(argv)
 
 
@@ -393,8 +398,13 @@ def serve(setup: Setup, *, chunk_store: Optional[ChunkKVStore] = None,
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     """Build and serve once per the arguments; returns ``serve``'s
-    summary dict."""
-    return serve(build(parse_args(argv)))
+    summary dict (``--print-env``: prints ``launch.env``'s snippet,
+    builds nothing and returns {})."""
+    args = parse_args(argv)
+    if args.print_env:
+        launch_env.print_env()
+        return {}
+    return serve(build(args))
 
 
 if __name__ == "__main__":

@@ -1452,3 +1452,38 @@ def test_sharded_search_over_one_nccl_rank_equals_kernel_3(nccl_world_of_one):
     torch.cuda.synchronize()
     assert tivf.ivf_topk.launches == before + 1
     assert torch.equal(i, want_i) and torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+def test_meta_branches_leave_the_card_results_bit_for_bit():
+    """flash_decode, flash_decode_quant and mla_decode on the card, then
+    on meta tensors under an ``op_cost`` counter (no launch, no count
+    moved), then on the card again: the same bits as the call before
+    the meta trace."""
+    dev = _card()
+    from repro_torch.kernels import mla_decode as tmla
+    from repro_torch.launch import op_cost
+    from repro_torch.models.attention import quantize_heads
+    g = torch.Generator(device=dev).manual_seed(29)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    q = r(4, 16, 2, 128).bfloat16()
+    k, v = r(4, 300, 16, 128).bfloat16(), r(4, 300, 16, 128).bfloat16()
+    pos = torch.tensor([299, 128, 40, 0], dtype=torch.int32, device=dev)
+    kq, ks = quantize_heads(k)
+    vq, vs = quantize_heads(v)
+    lat = (r(4, 40, 256), r(4, 40, 32), r(4, 300, 256).bfloat16(),
+           r(4, 300, 32).bfloat16(), pos, 0.1)
+    cases = [(tfd.flash_decode, (q, k, v, pos), {"softcap": 50.0}),
+             (tfd.flash_decode_quant, (q, kq, vq, ks, vs, pos), {}),
+             (tmla.mla_decode, lat, {})]
+    for fn, args, kw in cases:
+        before = fn(*args, **kw).clone()
+        n = fn.launches
+        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args]
+        c = op_cost.op_cost(lambda *a: fn(*a, **kw), *meta)
+        assert c["flops"] > 0 and fn.launches == n
+        after = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        assert torch.equal(after, before), fn.__name__

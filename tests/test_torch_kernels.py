@@ -490,9 +490,13 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch():
             tcp.centroid_scores.launches) == before
 
 
-def test_other_devices_raise_instead_of_falling_back():
+def test_other_devices_raise_instead_of_falling_back(monkeypatch):
     """Dispatch goes by device alone: a tensor on neither the CPU nor a
-    card is refused, never quietly computed by the plain version."""
+    card is refused, never quietly computed by the plain version.  Meta
+    tensors are refused as well, except by the decode wrappers a dry run
+    traces (``flash_decode`` here), whose meta branch returns an empty
+    output of the kernel's shape, runs no plain version and launches
+    nothing (``tests/test_torch_op_cost.py`` holds its counted work)."""
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tops.flash_decode_paged(
@@ -500,11 +504,19 @@ def test_other_devices_raise_instead_of_falling_back():
             torch.empty((2, 4, 1, 32), **meta),
             torch.empty((1, 2), dtype=torch.int32, **meta),
             torch.empty((1,), dtype=torch.int32, **meta))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tops.flash_decode(
-            torch.empty((1, 1, 1, 32), **meta), torch.empty((1, 8, 1, 32), **meta),
-            torch.empty((1, 8, 1, 32), **meta),
-            torch.empty((1,), dtype=torch.int32, **meta))
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on meta tensors")
+
+    monkeypatch.setattr(tfd, "flash_decode_ref", plain)
+    before = tfd.flash_decode.launches
+    out = tops.flash_decode(
+        torch.empty((1, 1, 1, 32), **meta), torch.empty((1, 8, 1, 32), **meta),
+        torch.empty((1, 8, 1, 32), **meta),
+        torch.empty((1,), dtype=torch.int32, **meta))
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (1, 1, 1, 32), torch.float32)
+    assert tfd.flash_decode.launches == before
     with pytest.raises(ValueError, match="cpu or cuda"):
         tpt.probe_topk_fused(
             torch.empty((1, 8), **meta), torch.empty((4, 8), **meta),
