@@ -8,6 +8,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py --retrieval-ab PARENT   # the same for kernels 2, 3
     python3 chip_smoke.py --centroid-ab PARENT    # the same for kernel 5
     python3 chip_smoke.py --distributed        # phase 9 alone
+    python3 chip_smoke.py --tensor-parallel    # phase 11 alone
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -98,16 +99,16 @@ Phases, one line each, every one fatal on failure:
      retrieval round fused against unfused, in alternating pairs, and
      each path's kernel alone on that buffer state.  Then, Llama-3-8B's
      weights freed, the other families on the same datastore and index,
-     one model at a time: granite-moe-3b (MoE, full depth), granite-20b
-     (MQA G=48, 16 of 52 layers; paged, then dense), nemotron-4-15b and
-     internvl2-1b (full depth) and arctic-480b (full width, 2 of 35
-     layers), each fused with paged decode, and gemma2-27b (16 of 46
-     layers), minicpm3-4b (20 of 62), rwkv6-3b and zamba2-2.7b (full
-     depth), fused with dense decode (the arch cannot page): one decode
-     grid per layer per step (flash_decode_paged, flash_decode over
-     gemma2's rings and global layers, half each, mla_decode for MLA;
-     zamba2's shared attention one
-     flash_decode grid per group, 9 a step; rwkv6 none at all) and no
+     one model at a time: granite-moe-3b (MoE, 16 of 32 layers),
+     granite-20b (MQA G=48, 16 of 52 layers; paged, then dense),
+     nemotron-4-15b (16 of 32), internvl2-1b (full depth) and
+     arctic-480b (full width, 2 of 35 layers), each fused with paged
+     decode, and gemma2-27b (16 of 46 layers), minicpm3-4b (20 of 62),
+     rwkv6-3b (16 of 32) and zamba2-2.7b (24 of 54), fused with dense
+     decode (the arch cannot page): one decode grid per layer per step
+     (flash_decode_paged, flash_decode over gemma2's rings and global
+     layers, half each, mla_decode for MLA; zamba2's shared attention
+     one flash_decode grid per group, 4 a step; rwkv6 none at all) and no
      other decode kernel, probe_topk_fused launched, the
      exact-search check, 0 invariant violations, ms/step and tokens/s
      printed; gemma2-27b's kv_quant steps (a wave of 1 + 32
@@ -152,11 +153,11 @@ Phases, one line each, every one fatal on failure:
      attention/loss chunks and at make_train_step's defaults).  Then
      every other family, one model at a time (each freed before the
      next), through init_training and make_train_step at main's chunks
-     (remat), 3 steps on one repeated 2 x 512 batch: minicpm3-4b,
-     granite-moe-3b-a800m, rwkv6-3b, musicgen-large (codebooks),
-     zamba2-2.7b and internvl2-1b (its 256-embedding image prefix) at
-     full width and depth, gemma2-27b at full width cut to 4 of 46
-     layers (2 local, 2 global); one line each (ms/step, tokens/s, peak
+     (remat), 3 steps on one repeated 2 x 512 batch, all at full width:
+     granite-moe-3b-a800m, rwkv6-3b, musicgen-large (codebooks) and
+     internvl2-1b (its 256-embedding image prefix) at full depth,
+     minicpm3-4b at 20 of 62 layers, zamba2-2.7b at 24 of 54,
+     gemma2-27b at 4 of 46 (2 local, 2 global); one line each (ms/step, tokens/s, peak
      memory, moments, first and last loss; every loss finite, the last
      below the first; granite-moe's recompute routing every layer as
      its forward did).  Then the "100m" preset of llama3-8b and of
@@ -195,8 +196,8 @@ Phases, one line each, every one fatal on failure:
      traces on the host's CPU): (a) launch.env.validate() of this
      process, one line (a finding); (b) dryrun.dry_run_cell's per-card
      peak for each of phase 8's trainings at the shape it ran (2 x 512
-     tokens, main's chunks, remat groups of 4, its moments, gemma2 at 4
-     layers, a 1 x 1 mesh; one spawned process each) beside phase 8's
+     tokens, main's chunks, remat groups of 4, its moments and depth,
+     a 1 x 1 mesh; one spawned process each) beside phase 8's
      max_memory_allocated less what was held at its reset, the aim
      (within 10% or 2 GB) printed met or NOT met; (c) the roofline's
      bound and model-FLOPs share for phase 8's Llama-3-8B step and a
@@ -205,12 +206,32 @@ Phases, one line each, every one fatal on failure:
      flash_decode, flash_decode_quant and mla_decode wrappers traced on
      meta (directly and in dry-run decode steps): no launch counter may
      move, and their card outputs on seeded phase-3 cases must equal the
-     ones taken in phase 3, before any meta trace, bit for bit.
+     ones taken in phase 3, before any meta trace, bit for bit;
+ 11. tensor parallelism (``--tensor-parallel`` runs it alone):
+     llama3-8b (8 of 32 layers) and granite-20b (4 of 52, MQA) in bf16,
+     granite-moe-3b (8 of 32, experts split) in fp32, all at full
+     width: the one-rank model on the card, then 2 and 4 gloo ranks
+     sharing the card (--tp-rank, one process each), each holding its
+     blocks of the same seeded weights (shard_model) and of the cache
+     and slab (shard_cache): kernels 1 and 4 at the rank's head counts
+     against their plain versions; serve_step_paged, serve_step and
+     prefill with the rank's TPGroup, each rank's launches set to 0
+     just before each step and read after (one kernel-1 grid a layer a
+     paged step, one kernel-4 grid a dense step); logits, cache and
+     slab blocks held to an fp32 run of the same weights on one rank:
+     no further from it than the one-rank model, plus 3e-2 (bf16) or
+     1e-3 (fp32) of the scale (the fp32 run's own move under a 1e-7
+     move of its embeddings printed beside), an MoE step whose routing
+     differs from the one-rank model's only at a near tie (1e-5 of
+     router probability, in its first differing layer) not compared; kernels 1 and 4 alone at each rank shape
+     (device ms a call beside the bound); ms a paged step with the
+     collectives' share, on the host clock through gloo (a layout test,
+     not a multi-card figure).
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
-kernel's launches by path (fused, unfused, dense, chunk) and in the
-checks.
+kernel's launches by path (fused, unfused, dense, chunk, the families,
+tp2 and tp4 summed over the ranks) and in the checks.
 The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
@@ -338,10 +359,12 @@ CKPT_ARCHS = ("llama3-8b", "zamba2-2.7b")
 # make_train_step at main's chunks, FAMILY_TRAIN_STEPS steps on one
 # repeated TokenStream batch of TRAIN_BATCH x TRAIN_SEQ tokens; gemma2-27b
 # (27.2 B) does not fit one card with its moments: 4 of 46 layers (2
-# local, 2 global; 3.45 B) do
-FAMILY_TRAINS = [("minicpm3-4b", None), ("granite-moe-3b-a800m", None),
+# local, 2 global; 3.45 B) do; minicpm3-4b (62 layers) and zamba2-2.7b
+# (54), the two slowest a step, train 20 and 24 since phase 11 (their
+# serves' depths), so that the script stays within its time
+FAMILY_TRAINS = [("minicpm3-4b", 20), ("granite-moe-3b-a800m", None),
                  ("rwkv6-3b", None), ("musicgen-large", None),
-                 ("zamba2-2.7b", None), ("internvl2-1b", None),
+                 ("zamba2-2.7b", 24), ("internvl2-1b", None),
                  ("gemma2-27b", 4)]
 FAMILY_TRAIN_STEPS = 3
 
@@ -356,19 +379,24 @@ G_CASES = [("granite-moe G=3", 8, 3, 64, 1.0), ("nemotron G=6", 8, 6, 128, 0.5),
 # contexts in phase 7
 G48 = (1, 48, 128)
 
-# the depth of three of phase 6's family serves, cut (from 52, 46 and 62
-# layers) so that the script, with phase 10, stays within its time: the
-# full-depth serves took 20-37 s each, host-bound a layer a step
-FAMILY_SERVE_CUT = {"granite-20b": 16, "gemma2-27b": 16, "minicpm3-4b": 20}
+# the depth of phase 6's family serves, cut so that the script, with
+# phases 10 and 11, stays within its time: granite-20b, gemma2-27b and
+# minicpm3-4b from 52, 46 and 62 layers (the full-depth serves took
+# 20-37 s each, host-bound a layer a step); granite-moe-3b,
+# nemotron-4-15b, rwkv6-3b (32 layers each) and zamba2-2.7b (54: 4 of
+# its 9 groups) since phase 11 (11-24 s each at full depth)
+FAMILY_SERVE_CUT = {"granite-20b": 16, "gemma2-27b": 16, "minicpm3-4b": 20,
+                    "granite-moe-3b-a800m": 16, "nemotron-4-15b": 16,
+                    "rwkv6-3b": 16, "zamba2-2.7b": 24}
 
 # the other families' serves in phase 6, on the same datastore and index,
 # each model built after the one before is freed: (arch, --layers cut or
 # None for full depth, EngineConfig overrides of each serve).  arctic's
 # 35 layers of 27.3 GB do not fit one card: 2 layers do (54.6 GB).
 FAMILY_SERVES = [
-    ("granite-moe-3b-a800m", None, [{}]),
+    ("granite-moe-3b-a800m", FAMILY_SERVE_CUT["granite-moe-3b-a800m"], [{}]),
     ("granite-20b", FAMILY_SERVE_CUT["granite-20b"], [{}, {"paged_decode": False}]),
-    ("nemotron-4-15b", None, [{}]),
+    ("nemotron-4-15b", FAMILY_SERVE_CUT["nemotron-4-15b"], [{}]),
     ("internvl2-1b", None, [{}]),
     ("arctic-480b", 2, [{}]),
     # dense decode whatever the engine asks (supports_paged_decode):
@@ -378,8 +406,8 @@ FAMILY_SERVES = [
     ("minicpm3-4b", FAMILY_SERVE_CUT["minicpm3-4b"], [{}]),
     # the recurrent families, dense as well: RWKV6 launches no decode
     # kernel, zamba2's shared attention one flash_decode grid a group
-    ("rwkv6-3b", None, [{}]),
-    ("zamba2-2.7b", None, [{}]),
+    ("rwkv6-3b", FAMILY_SERVE_CUT["rwkv6-3b"], [{}]),
+    ("zamba2-2.7b", FAMILY_SERVE_CUT["zamba2-2.7b"], [{}]),
 ]
 # musicgen (not served: the server decodes [n] tokens, it decodes [n, 4]):
 # a wave as the serves run one, at full width: MUSICGEN_STEPS timed
@@ -427,6 +455,33 @@ DIST_C_STEPS, DIST_C_BATCH = 2, 4
 SEARCH_B, SEARCH_K = 4, 3
 RET_SCORE_TOL = 6.1e-05
 DIST_RANK_TIMEOUT = 600
+
+# phase 11, tensor parallelism (RULES_DEFAULT over "model"): (arch, layers
+# or None for full depth), full width, over TP_WORLDS gloo ranks sharing
+# the card, each rank's blocks of the TP_SEED weights (llama3-8b and
+# granite-20b in bf16, the serving dtype; granite-moe in fp32, so that no
+# near tie in its 32 layers of top-8 routing turns on bf16 noise); a
+# decode step for TP_B rows at TP_LENGTHS over a dense cache of TP_S
+# positions and a slab of TP_PS-token pages, and a 2 x TP_PROMPT prefill;
+# logits, caches and slabs held to an fp32 run of the same weights and
+# inputs: as far from it as the one-rank model is, plus TP_TOL of the
+# scale (two bf16 programs that sum in another order differ by more than
+# 3% of the scale at full width; these random fp32 networks move 1e-5 -
+# 1e-4 of their scale when their inputs move by 1e-7, which phase 11
+# measures and prints); TP_TIMED paged steps timed
+TP_CASES = [("llama3-8b", 8), ("granite-20b", 4), ("granite-moe-3b-a800m", 8)]
+TP_DTYPE = {"llama3-8b": torch.bfloat16, "granite-20b": torch.bfloat16,
+            "granite-moe-3b-a800m": torch.float32}
+TP_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
+TP_WORLDS = (2, 4)
+TP_SEED = 0
+TP_B, TP_S, TP_PS, TP_PROMPT = 4, 256, 16, 128
+TP_LENGTHS = [200, 97, 40, 7]
+TP_TIMED = 5
+# an MoE pick that differs from the one-rank model's must be a near tie:
+# the two experts' router probabilities (the one-rank model's) this close
+TP_TIE = 1e-5
+TP_RANK_TIMEOUT = 300
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -3540,6 +3595,436 @@ def distributed_main() -> None:
                                       if k != "9c"}}))
 
 
+# -- phase 11: tensor parallelism, 2 and 4 gloo ranks sharing the card -------
+
+
+def tp_config(arch: str, layers):
+    """``arch``'s full-width config, its depth cut to ``layers`` (None:
+    full depth)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def tp_inputs(cfg, dt: torch.dtype) -> dict:
+    """Phase 11's inputs on the host, from TP_SEED: a decode step's
+    tokens and positions for TP_B rows, a dense cache [L, TP_B, TP_S,
+    KVH, Dh] and a slab [L, NP, TP_PS, KVH, Dh] of unit normals, a
+    shuffled block table with -1 tails and lengths, a prompt [2,
+    TP_PROMPT]; the caches in ``dt``."""
+    g = torch.Generator().manual_seed(TP_SEED)
+    L, KVH, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    MB = -(-max(TP_LENGTHS) // TP_PS) + 1
+    NP = TP_B * MB + 2
+    rand = lambda *s: torch.randn(s, generator=g).to(dt)
+    bt = torch.randperm(NP, generator=g)[:TP_B * MB].reshape(TP_B, MB).to(
+        torch.int32)
+    for b, n in enumerate(TP_LENGTHS):
+        bt[b, n // TP_PS + 1:] = -1
+    tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=g,
+                                   dtype=torch.int32)
+    return {"token": tok(TP_B), "pos": torch.tensor(TP_LENGTHS, dtype=torch.int32),
+            "k": rand(L, TP_B, TP_S, KVH, Dh), "v": rand(L, TP_B, TP_S, KVH, Dh),
+            "k_slab": rand(L, NP, TP_PS, KVH, Dh),
+            "v_slab": rand(L, NP, TP_PS, KVH, Dh), "block_table": bt,
+            "lengths": torch.tensor(TP_LENGTHS, dtype=torch.int32),
+            "tokens": tok(2, TP_PROMPT)}
+
+
+def tp_steps(ttf, model, inp: dict, counted: dict, tp=None,
+             timed: bool = True) -> dict:
+    """``serve_step_paged``, ``serve_step`` and ``prefill`` of ``model``
+    once each on ``inp`` (a rank's blocks where ``tp``; the caches cast
+    to the model's dtype), the launch counts set to 0 just before each
+    and read just after; then, where ``timed``, ``TP_TIMED`` paged steps
+    timed on the host clock, with the collectives' host seconds
+    (``tp.timed``).  Returns the logits, caches and slabs on the host,
+    an MoE model's routing in each step (every layer's picks and router
+    probabilities), the launches and the ms a step."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    cuda = lambda t: t.cuda().to(model.dtype if t.is_floating_point()
+                                 else t.dtype)
+    out, launches = {}, {}
+    kw = {} if tp is None else {"tp": tp}
+    route, picks = moe.route, []
+
+    def recorded(router, x, cfg):          # every MoE layer's routing
+        r = route(router, x, cfg)
+        picks.append((r.experts, r.probs))
+        return r
+
+    def counted_run(name, fn):
+        torch.cuda.synchronize()
+        if tp is not None:
+            dist.barrier()
+        for f in counted.values():
+            f.launches = 0
+        picks.clear()
+        moe.route = recorded
+        try:
+            res = fn()
+        finally:
+            moe.route = route
+        torch.cuda.synchronize()
+        launches[name] = {n: f.launches for n, f in counted.items()}
+        if picks:
+            out[f"{name}/experts"] = torch.stack([e for e, _ in picks]).cpu()
+            out[f"{name}/probs"] = torch.stack([p for _, p in picks]).cpu()
+        return res
+
+    with torch.no_grad():
+        ks, vs = cuda(inp["k_slab"]), cuda(inp["v_slab"])
+        bt, lens, tok = cuda(inp["block_table"]), cuda(inp["lengths"]), \
+            cuda(inp["token"])
+        logits, ks, vs = counted_run("paged", lambda: ttf.serve_step_paged(
+            model, ks, vs, bt, lens, {"token": tok}, **kw))
+        out.update({"paged/logits": logits.cpu(), "paged/k": ks.cpu(),
+                    "paged/v": vs.cpu()})
+        cache = {"k": cuda(inp["k"]), "v": cuda(inp["v"])}
+        logits, cache = counted_run("dense", lambda: ttf.serve_step(
+            model, cache, {"token": tok, "pos": cuda(inp["pos"])}, **kw))
+        out.update({"dense/logits": logits.cpu(), "dense/k": cache["k"].cpu(),
+                    "dense/v": cache["v"].cpu()})
+        logits, cache = counted_run("prefill", lambda: ttf.prefill(
+            model, {"tokens": cuda(inp["tokens"])}, attn_chunk=TP_PROMPT, **kw))
+        out.update({"prefill/logits": logits.cpu(),
+                    "prefill/k": cache["k"].cpu(), "prefill/v": cache["v"].cpu()})
+        del cache
+        if not timed:
+            out["launches"] = launches
+            return out
+        for _ in range(2):                     # warm
+            ttf.serve_step_paged(model, ks, vs, bt, lens, {"token": tok}, **kw)
+        torch.cuda.synchronize()
+        if tp is not None:
+            dist.barrier()
+            tp.timed, tp.seconds = True, 0.0
+        t0 = time.perf_counter()
+        for _ in range(TP_TIMED):
+            ttf.serve_step_paged(model, ks, vs, bt, lens, {"token": tok}, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    out["ms"] = 1e3 * total / TP_TIMED
+    out["coll_ms"] = 0.0 if tp is None else 1e3 * tp.seconds / TP_TIMED
+    if tp is not None:
+        tp.timed = False
+    out["launches"] = launches
+    return out
+
+
+def tp_rank_main(rank: int, world: int, init: str, work: Path) -> None:
+    """One rank of phase 11 over gloo on the card: for each of TP_CASES,
+    its blocks of the seeded model (``shard_model``; the full model built
+    one rank at a time), kernels 1 and 4 at its local head counts held
+    against their plain versions (outside the counted runs), then
+    ``tp_steps`` on its blocks of the cache and slab (``shard_cache``).
+    Saves its outputs to ``work``/tp<world>_<rank>_<arch>.pt and writes
+    ``work``/tp<world>_<rank>.json."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.distributed.sharding import MeshAxes
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving.kv_cache import KVPageSlab
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    tp = tpm.TPGroup()
+    mesh = MeshAxes(("model",), (world,))
+    counted = counted_kernels()
+    summary = {"rank": rank, "cases": {}}
+    for arch, layers in TP_CASES:
+        cfg = tp_config(arch, layers)
+        dt = TP_DTYPE[arch]
+        inp = torch.load(work / f"tp_in_{arch}.pt")
+        t0 = time.perf_counter()
+        for r in range(world):              # one full model on the card at once
+            if r == rank:
+                full = ttf.init_params(cfg, torch.Generator(
+                    device="cuda").manual_seed(TP_SEED), device="cuda", dtype=dt)
+                model = tpm.shard_model(full, cfg, mesh, rank=rank)
+                del full
+                _free()
+            dist.barrier()
+        build_s = time.perf_counter() - t0
+        kvh = model.wk.shape[2]
+        G = model.wq.shape[2] // kvh if not model.tp_layout.padded_heads \
+            else cfg.num_heads // kvh
+        Dh = cfg.resolved_head_dim
+        err1 = check_decode(fd, ref, decode_case(TP_B, kvh, G, Dh, TP_PS, -(
+            -max(TP_LENGTHS) // TP_PS) + 1, TP_LENGTHS, seed=40 + rank, dtype=dt),
+            0, f"{arch} rank {rank} of {world}'s shape")
+        err4 = check_dense(fd, ref, dense_case(TP_B, TP_S, kvh, G, Dh,
+                                               TP_LENGTHS, seed=50 + rank,
+                                               dtype=dt), 0,
+                           f"{arch} rank {rank} of {world}'s shape")
+        coord = (rank,)
+        dense = tpm.shard_cache({"k": inp["k"], "v": inp["v"]}, cfg, mesh,
+                                coord=coord)
+        slab = tpm.shard_cache(KVPageSlab(k=inp["k_slab"], v=inp["v_slab"],
+                                          page_size=TP_PS), cfg, mesh,
+                               coord=coord)
+        mine = dict(inp, k=dense["k"], v=dense["v"], k_slab=slab.k,
+                    v_slab=slab.v)
+        out = tp_steps(ttf, model, mine, counted, tp)
+        torch.save({k: v for k, v in out.items() if isinstance(v, torch.Tensor)},
+                   work / f"tp{world}_{rank}_{arch}.pt")
+        summary["cases"][arch] = {
+            "shape": [kvh, G, Dh], "dtype": str(dt).replace("torch.", ""),
+            "err_paged_kernel": err1, "err_dense_kernel": err4,
+            "launches": out["launches"], "ms": out["ms"],
+            "coll_ms": out["coll_ms"], "build_s": build_s,
+            "collectives": tp.calls}
+        del model, dense, slab, mine, out
+        _free()
+    dist.destroy_process_group()
+    (work / f"tp{world}_{rank}.json").write_text(json.dumps(summary))
+
+
+def _near_tie(got: dict, one: dict, step: str):
+    """None where an MoE step routed every token as the one-rank model
+    did; else, in the first layer whose picks differ, the largest gap
+    between the one-rank model's router probabilities of the expert it
+    took and the one the rank took (a near tie if tiny; later layers
+    follow from the first difference)."""
+    key = f"{step}/experts"
+    if key not in got:
+        return None
+    mine, theirs = one[key].sort(-1).values, got[key].sort(-1).values
+    if torch.equal(mine, theirs):
+        return None
+    first = int((mine != theirs).flatten(1).any(1).nonzero()[0])
+    mine, theirs = mine[first], theirs[first]
+    probs = one[f"{step}/probs"][first]
+    gap = 0.0
+    for idx in (mine != theirs).any(-1).nonzero().tolist():
+        a, b = set(mine[tuple(idx)].tolist()), set(theirs[tuple(idx)].tolist())
+        p = probs[tuple(idx)]
+        for e_mine, e_theirs in zip(sorted(a - b), sorted(b - a)):
+            gap = max(gap, abs(float(p[e_mine] - p[e_theirs])))
+    return gap
+
+
+def _scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's largest value."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tp_phase(smi: str, work: Path) -> dict:
+    """Phase 11: for each of TP_CASES the one-rank model on the card (the
+    seeded weights, ``tp_steps`` without a group) and, for a bf16 model,
+    the same weights and inputs in fp32 (the exact run); then 2 and 4
+    gloo ranks sharing the card (``tp_rank_main``, one process each):
+    each rank's logits (every step) and its cache and slab blocks
+    (``local_block`` over ``model``) as far from the exact run as the
+    one-rank model is, plus TP_TOL of the scale; one kernel-1 grid a
+    layer in its paged step and one kernel-4 grid a layer in its dense
+    step.  Every case is printed before a failure ends the run.  Times
+    are host milliseconds of ranks sharing one card through gloo: a
+    layout test, not a multi-card figure."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as ttf
+    t_phase = time.perf_counter()
+    counted = counted_kernels()
+    one, exact, spread, failures = {}, {}, {}, []
+    for arch, layers in TP_CASES:
+        cfg = tp_config(arch, layers)
+        inp = tp_inputs(cfg, TP_DTYPE[arch])
+        torch.save(inp, work / f"tp_in_{arch}.pt")
+        model = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            TP_SEED), device="cuda", dtype=TP_DTYPE[arch])
+        one[arch] = tp_steps(ttf, model, inp, counted)
+        if model.dtype != torch.float32:   # the same weights and inputs in fp32
+            model = ttf.Transformer(cfg, {n: p.detach().float() for n, p in
+                                          model.named_parameters()})
+            exact[arch] = tp_steps(ttf, model, inp, counted, timed=False)
+        else:
+            exact[arch] = one[arch]
+        # the fp32 network's own spread: its logits with the embeddings
+        # moved by a relative 1e-7 (uniform noise from TP_SEED)
+        g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+        model.embed.mul_(1 + (torch.rand(model.embed.shape, generator=g,
+                                         device="cuda") - 0.5) * 2e-7)
+        moved = tp_steps(ttf, model, inp, counted, timed=False)
+        spread[arch] = max(_scale_err(moved[k], exact[arch][k])
+                           for k in moved if k.endswith("/logits"))
+        del model
+        _free()
+    result = {"one_rank_ms": {a: one[a]["ms"] for a in one},
+              "fp32_spread": spread}
+    for world in TP_WORLDS:
+        init = work / f"tp{world}.pg"
+        logs = [work / f"tp{world}_{r}.log" for r in range(world)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(world):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                         str(r), str(world), str(init), str(work)],
+                        stdout=log, stderr=subprocess.STDOUT))
+            for r, p in enumerate(procs):
+                if p.wait(timeout=TP_RANK_TIMEOUT) != 0:
+                    fail(f"11: rank {r} of {world} exited {p.returncode}:\n"
+                         + logs[r].read_text()[-3000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"tp{world}_{r}.json").read_text())
+                 for r in range(world)]
+        mesh = sh.MeshAxes(("model",), (world,))
+        by_arch = {}
+        for arch, layers in TP_CASES:
+            cfg = tp_config(arch, layers)
+            tol = TP_TOL[TP_DTYPE[arch]]
+            # each output against the fp32 run of the same weights and
+            # inputs: within the one-rank model's own distance from it
+            # plus tol of its scale
+            errs = {"logits": [0.0, 0.0], "cache": [0.0, 0.0]}
+            flips = []
+            for r, rk in enumerate(ranks):
+                got = torch.load(work / f"tp{world}_{r}_{arch}.pt")
+                flipped = set()
+                for step in ("paged", "dense", "prefill"):
+                    gap = _near_tie(got, one[arch], step)
+                    if gap is None:
+                        continue
+                    flips.append((r, step, gap))
+                    if gap <= TP_TIE:
+                        flipped.add(step)      # a near tie: not compared
+                    else:
+                        failures.append(
+                            f"{arch} over {world} ranks, rank {r}'s {step} "
+                            f"routing differs from the one-rank model's, "
+                            f"{gap:.3e} apart (more than {TP_TIE})")
+                for key in got:
+                    step, what = key.split("/")
+                    if what in ("experts", "probs") or step in flipped:
+                        continue
+                    want, mine = exact[arch][key], one[arch][key]
+                    if what != "logits":
+                        axes = (tpm.SLAB_AXES if step == "paged"
+                                else ttf.cache_axes(cfg)[what])
+                        blk = sh.local_block(sh.spec_for(
+                            axes, want.shape, mesh, sh.RULES_DEFAULT),
+                            want.shape, mesh, (r,))
+                        want, mine = want[blk], mine[blk]
+                    e_tp, e_one = _scale_err(got[key], want), _scale_err(mine, want)
+                    kind = "logits" if what == "logits" else "cache"
+                    errs[kind] = [max(errs[kind][0], e_tp),
+                                  max(errs[kind][1], e_one)]
+                    if not e_tp <= e_one + tol:
+                        failures.append(
+                            f"{arch} over {world} ranks, rank {r}'s {key}: "
+                            f"{e_tp:.3e} of the scale from the fp32 run, the "
+                            f"one-rank model {e_one:.3e} (tolerance + {tol})")
+                case = rk["cases"][arch]
+                for step, name in (("paged", "flash_decode_paged"),
+                                   ("dense", "flash_decode")):
+                    if case["launches"][step][name] != cfg.num_layers:
+                        failures.append(
+                            f"{arch} rank {r} of {world}: {step} step launched "
+                            f"{name} {case['launches'][step][name]} times, want "
+                            f"one a layer ({cfg.num_layers})")
+            cases = [rk["cases"][arch] for rk in ranks]
+            by_arch[arch] = {
+                "shape": cases[0]["shape"], "dtype": cases[0]["dtype"],
+                "errs": errs, "tol": tol,
+                "kernel_errs": [max(c["err_paged_kernel"], c["err_dense_kernel"])
+                                for c in cases],
+                "ms": [c["ms"] for c in cases],
+                "coll_ms": [c["coll_ms"] for c in cases],
+                "launches": {s: {n: sum(c["launches"][s][n] for c in cases)
+                                 for n in counted} for s in ("paged", "dense",
+                                                             "prefill")}}
+            b = by_arch[arch]
+            phase("tp", f"11 {arch} ({cfg.num_layers} layers, full width, "
+                  f"{b['dtype']}) over {world} gloo ranks on one card: each "
+                  f"rank's kernels at KVH {b['shape'][0]}, G {b['shape'][1]}, "
+                  f"Dh {b['shape'][2]} (kernel 1 and 4 against their plain "
+                  f"versions, max_abs_err {max(b['kernel_errs']):.3e}, "
+                  f"atol=rtol=2e-3); logits of the paged, dense and prefill "
+                  f"steps {errs['logits'][0]:.3e} of the scale from the fp32 "
+                  f"run of the same weights (the one-rank model "
+                  f"{errs['logits'][1]:.3e}; the fp32 run's own logits move "
+                  f"{spread[arch]:.3e} under a 1e-7 relative move of its "
+                  f"embeddings), cache and slab blocks "
+                  f"{errs['cache'][0]:.3e} (one rank {errs['cache'][1]:.3e}; "
+                  f"tolerance: the one-rank model's + {tol})"
+                  + (f", MoE routing as the one-rank model's but at near "
+                     f"ties (rank, step, probability gap) {flips}, those "
+                     f"steps not compared" if flips else "")
+                  + "; one kernel-1 grid a layer a paged step and one kernel-4 "
+                  f"grid a dense step on every rank; "
+                  f"ms a paged step {[round(x, 2) for x in b['ms']]} against "
+                  f"{one[arch]['ms']:.2f} on one rank, collectives "
+                  f"{[round(x, 2) for x in b['coll_ms']]} ms of it (host "
+                  f"clock, gloo through the host, ranks sharing one card: a "
+                  f"layout test, not a multi-card figure); on {smi}")
+        result[f"tp{world}"] = {"wall_s": wall, "archs": by_arch}
+    # kernels 1 and 4 alone at each rank shape, on this process alone
+    from repro_torch.kernels import flash_decode as fd
+    shapes = sorted({(tuple(b["shape"]), b["dtype"]) for w in TP_WORLDS
+                     for b in result[f"tp{w}"]["archs"].values()})
+    MB = -(-max(TP_LENGTHS) // TP_PS) + 1
+    result["local"] = []
+    for (kvh, G, Dh), dtn in shapes:
+        dt = getattr(torch, dtn)
+        pc = decode_case(TP_B, kvh, G, Dh, TP_PS, MB, TP_LENGTHS, seed=60,
+                         dtype=dt)
+        dc = dense_case(TP_B, TP_S, kvh, G, Dh, TP_LENGTHS, seed=61, dtype=dt)
+        row = {"shape": [kvh, G, Dh], "dtype": dtn}
+        for name, fn, work in (
+                ("flash_decode_paged", lambda: fd.flash_decode_paged(*pc),
+                 decode_work(pc[0], pc[1], pc[3], pc[4], 0)),
+                ("flash_decode", lambda: fd.flash_decode(*dc),
+                 dense_work(dc, 0))):
+            b, by = bound(*work)
+            row[name] = {"ms": device_ms(fn, calls=20), "bound_ms": b,
+                         "bound_by": by}
+        result["local"].append(row)
+        phase("tp", f"11 kernels alone at a rank's shape KVH {kvh}, G {G}, Dh "
+              f"{Dh} ({dtn}; B {TP_B}, lengths {TP_LENGTHS}): "
+              + "; ".join(f"{n} {row[n]['ms']:.4f} ms device a call, bound "
+                          f"{row[n]['bound_ms']:.5f} ms ({row[n]['bound_by']})"
+                          for n in ("flash_decode_paged", "flash_decode"))
+              + f"; on {smi}")
+    result["s"] = time.perf_counter() - t_phase
+    phase("tp", f"phase 11 in {result['s']:.1f} s")
+    if failures:
+        fail("11: " + "; ".join(failures))
+    return result
+
+
+def tp_main() -> None:
+    """Phase 11 alone, the kernels built first."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    phase("card", f"{smi} | torch: {torch.cuda.get_device_name(0)}")
+    _build.build_all(_build.SOURCES)
+    with tempfile.TemporaryDirectory() as d:
+        out = tp_phase(smi, Path(d))
+    print(smi)
+    print(json.dumps({"tensor_parallel": out}))
+
+
 def _call(fn):
     """``fn()``, in a worker process."""
     return fn()
@@ -4359,6 +4844,21 @@ def main() -> None:
     launch = launch_phase(smi, train, families, summaries["dense"],
                           bits_before)
     phase("launch", json.dumps(launch))
+
+    # 11) tensor parallelism: 2 and 4 gloo ranks sharing the card, each
+    #     rank's launch counts set to 0 just before each step and read after
+    with tempfile.TemporaryDirectory() as d:
+        tp_out = tp_phase(smi, Path(d))
+    for world in TP_WORLDS:
+        launches[f"tp{world}"] = {
+            n: sum(a["launches"][s][n] for a in tp_out[f"tp{world}"]["archs"]
+                   .values() for s in ("paged", "dense", "prefill"))
+            for n in counted}
+        phase("kernels", json.dumps({"path": f"tp{world}",
+                                     **launches[f"tp{world}"]}))
+    tp_local = {name: [{"shape": r["shape"], "dtype": r["dtype"], **r[name]}
+                       for r in tp_out["local"]]
+                for name in ("flash_decode_paged", "flash_decode")}
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -4369,7 +4869,8 @@ def main() -> None:
          "launches_by_path": {p: c["flash_decode_paged"]
                               for p, c in launches.items()},
          "max_abs_err": err_dec, **decode_json(decode_t["flash_decode_paged"]),
-         "granite20b": g48_t["flash_decode_paged"]},
+         "granite20b": g48_t["flash_decode_paged"],
+         "tp_local_shapes": tp_local["flash_decode_paged"]},
         {"name": "probe_topk_fused", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/probe_topk.cu",
          "replaces": "src/repro/kernels/probe_topk.py:172",
@@ -4394,7 +4895,8 @@ def main() -> None:
          "granite20b": g48_t["flash_decode"],
          "gemma2_softcap": gm_t["flash_decode_softcap"],
          "gemma2_ring": gm_t["flash_decode_ring"]["long"],
-         "zamba2_dh80": zamba2_t},
+         "zamba2_dh80": zamba2_t,
+         "tp_local_shapes": tp_local["flash_decode"]},
         {"name": "centroid_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/centroid_scores.cu",
          "replaces": "src/repro/kernels/centroid_probe.py:42",
@@ -4464,10 +4966,16 @@ if __name__ == "__main__":
     elif len(sys.argv) == 6 and sys.argv[1] == "--dist-rank":
         dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                        Path(sys.argv[5]))
+    elif len(sys.argv) == 2 and sys.argv[1] == "--tensor-parallel":
+        tp_main()
+    elif len(sys.argv) == 6 and sys.argv[1] == "--tp-rank":
+        tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                     Path(sys.argv[5]))
     elif len(sys.argv) == 1:
         main()
     else:
         fail(f"usage: {sys.argv[0]} [--decode-timing DIR BITS | --decode-ab "
              "PARENT | --attn-timing DIR BITS | --attn-ab PARENT | "
              "--retrieval-timing DIR | --retrieval-ab PARENT | "
-             "--centroid-timing DIR | --centroid-ab PARENT | --distributed]")
+             "--centroid-timing DIR | --centroid-ab PARENT | --distributed | "
+             "--tensor-parallel]")

@@ -14,8 +14,12 @@ the leaf modules:
   ``RULES_FSDP_LONG``, ``RULES_LONG_CONTEXT``, ``cache_shardings``,
   ``data_sharding``, ``param_shardings``, ``replicated``, ``spec_for``,
   ``tree_shardings``, and ``MeshAxes``, ``placements``, ``local_block``
-  (specs onto a ``DeviceMesh``).
+  (specs onto a ``DeviceMesh``);
+* ``distributed.tensor_parallel``: ``TPGroup``, ``MetaTPGroup``,
+  ``shard_model``, ``shard_cache``, ``gather_cache``,
+  ``check_tp_supported`` (the serve steps over a mesh's ``model`` axis).
 
-The collectives' callers: ``training.train_loop.make_manual_dp_train_step``
-and ``core.hybrid_search.sharded_device_search``.
+The collectives' callers: ``training.train_loop.make_manual_dp_train_step``,
+``core.hybrid_search.sharded_device_search`` and the serve steps of
+``models.transformer`` given a ``tp`` group.
 """

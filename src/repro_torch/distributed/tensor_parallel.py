@@ -1,0 +1,466 @@
+"""Tensor parallelism over a mesh's ``model`` axis for the serve steps:
+the program that the reference's GSPMD partitioner makes of
+``serve_step``, ``prefill`` and ``serve_step_paged`` under its sharding
+rules (``RULES_DEFAULT``: heads, kv_heads, mlp, experts and vocab over
+``model``), written out by hand.
+
+A rank holds the ``sharding.local_block`` of every parameter that
+``spec_for`` gives it over the ``model`` axis (``shard_model``), and the
+layers work on those blocks:
+
+* attention on the rank's query heads and KV heads (kernels 1 and 4 at
+  the local head counts), the row-parallel ``wo`` product all-reduced;
+* the MLP column-parallel in ``w_up``/``w_gate``, row-parallel in
+  ``w_down``, all-reduced;
+* MoE experts split (the rank runs its experts, the fp32 combine
+  all-reduced before its one cast) or, where the experts do not divide,
+  the expert MLP split as a plain MLP;
+* the embedding a masked lookup of the rank's vocabulary rows, then an
+  all-reduce; the unembedding column-parallel, then an all-gather of the
+  logits.
+
+The layout is whatever ``spec_for`` gives, so a dim that does not divide
+stays whole: granite-20b's single KV head (every rank computes the K/V
+and holds the whole cache), a vocabulary that does not divide (no
+collective at either end), internvl2-1b's 14 heads over 4 or 8 ranks
+(attention whole on every rank, no all-reduce after ``wo``).  Where the
+query heads split but the KV heads stay whole (KVH 8 over 16 ranks),
+the rank's heads belong to a subset of the KV groups: its queries are
+placed at their global positions in a zeroed [KVH, G] layout over the
+whole cache, and only its heads' rows are kept, so query head ``h``
+attends KV head ``h // G`` as unsharded.
+
+Collectives (``TPGroup``; the wire dtype is the activations', as the
+reference's partitioned program sends them, but for the MoE combine,
+which is fp32 until its one cast):
+
+* ``all_reduce_sum``: after ``wo``, after ``w_down`` or the MoE combine
+  (and arctic's dense residual), once each a layer where the dim splits;
+* ``embed_lookup``: the masked lookup then ``all_reduce_sum``;
+* ``all_gather_last``: the logits [..., V / model] to [..., V].
+
+``MetaTPGroup`` makes none of them: it returns a tensor of the right
+shape and hands the collective's bytes (its output's size, the
+reference's convention) to ``launch.op_cost``, for the dry run.
+
+Not here (``check_tp_supported`` raises): gemma2's rings and split
+cache, MLA, RWKV6, zamba2, ``kv_seq`` over ``model`` in a decode step
+(sequence-parallel decode), weights split over another axis (FSDP), and
+any step with gradients on.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+
+AXIS = "model"
+# the paged slab [L, NP, ps, KVH, Dh], split as the dense cache's heads
+SLAB_AXES = ("layers", None, None, "kv_heads", None)
+ENTRIES = ("serve_step", "serve_step_paged", "prefill")
+
+
+def _model_mesh(size: int) -> shd.MeshAxes:
+    return shd.MeshAxes((AXIS,), (size,))
+
+
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s ``model`` axis (1 without one)."""
+    return shd._sizes(mesh).get(AXIS, 1)
+
+
+def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT,
+                       *, entry: str = "serve_step", grad: bool = False) -> None:
+    """Raise unless ``entry`` of ``cfg`` has a tensor-parallel program
+    here under ``rules`` on ``mesh``: a global-causal or plainly windowed
+    GQA/MQA decoder (dense MLP or MoE, an image prefix or codebooks),
+    its weights split over ``model`` alone, no gradients, and for a
+    decode step KV not split along the sequence (a prefill returns the
+    rank's block of its cache whatever splits it)."""
+    from repro_torch.models import transformer as tf
+    if entry not in ENTRIES:
+        raise ValueError(f"no tensor-parallel program for {entry!r}: "
+                         f"serve steps only ({', '.join(ENTRIES)})")
+    if grad:
+        raise ValueError("tensor-parallel steps run without gradients "
+                         "(torch.no_grad): tensor-parallel training is not "
+                         "ported")
+    kind = tf.family_kind(cfg)
+    why = None
+    if kind != "attn":
+        why = f"the {kind} family"
+    elif cfg.attn_kind != "gqa":
+        why = f"{cfg.attn_kind} attention"
+    elif cfg.local_global_pattern and cfg.sliding_window:
+        why = "gemma2's local rings and split cache"
+    if why:
+        raise ValueError(f"arch {cfg.name!r}: no tensor-parallel program for "
+                         f"{why} (GQA/MQA/MoE decoders only)")
+    sizes = shd._sizes(mesh)
+    for axis, rule in rules.items():
+        if axis in ("batch", "kv_seq"):
+            continue
+        other = [a for a in shd._mesh_axes(sizes, rule) if a != AXIS]
+        if other:
+            raise ValueError(f"rules split {axis!r} over {other}: weights "
+                             "sharded beyond the model axis (FSDP) have no "
+                             "program")
+    m = sizes.get(AXIS, 1)
+    if m > 1 and AXIS in shd._mesh_axes(sizes, rules.get("kv_seq")):
+        if entry != "prefill":
+            raise ValueError("kv_seq over the model axis is sequence-parallel "
+                             "decode, which has no program")
+        if cfg.num_kv_heads % m == 0:
+            raise ValueError("a prefill cache split along the sequence from "
+                             "K/V split along the heads needs an all-to-all, "
+                             "which has no program")
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """Which block of each parameter a rank of the ``model`` axis holds:
+    ``specs`` over a mesh of that axis alone (``spec_for``), the rank's
+    coordinate and the axis size, and the ranges the layers read."""
+
+    size: int
+    rank: int
+    rules: shd.Rules
+    specs: Dict[str, shd.Spec]
+    shapes: Dict[str, Tuple[int, ...]]      # the whole parameters'
+
+    def part(self, name: str, dim: int) -> Optional[Tuple[int, int]]:
+        """[lo, hi) of parameter ``name``'s dim ``dim`` on this rank, or
+        None where the dim is whole (or there is no such parameter)."""
+        spec = self.specs.get(name)
+        if spec is None or dim >= len(spec) or spec[dim] is None:
+            return None
+        n = self.shapes[name][dim] // self.size
+        return self.rank * n, (self.rank + 1) * n
+
+    def local_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """The shape of each parameter's block on this rank."""
+        return {n: tuple(len(range(*sl.indices(s)))
+                         for sl, s in zip(self.block(n), shape))
+                for n, shape in self.shapes.items()}
+
+    def block(self, name: str) -> Tuple[slice, ...]:
+        return shd.local_block(self.specs[name], self.shapes[name],
+                               _model_mesh(self.size), (self.rank,))
+
+    # the ranges the layers read (None: whole on every rank)
+    @property
+    def heads(self):
+        return self.part("wq", 2)
+
+    @property
+    def kv_heads(self):
+        return self.part("wk", 2)
+
+    @property
+    def vocab(self):
+        return self.part("embed", len(self.shapes["embed"]) - 2)
+
+    @property
+    def unembed_vocab(self):
+        if "unembed" not in self.shapes:        # tied: the embedding's rows
+            return self.vocab
+        return self.part("unembed", len(self.shapes["unembed"]) - 1)
+
+    @property
+    def experts(self):
+        return self.part("w_up", 1) if len(self.shapes["w_up"]) == 4 else None
+
+    @property
+    def mlp_split(self) -> bool:
+        """The (expert) MLP's hidden dim is split: ``w_down`` all-reduces."""
+        return self.part("w_up", len(self.shapes["w_up"]) - 1) is not None
+
+    @property
+    def dense_split(self) -> bool:
+        return self.part("dense_w_up", 2) is not None
+
+    @property
+    def padded_heads(self) -> bool:
+        """Query heads split, KV heads whole and more than one: the
+        rank's queries sit in the zeroed global [KVH, G] layout."""
+        return (self.heads is not None and self.kv_heads is None
+                and self.shapes["wk"][2] > 1)
+
+
+def tp_layout(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT,
+              rank: Optional[int] = None) -> TPLayout:
+    """The layout of rank ``rank`` of ``mesh``'s ``model`` axis (default:
+    this process's coordinate on a ``DeviceMesh``)."""
+    from repro_torch.models import transformer as tf
+    size = model_size(mesh)
+    if rank is None:
+        rank = (mesh.get_local_rank(AXIS) if AXIS in (mesh.mesh_dim_names or ())
+                else 0)
+    shapes = tf.param_shapes(cfg)
+    specs = shd.tree_shardings(tf.param_axes(cfg), shapes, _model_mesh(size),
+                               rules)
+    return TPLayout(size=size, rank=int(rank), rules=dict(rules), specs=specs,
+                    shapes=shapes)
+
+
+def local_kv_heads(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT
+                   ) -> int:
+    """KV heads a rank's cache holds: KVH / model where they split, else
+    all of them."""
+    spec = shd.spec_for(SLAB_AXES, (1, 1, 1, cfg.num_kv_heads, 1),
+                        _model_mesh(model_size(mesh)), rules)
+    split = len(spec) > 3 and spec[3] is not None
+    return cfg.num_kv_heads // model_size(mesh) if split else cfg.num_kv_heads
+
+
+class _Collectives:
+    """The embedding's collective, made of the other two."""
+
+    def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
+                     lo: int) -> torch.Tensor:
+        """Rows ``tokens`` (global ids) of a table whose rank block holds
+        rows [lo, lo + n): ``masked_lookup``, then ``all_reduce_sum``;
+        each row is one rank's, so the sum is exact."""
+        return self.all_reduce_sum(masked_lookup(table, tokens, lo))
+
+
+class TPGroup(_Collectives):
+    """The ``model`` axis's process group: a ``DeviceMesh``'s ``model``
+    dim (``TPGroup(mesh=...)``) or a plain group (``TPGroup(group)``,
+    default the world), its rank and size, and the three collectives the
+    tensor-parallel steps make.  A CUDA tensor goes to the backend as it
+    is (gloo included: no copy through the host here, and none when a
+    backend refuses one).  ``timed`` adds each collective's host seconds
+    (the device synchronized before it starts and after it ends) to
+    ``seconds``; ``calls`` counts them."""
+
+    def __init__(self, group: Optional[dist.ProcessGroup] = None, *,
+                 mesh=None, timed: bool = False):
+        if mesh is not None:
+            group = mesh.get_group(AXIS)
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.timed = timed
+        self.seconds = 0.0
+        self.calls = 0
+
+    def _begin(self, x: torch.Tensor) -> float:
+        self.calls += 1
+        if not self.timed:
+            return 0.0
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return time.perf_counter()
+
+    def _end(self, x: torch.Tensor, t0: float) -> None:
+        if self.timed:
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            self.seconds += time.perf_counter() - t0
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``, in place; returns ``x``."""
+        t0 = self._begin(x)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        self._end(x, t0)
+        return x
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` [..., n] joined in rank order along the last
+        dim: [..., n * size]."""
+        t0 = self._begin(x)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        out = torch.cat(parts, dim=-1)
+        self._end(out, t0)
+        return out
+
+
+def masked_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
+                  ) -> torch.Tensor:
+    """``table`` [n, d] (or [c, n, d] with ``tokens`` [..., c]: one table a
+    codebook, giving [..., c, d]) at the rows of ``tokens`` - lo that
+    fall in [0, n), zeros elsewhere."""
+    n = table.shape[-2]
+    local = tokens.long() - lo
+    ok = (local >= 0) & (local < n)
+    local = local.clamp(0, n - 1)
+    if table.dim() == 2:
+        rows = table[local]
+    else:
+        rows = torch.stack([table[c][local[..., c]]
+                            for c in range(table.shape[0])], dim=-2)
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+
+
+class MetaTPGroup(_Collectives):
+    """A ``TPGroup`` of ``size`` ranks that makes no call: each
+    collective returns a tensor of its result's shape (an all-reduce its
+    input) and hands its bytes, the output's size as the reference
+    counts a collective, to ``launch.op_cost.collective`` under the
+    ``model`` axis."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.size, self.rank = size, rank
+        self.seconds, self.calls, self.timed = 0.0, 0, False
+
+    def _count(self, kind: str, out: torch.Tensor) -> None:
+        from repro_torch.launch import op_cost
+        self.calls += 1
+        op_cost.collective(AXIS, kind, float(out.numel()) * out.element_size())
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        self._count("all-reduce", x)
+        return x
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty(tuple(x.shape[:-1]) + (x.shape[-1] * self.size,))
+        self._count("all-gather", out)
+        return out
+
+
+Group = Union[TPGroup, MetaTPGroup]
+
+
+@dataclass(frozen=True)
+class TPRank:
+    """What the layers read on a rank: its ``layout`` and its ``group``."""
+
+    layout: TPLayout
+    group: Group
+
+    def reduce(self, x: torch.Tensor, split) -> torch.Tensor:
+        """``x`` all-reduced where ``split`` (the contracted dim is split
+        over the ranks), else ``x``."""
+        return self.group.all_reduce_sum(x) if split else x
+
+
+def bind(model, tp: Optional[Group], entry: str) -> Optional[TPRank]:
+    """The ``TPRank`` a step of ``model`` runs with: None for an
+    unsharded model called without a group; raises for a rank's model
+    without its group, a group without a rank's model, sizes that
+    differ, or what ``check_tp_supported`` refuses."""
+    layout = getattr(model, "tp_layout", None)
+    if tp is None and layout is None:
+        return None
+    if tp is None or layout is None:
+        raise ValueError("a rank's model (shard_model) runs with its TPGroup, "
+                         "and a TPGroup with a rank's model")
+    if tp.size != layout.size or tp.rank != layout.rank:
+        raise ValueError(f"group rank {tp.rank} of {tp.size}, model block "
+                         f"{layout.rank} of {layout.size}")
+    check_tp_supported(model.cfg, _model_mesh(layout.size), layout.rules,
+                       entry=entry, grad=torch.is_grad_enabled())
+    return TPRank(layout, tp)
+
+
+def prefill_block(layout: TPLayout, cache: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """The rank's block of a prefill's K/V cache [L, B, S, KVH', Dh] as
+    its rank computed it (KVH' its KV heads): as it is, but where the
+    rules split ``kv_seq`` over ``model`` (every KV head on every rank,
+    ``check_tp_supported``), the rank's positions of it."""
+    axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+    out = {}
+    for n, t in cache.items():
+        shape = list(t.shape)
+        if layout.kv_heads is not None:
+            shape[3] *= layout.size
+        spec = shd.spec_for(axes, shape, _model_mesh(layout.size), layout.rules)
+        if len(spec) > 2 and spec[2] is not None:
+            t = t[:, :, shd.local_block(spec, shape, _model_mesh(layout.size),
+                                        (layout.rank,))[2]]
+        out[n] = t
+    return out
+
+
+def _leaf(src, name: str, paths) -> torch.Tensor:
+    """Parameter ``name`` of a ``Transformer`` or a reference numpy tree."""
+    if isinstance(src, torch.nn.Module):
+        return getattr(src, name).detach()
+    node = src
+    for key in paths[name]:
+        node = node[key]
+    return torch.from_numpy(np.asarray(node))
+
+
+def shard_model(src, cfg: ArchConfig, mesh,
+                rules: shd.Rules = shd.RULES_DEFAULT, *,
+                rank: Optional[int] = None, device: DeviceLike = "cuda",
+                dtype: Optional[torch.dtype] = None):
+    """The ``Transformer`` of rank ``rank`` of ``mesh``'s ``model`` axis
+    (default: this process's coordinate on a ``DeviceMesh``): each
+    parameter's ``local_block`` of ``spec_for`` over that axis, copied
+    from ``src`` (a ``Transformer``, or the reference's ``init_params``
+    tree of numpy arrays as ``from_jax_params`` takes it) to ``device``
+    in ``dtype`` (None: the source's).  Raises where
+    ``check_tp_supported`` does for a prefill."""
+    from repro_torch.models import transformer as tf
+    check_tp_supported(cfg, mesh, rules, entry="prefill")
+    layout = tp_layout(cfg, mesh, rules, rank)
+    dev = resolve_device(device)
+    paths = {**tf._JAX_PATHS, **tf._FAMILY_PATHS}
+    tensors = {}
+    for name in layout.shapes:
+        t = _leaf(src, name, paths)[layout.block(name)]
+        tensors[name] = t.to(device=dev, dtype=dtype or t.dtype,
+                             copy=True).contiguous()
+    return tf.Transformer(cfg, tensors, layout=layout)
+
+
+def shard_cache(cache, cfg: ArchConfig, mesh,
+                rules: shd.Rules = shd.RULES_DEFAULT,
+                coord: Optional[Sequence[int]] = None):
+    """A rank's block of a dense cache ({name: tensor}, by
+    ``cache_shardings``: batch over ``data``, ``kv_heads`` over
+    ``model``) or of a ``KVPageSlab`` (its ``kv_heads`` split as the
+    dense cache's; the free list kept).  ``coord``: the rank's
+    coordinate on ``mesh`` (default this process's on a
+    ``DeviceMesh``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.kv_cache import KVPageSlab
+    if isinstance(cache, KVPageSlab):
+        spec = shd.spec_for(SLAB_AXES, cache.k.shape, mesh, rules)
+        sl = shd.local_block(spec, cache.k.shape, mesh, coord)
+        return KVPageSlab(k=cache.k[sl].contiguous(), v=cache.v[sl].contiguous(),
+                          page_size=cache.page_size, free=list(cache.free))
+    kv_quant = any(n.endswith("_scale") for n in cache)
+    axes = tf.cache_axes(cfg, kv_quant)
+    out = {}
+    for n, t in cache.items():
+        spec = shd.spec_for(axes[n], t.shape, mesh, rules)
+        out[n] = t[shd.local_block(spec, t.shape, mesh, coord)].contiguous()
+    return out
+
+
+def gather_cache(cache, cfg: ArchConfig, tp: TPGroup):
+    """The whole cache from every rank's block over the ``model`` axis
+    (``shard_cache``'s inverse there, the batch left as it is): each
+    tensor of a dense cache or of a ``KVPageSlab`` that holds fewer than
+    the config's KV heads, all-gathered along its ``kv_heads`` dim."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.kv_cache import KVPageSlab
+
+    def whole(t, d):
+        if t.shape[d] == cfg.num_kv_heads:
+            return t
+        return tp.all_gather_last(t.movedim(d, -1)).movedim(-1, d).contiguous()
+
+    if isinstance(cache, KVPageSlab):
+        d = SLAB_AXES.index("kv_heads")
+        return KVPageSlab(k=whole(cache.k, d), v=whole(cache.v, d),
+                          page_size=cache.page_size, free=list(cache.free))
+    axes = tf.cache_axes(cfg, any(n.endswith("_scale") for n in cache))
+    return {n: whole(t, axes[n].index("kv_heads")) for n, t in cache.items()}

@@ -11,15 +11,25 @@ each cell is planned from shapes and traced on meta tensors
     every parameter, AdamW moment (bf16 past 100e9 parameters, the
     reference's ``default_opt_cfg``), cache and batch tensor under the
     cell's rules, as the reference's ``input_specs`` shards them;
-  * temporaries a card are an ESTIMATE: the ``op_cost`` peak, less the
-    arguments, of one card's batch shard (the global batch over
+  * a serve cell (``prefill``, ``serve_step``) whose program
+    ``tensor_parallel`` has (``check_tp_supported``: the GQA/MQA/MoE
+    decoders, weights over ``model`` alone, no sequence-parallel
+    decode) traces ONE RANK's program at the cell's ``model`` size:
+    ``shard_model`` of a meta model (rank 0's blocks), its cache block,
+    and a ``MetaTPGroup`` that counts each collective's bytes (its
+    output's size, the reference's convention); the card's temporaries
+    are that trace's peak less its arguments, and its collectives go to
+    the ``model`` axis;
+  * elsewhere temporaries a card are an ESTIMATE: the ``op_cost`` peak,
+    less the arguments, of one card's batch shard (the global batch over
     ``data`` x ``pod``), traced at ``model`` = 1 and divided by the
     ``model`` size; a train step's gradients, whole in that trace, count
-    as the card's block of them, sharded as its parameters.  The port
-    has no tensor-parallel program to trace;
-  * FLOPs and bytes are global, traced at the global batch;
+    as the card's block of them, sharded as its parameters;
+  * FLOPs and bytes are global, traced at the global batch, the whole
+    model (as the reference counts its unpartitioned program);
   * collectives: the data-parallel gradient all-reduce of a train step
-    (``roofline.py``), at datasheet link bandwidths.
+    and the serve cells' tensor-parallel collectives (``roofline.py``),
+    at datasheet link bandwidths.
 
 A training cell runs the reference's step: ``make_loss_fn`` (remat in
 groups of ``remat_group`` = 1, attention chunks of 1024) over ``accum``
@@ -59,6 +69,7 @@ from repro_torch.configs.shapes import SHAPE_SUITES, ShapeSuite, get_shape
 from repro_torch.core.budget import H100
 from repro_torch.distributed import compression
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.launch import op_cost
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import (make_production_mesh, mesh_chip_count,
@@ -80,6 +91,9 @@ ASSIGNED_ARCHS = (
 TEMP_NOTE = ("estimate: the op_cost peak less the arguments of one card's "
              "batch shard traced at model = 1, divided by the model size; "
              "gradients as the card's block of them")
+TP_TEMP_NOTE = ("the op_cost peak less the arguments of one rank's "
+                "tensor-parallel program (tensor_parallel) on its batch "
+                "shard, traced at the cell's model size")
 ACT_SKIP = ("act_mode sets or drops act_spec (activation sharding inside "
             "the layers), which waits for tensor parallelism")
 
@@ -247,7 +261,7 @@ def _trace(fn, args) -> Dict[str, float]:
     ret = sum(known.values())
     return {"flops": counter.flops, "bytes": counter.bytes,
             "peak_bytes": counter.peak, "args_bytes": held,
-            "out_bytes": float(ret)}
+            "out_bytes": float(ret), "coll": counter.coll}
 
 
 def _train_trace(cfg: ArchConfig, opt_cfg: OptConfig, batch: Dict[str, Any],
@@ -280,31 +294,55 @@ def _train_trace(cfg: ArchConfig, opt_cfg: OptConfig, batch: Dict[str, Any],
     return {"flops": counter.flops + (n - 1) * f_mb,
             "bytes": counter.bytes + (n - 1) * b_mb,
             "peak_bytes": counter.peak, "args_bytes": held, "out_bytes": 0.0,
-            "microbatches": n}
+            "microbatches": n, "coll": counter.coll}
+
+
+def tp_program(cfg: ArchConfig, suite: ShapeSuite, mesh, rules: shd.Rules
+               ) -> Optional[str]:
+    """None where the cell has a tensor-parallel program to trace (a
+    serve cell that ``check_tp_supported`` takes, ``model`` > 1), else
+    why not."""
+    if tpm.model_size(mesh) == 1:
+        return "model = 1"
+    try:
+        tpm.check_tp_supported(cfg, mesh, rules, entry=suite.entry)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def trace_cell(cfg: ArchConfig, suite: ShapeSuite, specs, batch: int, *,
                opt_cfg: OptConfig, accum: int, kv_quant: bool,
                attn_chunk: int, loss_chunk: int, remat_group: int,
+               tp: Optional[Tuple[Any, shd.Rules]] = None,
                ) -> Dict[str, float]:
-    """The cell's entry point traced on meta tensors at ``batch`` rows,
-    the whole model on one card (``model`` = 1)."""
+    """The cell's entry point traced on meta tensors at ``batch`` rows:
+    the whole model on one card (``model`` = 1), or with ``tp`` = (mesh,
+    rules) rank 0's tensor-parallel program at the mesh's ``model`` size
+    (its blocks, its cache block, a ``MetaTPGroup``)."""
     if suite.entry == "train_step":
         return _train_trace(cfg, opt_cfg, _meta_inputs(specs["batch"], batch),
                             accum, dict(attn_chunk=attn_chunk, remat=True,
                                         remat_group=remat_group,
                                         loss_chunk=loss_chunk))
-    model = op_cost.meta_model(cfg)
+    model, kw, kv_heads = op_cost.meta_model(cfg), {}, None
+    if tp is not None:
+        mesh, rules = tp
+        m = tpm.model_size(mesh)
+        model = tpm.shard_model(model, cfg, shd.MeshAxes(("model",), (m,)),
+                                rules, rank=0, device="meta")
+        kw, kv_heads = {"tp": tpm.MetaTPGroup(m)}, tpm.local_kv_heads(
+            cfg, mesh, rules)
     inputs = _meta_inputs(specs["inputs"], batch)
     with torch.no_grad():
         if suite.entry == "prefill":
-            return _trace(lambda m, i: tf.prefill(m, i, attn_chunk=attn_chunk),
-                          (model, inputs))
+            return _trace(lambda m, i: tf.prefill(m, i, attn_chunk=attn_chunk,
+                                                  **kw), (model, inputs))
         cache = {n: torch.empty(s, dtype=dt, device="meta") for n, (s, dt) in
-                 tf.cache_shapes(cfg, batch, suite.seq_len,
-                                 kv_quant=kv_quant).items()}
-        return _trace(lambda m, c, i: tf.serve_step(m, c, i,
-                                                    kv_quant=kv_quant),
+                 tf.cache_shapes(cfg, batch, suite.seq_len, kv_quant=kv_quant,
+                                 kv_heads=kv_heads).items()}
+        return _trace(lambda m, c, i: tf.serve_step(m, c, i, kv_quant=kv_quant,
+                                                    **kw),
                       (model, cache, inputs))
 
 
@@ -392,10 +430,14 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
             group = specs["batch" if eff.entry == "train_step" else "inputs"]
             first = next(iter(group.values()))
             b = local_shape(first[0], first[2], mesh)[0]
+            no_tp = tp_program(cfg, eff, mesh, rules)
             t0 = time.time()
-            card = trace_cell(cfg, eff, specs, b, **kw)
+            card = trace_cell(cfg, eff, specs, b, **kw,
+                              tp=None if no_tp else (mesh, rules))
             t_card = time.time() - t0
-            temp = temp_bytes(card, specs, args, model_size)
+            temp = (max(card["peak_bytes"] - card["args_bytes"], 0.0)
+                    if no_tp is None else
+                    temp_bytes(card, specs, args, model_size))
             peak = sum(args.values()) + temp
             if (peak < H100.hbm_bytes or eff.entry != "prefill"
                     or eff.global_batch <= 1):
@@ -408,13 +450,19 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         t_glob = time.time() - t0
         coll = dp_collectives(specs, mesh) if eff.entry == "train_step" \
             else {}
+        kinds = {"all-reduce": sum(coll.values())} if coll else {}
+        for axis, by_kind in card["coll"].items():
+            coll[axis] = coll.get(axis, 0.0) + sum(by_kind.values()) * waves
+            for k, v in by_kind.items():
+                kinds[k] = kinds.get(k, 0.0) + v * waves
         report = rl.build_report(
             arch=arch, shape=shape, mesh_name=mname, chips=chips,
             cost={"flops": glob["flops"] * waves, "bytes": glob["bytes"] * waves},
             model_flops=rl.model_flops_for(cfg, suite.entry, suite.seq_len,
                                            suite.global_batch),
-            coll_by_axis=coll, peak_memory=peak,
-            tp_collectives=rl.NO_TP if model_size > 1 else "")
+            coll_by_axis=coll, coll_breakdown=kinds, peak_memory=peak,
+            tp_collectives="" if model_size == 1 else
+            rl.NO_TP if no_tp else rl.TP_COUNTED)
         arg_total = sum(args.values())
         alias = (args["params"] + args.get("opt_state", 0)
                  if eff.entry == "train_step" else args.get("cache", 0))
@@ -427,17 +475,20 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                                        "FSDP_LONG")
                            if getattr(shd, f"RULES_{k}") == rules][0],
             "microbatches": card.get("microbatches", 1),
+            "tp_program": "rank 0 of model = %d" % model_size
+                          if no_tp is None else f"none: {no_tp}",
             "t_lower_s": t_card,           # the card-shard trace
             "t_compile_s": t_glob,         # the global trace
             "memory": {
                 "argument_bytes": arg_total,
                 "argument_bytes_by_group": args,
-                "output_bytes": card["out_bytes"] / model_size,
+                "output_bytes": card["out_bytes"] / (
+                    1 if no_tp is None else model_size),
                 "temp_bytes": temp,
                 "alias_bytes": alias,
                 "peak_bytes": peak,
                 "fits_80gb": peak < H100.hbm_bytes,
-                "temp_is": TEMP_NOTE,
+                "temp_is": TP_TEMP_NOTE if no_tp is None else TEMP_NOTE,
             },
             "roofline": report.row(),
         })

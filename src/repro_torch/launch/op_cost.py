@@ -17,7 +17,11 @@ aten op after autograd, and counts by the reference's ``_walk`` rules
   ``scatter_add``, ``index_add``, and a ``copy_`` into a strict slice of
   a larger tensor, the counterpart of ``dynamic_update_slice``) count
   twice the update's bytes;
-* elementwise ops, views, reductions and factories count nothing.
+* elementwise ops, views, reductions and factories count nothing;
+* collectives are not aten ops here: a tensor-parallel step traced with
+  ``tensor_parallel.MetaTPGroup`` reports each one's bytes (its output's
+  size, the reference's convention) through ``collective``, by mesh axis
+  and kind (``OpCounter.coll``).
 
 There are no trip counts: Python loops, backward and the recompute under
 ``torch.utils.checkpoint`` run, and count, as often as they run, so the
@@ -162,6 +166,8 @@ class OpCounter(TorchDispatchMode):
         self.live = 0.0
         self.peak = 0.0
         self._refs: Dict[int, weakref.ref] = {}
+        # {mesh axis: {"all-reduce" | "all-gather": bytes}}
+        self.coll: Dict[str, Dict[str, float]] = {}
 
     def track(self, tree: Any) -> None:
         leaves, _ = tree_flatten(tree)
@@ -225,16 +231,25 @@ def add(flops: float, nbytes: float) -> None:
         _active[-1].add(flops, nbytes)
 
 
+def collective(axis: str, kind: str, nbytes: float) -> None:
+    """Report a collective over mesh ``axis`` (its output's ``nbytes``)
+    to the innermost active counter; nothing when none is active."""
+    if _active:
+        by_kind = _active[-1].coll.setdefault(axis, {})
+        by_kind[kind] = by_kind.get(kind, 0.0) + nbytes
+
+
 def op_cost(fn: Callable, *args, **kwargs) -> Dict[str, float]:
-    """{"flops", "bytes", "peak_bytes"} of ``fn(*args, **kwargs)`` on meta
-    tensors (an ``nn.Module`` argument counts its parameters and
-    buffers as arguments)."""
+    """{"flops", "bytes", "peak_bytes", "coll"} of ``fn(*args, **kwargs)``
+    on meta tensors (an ``nn.Module`` argument counts its parameters and
+    buffers as arguments; "coll" the collectives' bytes by axis and
+    kind)."""
     counter = OpCounter()
     counter.track((args, kwargs))
     with counter:
         fn(*args, **kwargs)
     return {"flops": counter.flops, "bytes": counter.bytes,
-            "peak_bytes": counter.peak}
+            "peak_bytes": counter.peak, "coll": counter.coll}
 
 
 def meta_model(cfg, dtype: torch.dtype = torch.bfloat16,

@@ -8,12 +8,15 @@ Sources:
   * the collectives the port's programs make, per card and per mesh
     axis: the data-parallel all-reduce of a card's gradient block over
     ``data`` x ``pod`` once a training step (``dryrun.dp_collectives``,
-    ``compression.payload_bytes``).
-    The port has no tensor-parallel program (its layers run whole on
-    each card), so a cell with ``model`` > 1 counts no tensor-parallel
-    collectives and says so in ``tp_collectives``.  The reference's HLO
-    regexes and ``collective_bytes`` have no counterpart: there is no
-    HLO to parse.
+    ``compression.payload_bytes``), and a serve cell's tensor-parallel
+    collectives over ``model``, counted from one rank's program traced
+    with ``tensor_parallel.MetaTPGroup`` (the all-reduces after ``wo``
+    and the MLP or MoE, the embedding's all-reduce and the logits'
+    all-gather; ``tp_collectives`` says TP_COUNTED).  A cell with
+    ``model`` > 1 and no such program (training, gemma2, MLA, RWKV6,
+    zamba2, sequence-parallel decode, FSDP rules) counts none and says
+    NO_TP.  The reference's HLO regexes and ``collective_bytes`` have no
+    counterpart: there is no HLO to parse.
 
 Terms (seconds):
   compute    = flops_global / (chips * peak_flops)
@@ -45,8 +48,10 @@ NVLINK_BW = 450e9
 NIC_BW = 50e9
 LINK_BW = {"model": NVLINK_BW, "data": NIC_BW, "pod": NIC_BW}
 LINK_SOURCE = "datasheet (NVLink 4 450 GB/s, NDR NIC 50 GB/s a card)"
-NO_TP = ("not counted: the port has no tensor-parallel program "
-         "(layers run whole on each card)")
+NO_TP = ("not counted: the port has no tensor-parallel program for this "
+         "cell (its layers run whole on each card)")
+TP_COUNTED = ("counted: one rank's tensor-parallel program traced with a "
+              "MetaTPGroup, each collective its output's bytes")
 
 
 def axis_bw(axes: str) -> float:
@@ -147,11 +152,13 @@ def model_flops_for(cfg: ArchConfig, entry: str, seq_len: int,
 def build_report(*, arch: str, shape: str, mesh_name: str, chips: int,
                  cost: Dict, model_flops: float,
                  coll_by_axis: Optional[Dict[str, float]] = None,
+                 coll_breakdown: Optional[Dict[str, float]] = None,
                  tp_collectives: str = "",
                  peak_memory: Optional[float] = None,
                  hw: HardwareProfile = H100) -> RooflineReport:
     """cost: {'flops': global, 'bytes': global} from ``op_cost``;
-    coll_by_axis: the all-reduce bytes a card by the axes it crosses."""
+    coll_by_axis: the collectives' bytes a card by the axes they cross;
+    coll_breakdown: the same by kind (default: all of it all-reduce)."""
     coll = dict(coll_by_axis or {})
     total = float(sum(coll.values()))
     return RooflineReport(
@@ -159,6 +166,8 @@ def build_report(*, arch: str, shape: str, mesh_name: str, chips: int,
         flops_global=float(cost.get("flops", 0.0)),
         bytes_global=float(cost.get("bytes", 0.0)),
         coll_bytes_per_chip=total,
-        coll_breakdown={"all-reduce": int(total)} if total else {},
+        coll_breakdown=({k: int(v) for k, v in coll_breakdown.items()}
+                        if coll_breakdown is not None else
+                        {"all-reduce": int(total)} if total else {}),
         model_flops=model_flops, peak_memory_bytes=peak_memory, hw=hw,
         coll_by_axis=coll, tp_collectives=tp_collectives)

@@ -24,17 +24,30 @@ three batched expert products (``bmm``, as the reference leaves its
 expert einsums to XLA) and a fixed number of small ops whatever E, with
 no host sync: a dropped pair writes and reads a spare row past the
 buffer, with combine weight 0.
+
+On one rank of a tensor-parallel group (``tp``) the routing is the same
+on every rank (the router is whole).  Where the experts split, the rank
+holds experts [e0, e0 + E / model) and computes only the picks of those:
+its buffer is [E / model, G * C, d], every other pick goes to the spare
+row with weight 0, and the fp32 combine sum is all-reduced before the
+one cast.  Where they do not (E not a multiple of the ranks), the expert
+MLPs' hidden dim splits instead, each product row-parallel, and the same
+fp32 sum is all-reduced.  Arctic's dense residual is a plain MLP,
+all-reduced where its hidden dim splits.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import activation, largest_divisor, mlp_forward
+
+if TYPE_CHECKING:
+    from repro_torch.distributed.tensor_parallel import TPRank
 
 
 class Routing(NamedTuple):
@@ -81,12 +94,14 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig) -> Routing:
 
 
 def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                cfg: ArchConfig, tp: Optional["TPRank"] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [..., d] -> (out [..., d] in x's dtype, aux loss fp32 scalar).
 
     ``p``: router [d, E], w_up and w_gate [E, d, F], w_down [E, F, d],
     and with a dense residual dense_w_up, dense_w_gate [d, Fd] and
-    dense_w_down [Fd, d]."""
+    dense_w_down [Fd, d]; on a rank (``tp``) its blocks of the expert
+    and dense weights (the router whole)."""
     mo = cfg.moe
     E, K = mo.num_experts, mo.top_k
     d = x.shape[-1]
@@ -94,20 +109,28 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     G, Tg, _ = r.experts.shape
     C = r.capacity
     xt = x.reshape(G * Tg, d)
-    # flat slot (e, g, c) of each (token, pick) in the [E, G * C] buffer;
-    # a dropped pick goes to the spare row E * G * C
-    flat = (r.experts * G + torch.arange(G, device=x.device)[:, None, None]) \
+    keep, experts, El = r.keep, r.experts, E
+    if tp is not None and tp.layout.experts is not None:
+        e0, El = tp.layout.experts[0], p["w_up"].shape[0]  # this rank's only
+        keep = keep & (experts >= e0) & (experts < e0 + El)
+        experts = experts - e0
+    # flat slot (e, g, c) of each (token, pick) in the [El, G * C] buffer;
+    # a dropped pick goes to the spare row El * G * C
+    flat = (experts * G + torch.arange(G, device=x.device)[:, None, None]) \
         * C + r.slot
-    flat = torch.where(r.keep, flat, E * G * C).reshape(-1)
-    xin = x.new_zeros((E * G * C + 1, d))
+    flat = torch.where(keep, flat, El * G * C).reshape(-1)
+    xin = x.new_zeros((El * G * C + 1, d))
     xin[flat] = xt.repeat_interleave(K, dim=0)
-    xe = xin[:-1].view(E, G * C, d)
+    xe = xin[:-1].view(El, G * C, d)
     h = activation(cfg.mlp_act)(torch.bmm(xe, p["w_gate"])) \
         * torch.bmm(xe, p["w_up"])
-    out_e = torch.cat([torch.bmm(h, p["w_down"]).view(E * G * C, d),
+    out_e = torch.cat([torch.bmm(h, p["w_down"]).view(El * G * C, d),
                        x.new_zeros((1, d))])
-    comb = torch.where(r.keep, r.weights, 0.0).to(x.dtype).float()
+    comb = torch.where(keep, r.weights, 0.0).to(x.dtype).float()
     out = (out_e[flat].view(G * Tg, K, d).float() * comb.view(-1, K, 1)).sum(1)
+    if tp is not None:
+        out = tp.reduce(out, tp.layout.experts is not None
+                        or tp.layout.mlp_split)
     out = out.to(x.dtype).view(x.shape)
 
     frac_tokens = torch.zeros_like(r.probs).scatter_(-1, r.experts, 1.0) \
@@ -117,5 +140,8 @@ def moe_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if mo.dense_residual_d_ff:
         dense = {"w_up": p["dense_w_up"], "w_gate": p["dense_w_gate"],
                  "w_down": p["dense_w_down"]}
-        out = out + mlp_forward(dense, x, cfg.mlp_act, True)
+        res = mlp_forward(dense, x, cfg.mlp_act, True)
+        if tp is not None:
+            res = tp.reduce(res, tp.layout.dense_split)
+        out = out + res
     return out, aux

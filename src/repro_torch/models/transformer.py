@@ -51,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.tensor_parallel import (TPGroup, TPRank, bind,
+                                                     prefill_block)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import mla
@@ -282,11 +284,16 @@ class Transformer(nn.Module):
 
     layer_names: Tuple[str, ...]     # this config's per-layer parameters
 
-    def __init__(self, cfg: ArchConfig, tensors: Mapping[str, torch.Tensor]):
+    def __init__(self, cfg: ArchConfig, tensors: Mapping[str, torch.Tensor],
+                 layout=None):
+        """``layout``: a ``tensor_parallel.TPLayout`` when ``tensors`` are
+        one rank's blocks (``tensor_parallel.shard_model``), whose steps
+        then take that rank's ``tp`` group."""
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        shapes = param_shapes(cfg)
+        self.tp_layout = layout
+        shapes = param_shapes(cfg) if layout is None else layout.local_shapes()
         if set(tensors) != set(shapes):
             raise ValueError(f"want parameters {sorted(shapes)}, got "
                              f"{sorted(tensors)}")
@@ -404,15 +411,24 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
     return [W] * L
 
 
-def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(model: Transformer, tokens: torch.Tensor,
+                 tp: Optional[TPRank] = None) -> torch.Tensor:
     """tokens [...] (an audio model's [..., codebooks]) -> embeddings
     [..., d]; the codebooks' embeddings summed in order, as the
     reference sums them; tied embeddings (gemma) scaled by sqrt(d) in
-    the embedding's dtype."""
+    the embedding's dtype.  On a rank whose block holds part of the
+    vocabulary, each row comes from the rank that holds it (one masked
+    lookup and all-reduce, of every codebook at once, before the sum)."""
     cfg = model.cfg
     tokens = tokens.long()
     nc = codebooks(cfg)
-    if not nc:
+    vocab = tp.layout.vocab if tp is not None else None
+    if vocab is not None:
+        rows = tp.group.embed_lookup(model.embed, tokens, vocab[0])
+        x = rows if not nc else rows[..., 0, :]
+        for c in range(1, nc):
+            x = x + rows[..., c, :]
+    elif not nc:
         x = model.embed[tokens]
     else:
         x = model.embed[0][tokens[..., 0]]
@@ -423,30 +439,41 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def unembed(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+def unembed(model: Transformer, x: torch.Tensor,
+            tp: Optional[TPRank] = None) -> torch.Tensor:
     """x: [..., d] -> logits [..., V] (an audio model's [..., codebooks,
     V]); through the embedding when tied; capped at the config's final
-    logit softcap."""
+    logit softcap.  On a rank whose block holds part of the vocabulary,
+    its logits' columns are all-gathered from every rank."""
     if codebooks(model.cfg):
         logits = torch.einsum("...d,cdv->...cv", x, model.unembed)
     elif model.cfg.tie_embeddings:
         logits = x @ model.embed.T
     else:
         logits = x @ model.unembed
+    if tp is not None and tp.layout.unembed_vocab is not None:
+        logits = tp.group.all_gather_last(logits)
     return softcap(logits, model.cfg.final_logit_softcap)
 
 
 def _mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
+         tp: Optional[TPRank] = None,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The layer's MLP or MoE on x [..., d]: (out, MoE aux loss or None)."""
-    if cfg.moe is not None:
-        return moe.moe_forward(lp, x, cfg)
-    return mlp_forward(lp, x, cfg.mlp_act, cfg.mlp_gated), None
+    """The layer's MLP or MoE on x [..., d]: (out, MoE aux loss or None);
+    on a rank, the MLP column-parallel then row-parallel, all-reduced
+    where its hidden dim splits."""
+    if cfg.moe is not None:   # the unsharded call keeps its three arguments
+        return (moe.moe_forward(lp, x, cfg) if tp is None
+                else moe.moe_forward(lp, x, cfg, tp))
+    out = mlp_forward(lp, x, cfg.mlp_act, cfg.mlp_gated)
+    if tp is not None:
+        out = tp.reduce(out, tp.layout.mlp_split)
+    return out, None
 
 
 def _block(x: torch.Tensor, aux: torch.Tensor, lp: Dict[str, torch.Tensor],
            cfg: ArchConfig, positions: torch.Tensor, attn_chunk: int,
-           window: int = 0,
+           window: int = 0, tp: Optional[TPRank] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor,
                       Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder layer over a whole sequence: (x out, aux plus the
@@ -458,9 +485,10 @@ def _block(x: torch.Tensor, aux: torch.Tensor, lp: Dict[str, torch.Tensor],
                                     attn_chunk=attn_chunk)
     else:
         a_out, kv = attn.attn_forward(lp, a_in, cfg, positions=positions,
-                                      window=window, attn_chunk=attn_chunk)
+                                      window=window, attn_chunk=attn_chunk,
+                                      tp=tp)
     x = x + a_out
-    m_out, a = _mlp(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg)
+    m_out, a = _mlp(lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps), cfg, tp)
     return x + m_out, aux if a is None else aux + a, kv
 
 
@@ -468,6 +496,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             attn_chunk: int = 1024, remat: bool = False,
             remat_group: int = 4, want_cache: bool = False,
+            tp: Optional[TPGroup] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor,
                        Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence forward: tokens [B, S] (an audio model's [B, S,
@@ -494,9 +523,15 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     reference does.  Their cache is RWKV6's {"shift1", "wkv", "shift2"}
     [L, B, ...] or zamba2's {"shared_k", "shared_v"} [G, B, S, KVH, Dh]
     and {"conv", "ssd"} [G, per, B, ...] (``cache_shapes``'s layout, the
-    states as the blocks return them)."""
+    states as the blocks return them).
+
+    ``tp``: a rank's model (``tensor_parallel.shard_model``) runs with
+    its ``model`` group, under ``torch.no_grad`` only: its layers on
+    their blocks, its cache the rank's KV heads (all of them where they
+    do not split)."""
     cfg = model.cfg
-    x = embed_tokens(model, tokens)                      # [B, S, d]
+    tp = bind(model, tp, "prefill")
+    x = embed_tokens(model, tokens, tp)                  # [B, S, d]
     if image_embeds is not None:
         prefix = torch.einsum("bpe,ed->bpd", image_embeds.to(x.dtype),
                               model.vit_proj)
@@ -527,7 +562,8 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
                                 windows[i:i + g], use_reentrant=False)
     else:
         for lp, w in zip(layers, windows):
-            x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk, w)
+            x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk, w,
+                                    tp)
             if want_cache:
                 ks.append(k)
                 vs.append(v)
@@ -722,7 +758,7 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
 
 
 def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
-            attn_chunk: int = 1024,
+            attn_chunk: int = 1024, tp: Optional[TPGroup] = None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-prompt forward of ``inputs["tokens"]`` [B, S] (after an
     ``inputs["image_embeds"]`` [B, P, e] prefix, where given): returns
@@ -732,11 +768,20 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
     decode: the local (even) layers' K/V as rings of W slots
     (``ring_from_full``), "k_local"/"v_local" [L/2, B, W, KVH, Dh], the
     global (odd) layers' whole, "k_global"/"v_global"; RWKV6's and
-    zamba2's are their states after the prompt (``forward``)."""
+    zamba2's are their states after the prompt (``forward``).
+
+    ``tp``: a rank's model with its ``model`` group (``forward``): the
+    logits gathered whole, the cache the rank's block of it (its KV
+    heads; along the sequence where the rules split ``kv_seq`` over
+    ``model``)."""
     cfg = model.cfg
     x, _, cache = forward(model, inputs["tokens"],
                           image_embeds=inputs.get("image_embeds"),
-                          attn_chunk=attn_chunk, want_cache=True)
+                          attn_chunk=attn_chunk, want_cache=True, tp=tp)
+    if tp is not None:
+        rank = bind(model, tp, "prefill")
+        cache = prefill_block(rank.layout, cache)
+        return unembed(model, x[:, -1, :], rank), cache
     if cfg.local_global_pattern and cfg.sliding_window:
         W = cfg.sliding_window
         cache = {"k_local": attn.ring_from_full(cache["k"][0::2], W),
@@ -747,6 +792,7 @@ def prefill(model: Transformer, inputs: Dict[str, torch.Tensor], *,
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
                  dtype: torch.dtype = torch.bfloat16, kv_quant: bool = False,
+                 kv_heads: Optional[int] = None,
                  ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each tensor of ``init_cache``, key for key as
     the reference's: MLA {"ckv" [L, B, S, R], "kpe" [L, B, S, Dr]};
@@ -759,7 +805,8 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
     full-length K/V int8 with bf16 scales [..., S, KVH] beside them
     ("k_scale"/"v_scale", or "k_global_scale"/"v_global_scale"; the
     local rings stay in ``dtype``); the recurrent families ignore it, as
-    the reference's do."""
+    the reference's do.  ``kv_heads``: the KV heads a rank's cache holds
+    (``tensor_parallel.local_kv_heads``), default all of them."""
     check_supported(cfg)
     L, B, S = cfg.num_layers, batch, max_len
     kind = family_kind(cfg)
@@ -780,7 +827,7 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
         m = cfg.mla
         return {"ckv": ((L, B, S, m.kv_lora_rank), dtype),
                 "kpe": ((L, B, S, m.qk_rope_head_dim), dtype)}
-    KVH, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    KVH, Dh = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
     kv_dt = torch.int8 if kv_quant else dtype
     if cfg.local_global_pattern and cfg.sliding_window:
         W, Lp = min(cfg.sliding_window, max_len), L // 2
@@ -835,39 +882,45 @@ def cache_axes(cfg: ArchConfig, kv_quant: bool = False,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda",
-               kv_quant: bool = False) -> Dict[str, torch.Tensor]:
+               kv_quant: bool = False,
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """A zeroed dense decode cache for ``batch`` sequences of ``max_len``
     tokens, laid out as the reference's ``init_cache`` (``cache_shapes``):
     GQA {"k", "v"}, gemma2's local rings and global caches, MLA's
     latent cache; ``kv_quant`` keeps the full-length K/V int8 with bf16
-    scales, as ``serve_step(kv_quant=True)`` reads them."""
+    scales, as ``serve_step(kv_quant=True)`` reads them; ``kv_heads`` a
+    rank's KV heads (``cache_shapes``)."""
     dev = resolve_device(device)
     return {name: torch.zeros(shape, dtype=dt, device=dev)
             for name, (shape, dt) in cache_shapes(cfg, batch, max_len, dtype,
-                                                  kv_quant).items()}
+                                                  kv_quant, kv_heads).items()}
 
 
 def _decode(model: Transformer, tokens: torch.Tensor,
             attend: Callable[[int, Dict[str, torch.Tensor], torch.Tensor],
-                             torch.Tensor]) -> torch.Tensor:
+                             torch.Tensor],
+            tp: Optional[TPRank] = None) -> torch.Tensor:
     """The per-layer body the decode steps share: embed ``tokens`` [B]
     (audio [B, codebooks]), then per layer ``h += attend(l, layer,
     rms_norm(h))`` and the MLP or MoE (its B rows one dispatch group, in
     row order, as the reference's step dispatches them), then the final
     norm and the unembedding.  Returns logits [B, V] (audio [B,
-    codebooks, V])."""
+    codebooks, V]).  On a rank (``tp``) each of those on its blocks,
+    with their collectives."""
     cfg = model.cfg
-    h = embed_tokens(model, tokens)                      # [B, d]
+    h = embed_tokens(model, tokens, tp)                  # [B, d]
     for l in range(cfg.num_layers):
         lp = model.layer(l)
         h = h + attend(l, lp, rms_norm(h, lp["attn_norm"], cfg.norm_eps))
-        m_out, _ = _mlp(lp, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), cfg)
+        m_out, _ = _mlp(lp, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), cfg,
+                        tp)
         h = h + m_out
-    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps))
+    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps), tp)
 
 
 def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
                inputs: Dict[str, torch.Tensor], *, kv_quant: bool = False,
+               tp: Optional[TPGroup] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step for the whole batch over a **dense** cache
     (``init_cache``, with ``kv_quant`` as it was made), on the model's
@@ -887,8 +940,15 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
     ``_zamba2_step``).
     Returns (logits [B, V] (audio [B, codebooks, V]), cache) — the
     cache's tensors are the same, updated in place.
+
+    ``tp``: a rank's model (``tensor_parallel.shard_model``) with its
+    ``model`` group, over the rank's block of the cache (its KV heads, or
+    all of them where they do not split; ``shard_cache``), GQA decoders
+    only: ``flash_decode`` (or ``flash_decode_quant``) at the rank's
+    head counts, the logits gathered whole on every rank.
     """
     cfg = model.cfg
+    tp = bind(model, tp, "serve_step")
     pos = inputs["pos"]
     B = pos.shape[0]
     rows = torch.arange(B, device=pos.device)          # write index, once a step
@@ -935,11 +995,11 @@ def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],
             if kv_quant:
                 return attn.attn_decode_quant(
                     lp, a_in, cfg, ck[l], cv[l], cache["k_scale"][l],
-                    cache["v_scale"][l], pos, rows, at, windows[l])
+                    cache["v_scale"][l], pos, rows, at, windows[l], tp=tp)
             return attn.attn_decode(lp, a_in, cfg, ck[l], cv[l], pos, rows, at,
-                                    windows[l])
+                                    windows[l], tp=tp)
 
-    return _decode(model, inputs["token"], attend), cache
+    return _decode(model, inputs["token"], attend, tp), cache
 
 
 def _rwkv6_step(model: Transformer, cache: Dict[str, torch.Tensor],
@@ -1009,6 +1069,7 @@ def _check_paged(cfg: ArchConfig) -> None:
 def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
                      v_slab: torch.Tensor, block_table: torch.Tensor,
                      lengths: torch.Tensor, inputs: Dict[str, torch.Tensor],
+                     *, tp: Optional[TPGroup] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step over **paged** (block-table) KV.
 
@@ -1023,9 +1084,15 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
 
     Returns (logits [B, V] (audio [B, codebooks, V]), k_slab, v_slab) —
     the slabs are the same tensors, updated in place.
+
+    ``tp``: a rank's model with its ``model`` group over the rank's
+    slab [L, NP, ps, KVH / model, Dh] (``shard_cache``; every KV head
+    where they do not split), the same block table and lengths on every
+    rank: ``flash_decode_paged`` at the rank's head counts.
     """
     cfg = model.cfg
     _check_paged(cfg)
+    tp = bind(model, tp, "serve_step_paged")
     ps = k_slab.shape[2]
     lens = lengths.long()
     slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]
@@ -1035,9 +1102,9 @@ def serve_step_paged(model: Transformer, k_slab: torch.Tensor,
     def attend(l, lp, a_in):
         return attn.attn_decode_paged(lp, a_in, cfg, k_slab[l], v_slab[l],
                                       block_table, lengths, slot, off,
-                                      attn_len)
+                                      attn_len, tp=tp)
 
-    return _decode(model, inputs["token"], attend), k_slab, v_slab
+    return _decode(model, inputs["token"], attend, tp), k_slab, v_slab
 
 
 def serve_step_paged_spliced(model: Transformer, k_slab: torch.Tensor,
@@ -1060,10 +1127,12 @@ def serve_step_paged_spliced(model: Transformer, k_slab: torch.Tensor,
     written IN PLACE at layout position ``lengths`` as there, and
     attention runs over ``lengths + 1`` layout positions with
     ``kernels.ops.flash_decode_spliced``.  Returns (logits [B, V],
-    k_slab, v_slab), the slabs updated in place.
+    k_slab, v_slab), the slabs updated in place.  Unsharded models only
+    (a rank's model raises).
     """
     cfg = model.cfg
     _check_paged(cfg)
+    bind(model, None, "serve_step_paged")
     ps = k_slab.shape[2]
     lens = lengths.long()
     slot = block_table.long().gather(1, (lens // ps)[:, None])[:, 0]

@@ -71,11 +71,16 @@ class KVCacheManager:
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16, *,
                  pool: Optional[DevicePagePool] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 kv_heads: Optional[int] = None):
         """``pool=None`` keeps the manager a standalone allocator (no
         ledger accounting, no admission pressure); the slab lives on
-        ``device``."""
+        ``device``.  ``kv_heads``: the KV heads one rank of a
+        tensor-parallel group holds (``tensor_parallel.local_kv_heads``:
+        KVH / model, or all of them where they do not split), so the slab
+        and ``nbytes`` are that rank's; default all of them."""
         self.cfg = cfg
+        self.kv_heads = kv_heads or cfg.num_kv_heads
         self.dtype = dtype
         self.pool = pool
         self.device = resolve_device(device)
@@ -207,8 +212,9 @@ class KVCacheManager:
         if key not in self._nbytes_memo:
             self._nbytes_memo[key] = sum(
                 math.prod(shape) * torch.empty((), dtype=dt).element_size()
-                for shape, dt in tf.cache_shapes(self.cfg, batch, max_len,
-                                                 self.dtype).values())
+                for shape, dt in tf.cache_shapes(
+                    self.cfg, batch, max_len, self.dtype,
+                    kv_heads=self.kv_heads).values())
         return self._nbytes_memo[key]
 
     def init_paged(self, num_pages: int, page_size: int = 16) -> "KVPageSlab":
@@ -219,7 +225,7 @@ class KVCacheManager:
             raise ValueError("paged KV supports plain GQA attention caches "
                              f"only (attn_kind {self.cfg.attn_kind!r})")
         L = self.cfg.num_layers
-        KVH, Dh = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        KVH, Dh = self.kv_heads, self.cfg.resolved_head_dim
         shape = (L, num_pages, page_size, KVH, Dh)
         self.slab = KVPageSlab(
             k=torch.zeros(shape, dtype=self.dtype, device=self.device),

@@ -1487,3 +1487,87 @@ def test_meta_branches_leave_the_card_results_bit_for_bit():
         torch.cuda.synchronize()
         assert fn.launches == n + 1
         assert torch.equal(after, before), fn.__name__
+
+
+# kernels 1 and 4 at the tensor-parallel steps' local head counts (KVH, G):
+# llama3-8b's 8 KV heads over 2, 4 and 8 ranks (G 4), granite-20b's MQA
+# (its 48 query heads over 2 and 4 ranks: G 24, 12), granite-moe-3b's 8
+# KV heads over 2 and 4 ranks (G 3, Dh 64)
+TP_LOCAL = [(4, 4, 128), (2, 4, 128), (1, 4, 128), (1, 24, 128), (1, 12, 128),
+            (4, 3, 64), (2, 3, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KVH,G,Dh", TP_LOCAL)
+@pytest.mark.parametrize("kernel", ["flash_decode_paged", "flash_decode"])
+def test_decode_kernels_at_tensor_parallel_local_shapes(kernel, KVH, G, Dh):
+    """One grid a call and the plain version's output (atol=rtol=2e-3),
+    bf16, ragged lengths over 16-token pages or a 256-position cache."""
+    dev = _card()
+    lengths = [200, 97, 40, 7]
+    if kernel == "flash_decode_paged":
+        q, kp, vp, bt, lens = (torch.from_numpy(a).to(dev) for a in
+                               _paged_inputs(4, KVH, G, Dh, 16, 14, 31))
+        args = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), bt, lens)
+        want = tref.flash_decode_paged_ref(*args, 0)
+    else:
+        rng = np.random.default_rng(KVH * G + Dh)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(dev, torch.bfloat16)
+                   for s in ((4, KVH, G, Dh), (4, 256, KVH, Dh),
+                             (4, 256, KVH, Dh)))
+        args = (q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev))
+        want = tref.flash_decode_ref(*args, 0)
+    fn = getattr(tfd, kernel)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-20b",
+                                  "granite-moe-3b-a800m", "internvl2-1b"])
+def test_tensor_parallel_steps_over_gloo_ranks_on_the_card(arch, tmp_path):
+    """The reduced ``arch`` (fp32) over 2 and 4 gloo ranks on card 0
+    (``torch_dist_ranks``' ``tp_serve``): every rank's logits, cache and
+    slab blocks of ``serve_step``, ``serve_step_paged`` and ``prefill``
+    within 1e-4 of the scale of the one-rank model's on the card
+    (internvl2-1b's 2 KV heads over 4 ranks: the queries padded into the
+    global layout)."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks
+    import torch_tp_cases as cases
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    dev = _card()
+    _build.build_all(_build.SOURCES)
+    cfg = cases.config(arch)
+    flat, inp = cases.weights(cfg), cases.inputs(cfg)
+    meta = {"cases": [[arch, "", "float32"]], "device": "cuda",
+            "meshes": [["1x2", [1, 2]], ["1x4", [1, 4]]]}
+    np.savez(tmp_path / "in.npz", meta=np.array(json.dumps(meta)),
+             **{f"w/{arch}/{k}": v for k, v in flat.items()},
+             **{f"in/{arch}/{k}": v for k, v in inp.items()})
+    ranks = torch_dist_ranks.run("tp_serve", 4, tmp_path / "in.npz", tmp_path)
+    model = ttf.from_jax_params(cases.tree(flat), cfg, device=dev)
+    want = cases.run_steps(model, inp, torch.float32, device=dev)
+    for mname, m in (("1x2", 2), ("1x4", 4)):
+        mesh = sh.MeshAxes(("model",), (m,))
+        for r in range(m):
+            for key, w in want.items():
+                step, out = key.split("/")
+                if out != "logits":
+                    axes = (tpm.SLAB_AXES if step == "paged"
+                            else ttf.cache_axes(cfg)[out])
+                    w = w[sh.local_block(sh.spec_for(axes, w.shape, mesh,
+                                                     sh.RULES_DEFAULT),
+                                         w.shape, mesh, (r,))]
+                got = ranks[r][f"{mname}/{arch}/float32/{key}"]
+                assert got.shape == w.shape, (mname, r, key)
+                err = np.abs(got - w).max()
+                assert err <= 1e-4 * np.abs(w).max(), (mname, r, key, err)

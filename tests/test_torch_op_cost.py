@@ -25,6 +25,14 @@ against the reference's ``hlo_cost.jaxpr_cost``, on the CPU.
 * The meta branches of ``flash_decode``, ``flash_decode_quant`` and
   ``mla_decode``: the kernel's output shape and dtype, no launch, and the
   counted work equal to its formula.
+* One rank's tensor-parallel ``serve_step`` and ``prefill`` (the dry
+  run's serve entry points) of the seven GQA/MQA/MoE archs at full width on meta
+  tensors with a ``MetaTPGroup`` of 8 (the production mesh's ``model``):
+  the counted collective bytes equal the analytic count, per layer an
+  all-reduce of [B, d] after ``wo`` and another after ``w_down`` (the
+  MoE combine in fp32; arctic's dense residual one more), each where its
+  dim splits, one embedding all-reduce of [B, d] a codebook and one
+  logits all-gather of [B, V] a codebook where the vocabulary splits.
 """
 
 import collections
@@ -382,3 +390,70 @@ def test_cpu_results_unchanged_by_a_meta_trace():
         tfd.flash_decode(q.to("meta"), k.to("meta"), v.to("meta"),
                          pos.to("meta"))
     assert torch.equal(tfd.flash_decode(q, k, v, pos), first)
+
+
+TP_ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "arctic-480b", "granite-20b",
+            "nemotron-4-15b", "internvl2-1b", "musicgen-large")
+
+
+def _tp_bytes(cfg, m: int, rows: int, last_rows: int) -> tuple:
+    """The analytic collective bytes of one rank's step over ``rows``
+    token rows (logits over ``last_rows``), bf16 activations, and the
+    number of collectives."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    lay = tpm.tp_layout(cfg, sh.MeshAxes(("model",), (m,)), rank=0)
+    d, nc = cfg.d_model, max(ttf.codebooks(cfg), 1)
+    row = rows * d * 2
+    split = [lay.heads is not None]
+    layer = row * split[0]
+    if cfg.moe is not None:
+        split += [lay.experts is not None or lay.mlp_split, lay.dense_split]
+        layer += rows * d * 4 * split[1] + row * split[2]
+    else:
+        split.append(lay.mlp_split)
+        layer += row * split[1]
+    out = {"all-reduce": cfg.num_layers * layer}
+    if lay.vocab is not None:
+        out["all-reduce"] += row * nc
+        out["all-gather"] = last_rows * cfg.vocab_size * nc * 2
+    calls = cfg.num_layers * sum(split) + 2 * (lay.vocab is not None)
+    return {k: float(v) for k, v in out.items() if v}, calls
+
+
+@pytest.mark.parametrize("step", ["decode", "prefill"])
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_meta_tp_group_counts_the_collectives(arch, step):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    cfg, m, Bt, Sp = tget_arch(arch), 8, 4, 16
+    mesh = sh.MeshAxes(("model",), (m,))
+    model = tpm.shard_model(op_cost.meta_model(cfg), cfg, mesh, rank=0,
+                            device="meta")
+    kvh = tpm.local_kv_heads(cfg, mesh)
+    nc = ttf.codebooks(cfg)
+    meta = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt,
+                                                     device="meta")
+    tok = lambda *s: meta(s + ((nc,) if nc else ()))
+    group = tpm.MetaTPGroup(m)
+    with torch.no_grad():
+        if step == "decode":
+            cache = {n: meta(s, dt) for n, (s, dt) in ttf.cache_shapes(
+                cfg, Bt, 64, kv_heads=kvh).items()}
+            c = op_cost.op_cost(lambda: ttf.serve_step(
+                model, cache, {"token": tok(Bt), "pos": meta((Bt,))},
+                tp=group))
+            rows = last = Bt
+        else:
+            inputs = {"tokens": tok(2, Sp)}
+            fe = cfg.frontend
+            P = 0
+            if fe is not None and fe.kind == "vit_stub":
+                P = fe.num_prefix_embeddings
+                inputs["image_embeds"] = meta((2, P, fe.embed_dim),
+                                              torch.bfloat16)
+            c = op_cost.op_cost(lambda: ttf.prefill(model, inputs,
+                                                    attn_chunk=Sp, tp=group))
+            rows, last = 2 * (P + Sp), 2
+    want, calls = _tp_bytes(cfg, m, rows, last)
+    assert c["coll"] == {"model": want} and group.calls == calls

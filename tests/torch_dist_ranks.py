@@ -16,7 +16,16 @@ results.  Jobs:
   placements express the spec, by ``distribute_tensor``;
 * ``dp_train``: ``make_manual_dp_train_step``'s steps, each from the
   reference's state before it (read from the reference child's output);
-* ``search``: ``sharded_device_search`` over 2 and 4 ranks.
+* ``search``: ``sharded_device_search`` over 2 and 4 ranks;
+* ``tp_serve``: the tensor-parallel ``serve_step``, ``serve_step_paged``
+  and ``prefill`` of each case (``torch_tp_cases``) on each mesh
+  ("data", "model") of the meta, each rank's model from
+  ``tensor_parallel.shard_model`` of the case's weights, its dense cache
+  and slab from ``shard_cache``: each rank's logits (its batch rows),
+  cache and slab blocks, and the collectives a step made.  The meshes
+  the size of the world are ``DeviceMesh``es; smaller ones plain groups
+  of the first ranks, the layouts by coordinate.  ``meta["device"]``
+  "cuda" runs every rank on card 0 (gloo takes the CUDA tensors).
 """
 
 from __future__ import annotations
@@ -234,8 +243,93 @@ def job_search(rank: int, inp: dict, meta: dict) -> dict:
     return out
 
 
+def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import torch_tp_cases as cases
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.kv_cache import KVPageSlab
+
+    world = dist.get_world_size()
+    dev = torch.device(meta.get("device", "cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    for mname, (data, m) in meta["meshes"]:
+        W = data * m
+        if W == world:
+            dm = init_device_mesh("cpu", (data, m),
+                                  mesh_dim_names=("data", "model"))
+            tp, mesh, mc, coord = tpm.TPGroup(mesh=dm), dm, None, None
+        else:
+            groups = [dist.new_group([d * m + i for i in range(m)])
+                      for d in range(data)]
+            mesh = sh.MeshAxes(("data", "model"), (data, m))
+        if rank >= W:
+            continue
+        dc = rank // m
+        if W != world:
+            tp, mc, coord = tpm.TPGroup(groups[dc]), rank % m, (dc, rank % m)
+        for arch, tw, dname in meta["cases"]:
+            cfg = cases.config(arch, tw)
+            dtype = getattr(torch, dname)
+            key = f"{arch}{tw}"
+            flat = {k[len(f"w/{key}/"):]: v for k, v in inp.items()
+                    if k.startswith(f"w/{key}/")}
+            x = {k[len(f"in/{key}/"):]: v for k, v in inp.items()
+                 if k.startswith(f"in/{key}/")}
+            model = tpm.shard_model(cases.tree(flat), cfg, mesh, rank=mc,
+                                    device=dev, dtype=dtype)
+            t = lambda a, dt=None: torch.from_numpy(np.array(a)).to(
+                device=dev, dtype=dt)
+            n = cases.B // data
+            rows = slice(dc * n, (dc + 1) * n)
+            at = f"{mname}/{key}/{dname}"
+            with torch.no_grad():
+                cache = tpm.shard_cache({"k": t(x["k"], dtype),
+                                         "v": t(x["v"], dtype)}, cfg, mesh,
+                                        coord=coord)
+                tp.calls = 0
+                logits, cache = tf.serve_step(
+                    model, cache, {"token": t(x["token"][rows]),
+                                   "pos": t(x["pos"][rows])}, tp=tp)
+                out[f"{at}/dense/calls"] = np.asarray(tp.calls)
+                out.update({f"{at}/dense/logits": logits.float().cpu().numpy(),
+                            f"{at}/dense/k": cache["k"].float().cpu().numpy(),
+                            f"{at}/dense/v": cache["v"].float().cpu().numpy()})
+                slab = tpm.shard_cache(KVPageSlab(
+                    k=t(x["k_slab"], dtype), v=t(x["v_slab"], dtype),
+                    page_size=cases.PS), cfg, mesh, coord=coord)
+                logits, ks, vs = tf.serve_step_paged(
+                    model, slab.k, slab.v, t(x["block_table"]),
+                    t(x["lengths"]), {"token": t(x["token"])}, tp=tp)
+                out.update({f"{at}/paged/logits": logits.float().cpu().numpy(),
+                            f"{at}/paged/k": ks.float().cpu().numpy(),
+                            f"{at}/paged/v": vs.float().cpu().numpy()})
+                pin = {"tokens": t(x["tokens"][rows])}
+                if "image_embeds" in x:
+                    pin["image_embeds"] = t(x["image_embeds"][rows], dtype)
+                tp.calls = 0
+                logits, cache = tf.prefill(model, pin, attn_chunk=4, tp=tp)
+                out[f"{at}/prefill/calls"] = np.asarray(tp.calls)
+                out.update({f"{at}/prefill/logits": logits.float().cpu().numpy(),
+                            f"{at}/prefill/k": cache["k"].float().cpu().numpy(),
+                            f"{at}/prefill/v": cache["v"].float().cpu().numpy()})
+            if W == world:      # the whole cache back from every rank's block
+                full = tpm.gather_cache({"k": cache["k"]}, cfg, tp)["k"]
+                out[f"{at}/prefill/gathered_k"] = full.float().cpu().numpy()
+                slab = tpm.gather_cache(KVPageSlab(k=ks, v=vs,
+                                                   page_size=cases.PS), cfg, tp)
+                out[f"{at}/paged/gathered_k"] = slab.k.float().cpu().numpy()
+    return out
+
+
 JOBS = {"distributed": job_distributed, "dp_train": job_dp_train,
-        "search": job_search}
+        "search": job_search, "tp_serve": job_tp_serve}
 
 
 def main(job: str, rank: int, world: int, init: str, inputs: str,

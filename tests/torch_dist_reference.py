@@ -14,7 +14,15 @@ part, all at once, under ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` 
   a case, so the archs compile in parallel) from the given initial
   weights, each step's metrics and its state after (weights, moments,
   step, and the error feedback of every device, device order);
-* ``search``: ``sharded_device_search`` over 2 and 4 devices.
+* ``search``: ``sharded_device_search`` over 2 and 4 devices;
+* ``tp_serve``: each case of the part's arch (``torch_tp_cases``):
+  ``serve_step``, ``prefill`` and ``serve_step_paged`` unsharded, then
+  ``serve_step`` and ``prefill`` jitted under ``param_shardings`` /
+  ``cache_shardings`` (batch inputs and logits over ``data``) on each
+  ("data", "model") mesh of the meta, as the reference's
+  ``launch/dryrun.py`` jits its serve cells, so GSPMD partitions them;
+  for an MoE config also the unsharded steps on each ``data`` shard's
+  rows alone (each replica's own dispatch groups).
 """
 
 from __future__ import annotations
@@ -157,7 +165,98 @@ def job_search(inp: dict, meta: dict, part: str) -> dict:
     return out
 
 
-JOBS = {"dp_train": job_dp_train, "search": job_search}
+def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    import torch_tp_cases as cases
+    from repro.configs import get_arch
+    from repro.distributed import sharding as shd
+    from repro.launch.mesh import _axis_type_kwargs
+    from repro.models import transformer as tf
+
+    out = {}
+    for arch, tw, dname in meta["cases"]:
+        if part not in ("all", arch):
+            continue
+        cfg = cases.tweak(get_arch(arch).reduced(), tw)
+        dt = getattr(jnp, dname)
+        key = f"{arch}{tw}"
+        params = jax.tree.map(lambda a: jnp.asarray(a).astype(dt), cases.tree(
+            {k[len(f"w/{key}/"):]: v for k, v in inp.items()
+             if k.startswith(f"w/{key}/")}))
+        x = {k[len(f"in/{key}/"):]: v for k, v in inp.items()
+             if k.startswith(f"in/{key}/")}
+        cast = lambda a: jnp.asarray(a).astype(dt)
+
+        def dense(p, c, tok, pos):
+            return tf.serve_step(p, c, {"token": tok, "pos": pos}, cfg)
+
+        def pf(p, tokens, img):
+            pin = {"tokens": tokens}
+            if img is not None:
+                pin["image_embeds"] = img
+            return tf.prefill(p, pin, cfg, attn_chunk=4)
+
+        img = cast(x["image_embeds"]) if "image_embeds" in x else None
+        at = f"{key}/{dname}"
+
+        def run(name, rows, fd, fp):
+            cache = {"k": cast(x["k"][:, rows]), "v": cast(x["v"][:, rows])}
+            lg, c = fd(params, cache, jnp.asarray(x["token"][rows]),
+                       jnp.asarray(x["pos"][rows]))
+            out.update({f"{name}/dense/logits": np.asarray(lg, np.float32),
+                        f"{name}/dense/k": np.asarray(c["k"], np.float32),
+                        f"{name}/dense/v": np.asarray(c["v"], np.float32)})
+            lg, c = fp(params, jnp.asarray(x["tokens"][rows]),
+                       None if img is None else img[rows])
+            out.update({f"{name}/prefill/logits": np.asarray(lg, np.float32),
+                        f"{name}/prefill/k": np.asarray(c["k"], np.float32),
+                        f"{name}/prefill/v": np.asarray(c["v"], np.float32)})
+
+        whole = slice(None)
+        run(f"whole/{at}", whole, jax.jit(dense), jax.jit(pf))
+        lg, ks, vs = jax.jit(tf.serve_step_paged, static_argnums=(6,))(
+            params, cast(x["k_slab"]), cast(x["v_slab"]),
+            jnp.asarray(x["block_table"]), jnp.asarray(x["lengths"]),
+            {"token": jnp.asarray(x["token"])}, cfg)
+        out.update({f"whole/{at}/paged/logits": np.asarray(lg, np.float32),
+                    f"whole/{at}/paged/k": np.asarray(ks, np.float32),
+                    f"whole/{at}/paged/v": np.asarray(vs, np.float32)})
+        for mname, (data, m) in meta["meshes"]:
+            if data * m == 1:
+                continue
+            if data > 1 and cfg.moe is not None:    # each replica's rows alone
+                n = cases.B // data
+                for d in range(data):
+                    run(f"{mname}/{d}/{at}", slice(d * n, (d + 1) * n),
+                        jax.jit(dense), jax.jit(pf))
+                continue
+            if data * m != len(jax.devices()):
+                continue
+            mesh = jax.make_mesh((data, m), ("data", "model"),
+                                 **_axis_type_kwargs(2))
+            rules = shd.RULES_DEFAULT
+            psh = shd.param_shardings(cfg, mesh, rules)
+            csh = shd.cache_shardings(cfg, mesh, cases.B, cases.S_MAX, rules)
+            bsh = NamedSharding(mesh, P("data"))
+            pcsh = shd.cache_shardings(cfg, mesh, cases.B, x["tokens"].shape[1]
+                                       + (0 if img is None else img.shape[1]),
+                                       rules)
+            fd = jax.jit(dense, in_shardings=(psh, csh, bsh, bsh),
+                         out_shardings=(bsh, csh))
+            fp = jax.jit(pf, in_shardings=(psh, bsh, None if img is None
+                                           else bsh),
+                         out_shardings=(bsh, pcsh))
+            with mesh:
+                run(f"{mname}/{at}", whole, fd, fp)
+    return out
+
+
+JOBS = {"dp_train": job_dp_train, "search": job_search,
+        "tp_serve": job_tp_serve}
 
 
 if __name__ == "__main__":
