@@ -9,6 +9,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py --centroid-ab PARENT    # the same for kernel 5
     python3 chip_smoke.py --distributed        # phase 9 alone
     python3 chip_smoke.py --tensor-parallel    # phase 11 alone
+    python3 chip_smoke.py --tp-train           # phase 12 alone
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -226,7 +227,25 @@ Phases, one line each, every one fatal on failure:
      router probability, in its first differing layer) not compared; kernels 1 and 4 alone at each rank shape
      (device ms a call beside the bound); ms a paged step with the
      collectives' share, on the host clock through gloo (a layout test,
-     not a multi-card figure).
+     not a multi-card figure);
+ 12. tensor-parallel training (``--tp-train`` runs it alone): fp32
+     llama3-8b (4 of 32 layers) and granite-moe-3b (8 of 32), full
+     width, 2 steps of make_train_step on one rank on the card, then of
+     make_tp_train_step over 2 gloo ranks on a (1, 2) mesh and 4 on a
+     (1, 4) (llama3-8b) or (2, 2) (granite-moe) mesh with act_spec
+     (--tpt-rank, one process each; each rank's blocks of the same
+     seeded weights, the global batch of 2 x 128 tokens, each step from
+     the one-rank run's parameters before it): in every step each
+     rank's loss within rtol 1e-5 and grad norm 1e-4 of the one-rank
+     step's, its parameter blocks after the step within 2e-4 but for the
+     elements whose gradient was within 1e-4 of its leaf's max-abs of 0
+     (their share printed), an MoE routing flip allowed only at a near
+     tie (1e-5 of router probability, as in phase 11; that step alone
+     not compared); ms a step with the collectives' share (host clock
+     through gloo: a layout test) and each rank's max_memory_allocated
+     over a step, which phase 10's check then sets beside dry_run_cell's
+     rank-0 tensor-parallel train peak at the same shape (a finding).
+     Training runs no hand-written kernel.
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
@@ -482,6 +501,26 @@ TP_TIMED = 5
 # the two experts' router probabilities (the one-rank model's) this close
 TP_TIE = 1e-5
 TP_RANK_TIMEOUT = 300
+
+# phase 12, tensor-parallel training (RULES_DEFAULT): (arch, layers), full
+# width, fp32, TPT_STEPS steps of make_tp_train_step on one global batch
+# of TPT_B x TPT_S tokens from TPT_SEED, against the one-rank
+# make_train_step on the card, each step from the one-rank run's
+# parameters before it (as tests/test_torch_tp_train.py runs each step
+# from the reference's state), so that rounding cannot compound through
+# the optimizer from one step into the next; (arch, world) -> ((data,
+# model) mesh, act_spec): 2 ranks on (1, 2) without act_spec, 4 with it,
+# on (2, 2) for granite-moe (its routing across data shards) and on (1, 4)
+# for llama3-8b (four data replicas of its 15.4 GB of blocks, moments and
+# gradients would not fit one card beside each other)
+TPT_CASES = [("llama3-8b", 4), ("granite-moe-3b-a800m", 8)]
+TPT_WORLDS = (2, 4)
+TPT_MESH = {("llama3-8b", 2): ((1, 2), False), ("llama3-8b", 4): ((1, 4), True),
+            ("granite-moe-3b-a800m", 2): ((1, 2), False),
+            ("granite-moe-3b-a800m", 4): ((2, 2), True)}
+TPT_B, TPT_S, TPT_STEPS, TPT_SEED = 2, 128, 2, 0
+TPT_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TPT_KW = dict(attn_chunk=128, loss_chunk=64, remat=True, remat_group=2)
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -2784,10 +2823,11 @@ def family_train(arch: str, layers, smi: str) -> dict:
     init_s = time.perf_counter() - t0
     routes, real_route = {}, moe.route
 
-    def record(router, x, c):      # each layer's routings, by its router
-        r = real_route(router, x, c)
+    def record(router, x, c, *tp):  # each layer's routings, by its router
+        r = real_route(router, x, c, *tp)
+        # detached: the gates' graph would hold the recompute's activations
         routes.setdefault(router.data_ptr(), []).append(
-            (r.experts, r.weights, r.slot))
+            (r.experts, r.weights.detach(), r.slot))
         return r
 
     rows = []
@@ -3650,8 +3690,8 @@ def tp_steps(ttf, model, inp: dict, counted: dict, tp=None,
     kw = {} if tp is None else {"tp": tp}
     route, picks = moe.route, []
 
-    def recorded(router, x, cfg):          # every MoE layer's routing
-        r = route(router, x, cfg)
+    def recorded(router, x, cfg, *tp):     # every MoE layer's routing
+        r = route(router, x, cfg, *tp)
         picks.append((r.experts, r.probs))
         return r
 
@@ -4023,6 +4063,447 @@ def tp_main() -> None:
         out = tp_phase(smi, Path(d))
     print(smi)
     print(json.dumps({"tensor_parallel": out}))
+
+
+def tpt_batch(cfg) -> dict:
+    """Phase 12's global batch on the host, from TPT_SEED: tokens and
+    labels [TPT_B, TPT_S] uniform over the vocabulary."""
+    g = torch.Generator().manual_seed(TPT_SEED)
+    return {k: torch.randint(0, cfg.vocab_size, (TPT_B, TPT_S), generator=g,
+                             dtype=torch.int32) for k in ("tokens", "labels")}
+
+
+def _forward_picks(moe, picks: list, layers: int):
+    """A stand-in for ``moe.route`` that keeps the picks and router
+    probabilities (detached: a kept graph would hold the recompute's
+    activations) of the first ``layers`` calls (a step's forward; the
+    recompute in backward routes the same tokens again)."""
+    route = moe.route
+
+    def recorded(router, x, cfg, *tp):
+        r = route(router, x, cfg, *tp)
+        if len(picks) < layers:
+            picks.append((r.experts.reshape(-1, r.experts.shape[-1]),
+                          r.probs.detach().reshape(-1, r.probs.shape[-1])))
+        return r
+    return route, recorded
+
+
+def _tpt_groups(world: int, rank: int) -> dict:
+    """{(data, model): (TPGroup, this rank's model coordinate)} for each
+    mesh phase 12 runs over ``world`` ranks: plain groups of the
+    ``model`` and ``data`` axes, every rank making every group."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tpm
+    out = {}
+    for data, m in sorted({TPT_MESH[(a, world)][0] for a, _ in TPT_CASES}):
+        mg = [dist.new_group([d * m + i for i in range(m)]) for d in range(data)]
+        dg = [dist.new_group([d * m + i for d in range(data)]) for i in range(m)]
+        out[(data, m)] = (tpm.TPGroup(mg[rank // m], data=dg[rank % m]
+                                      if data > 1 else None), rank % m)
+    return out
+
+
+def _tpt_restore(params: dict, path: Path, block) -> None:
+    """Overwrite ``params`` with their blocks (``block(name)``) of the
+    one-rank run's parameters saved at ``path`` (memory-mapped)."""
+    one = torch.load(path, mmap=True)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(one[n][block(n)])
+
+
+def _tpt_gaps(params: dict, path: Path, block, leaf_max) -> tuple:
+    """After a step: for each leaf, the largest |parameter - the one-rank
+    run's after the same step| (``path``, memory-mapped; ``block(name)``
+    the part this process holds) over the elements whose gradient is 0 or
+    above 1e-4 of its leaf's max-abs (``leaf_max`` of this process's
+    largest; where it is not, Adam's step is about +-lr whichever way
+    the rounding points), with |gradient| / max-abs at that element;
+    and the count of the elements left out."""
+    one = torch.load(path, mmap=True)
+    gaps, out = {}, 0
+    with torch.no_grad():
+        for n, p in params.items():
+            g = p.grad.abs()
+            gmax = leaf_max(g.max().reshape(1).clone())
+            near = (g != 0) & (g <= 1e-4 * gmax)
+            out += int(near.sum())
+            d = (p - one[n][block(n)].to(p.device)).abs().masked_fill_(near, 0)
+            at = int(d.argmax())
+            gaps[n] = [float(d.flatten()[at]),
+                       float(g.flatten()[at] / gmax.clamp(min=1e-30))]
+    return gaps, out
+
+
+def tpt_rank_main(rank: int, world: int, init: str, work: Path) -> None:
+    """One rank of phase 12 over gloo on the card: for each of TPT_CASES,
+    its blocks of the seeded fp32 model (the full model built one rank at
+    a time) and zero moments, TPT_STEPS of ``make_tp_train_step`` on the
+    mesh and ``act_spec`` of TPT_MESH[(arch, world)] with its
+    ``TPGroup``, step s > 0 from its blocks of the one-rank run's
+    parameters after step s - 1 (``work``/tpt_p<s-1>_<arch>.pt) and its
+    own moments; each step timed (collectives' host seconds beside), its
+    loss, grad norm and ``max_memory_allocated`` from its start, then
+    ``_tpt_gaps`` against ``work``/tpt_p<s>_<arch>.pt.  Writes
+    ``work``/tpt<world>_<rank>.json and its MoE picks."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as ttf
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_tp_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    groups = _tpt_groups(world, rank)
+    opt = OptConfig(**TPT_OPT)
+    summary = {"rank": rank, "cases": {}}
+    for arch, layers in TPT_CASES:
+        cfg = tp_config(arch, layers)
+        (data, m), act = TPT_MESH[(arch, world)]
+        tp, coord = groups[(data, m)]
+        mesh = sh.MeshAxes(("data", "model"), (data, m))
+        batch = {k: v.cuda() for k, v in
+                 torch.load(work / f"tpt_in_{arch}.pt").items()}
+        for r in range(world):              # one full model on the card at once
+            if r == rank:
+                full = ttf.init_params(cfg, torch.Generator(
+                    device="cuda").manual_seed(TPT_SEED), device="cuda",
+                    dtype=torch.float32)
+                model = tpm.shard_model(full, cfg, mesh, rank=coord)
+                del full
+                _free()
+            dist.barrier()
+        model.set_trainable()
+        lay = model.tp_layout
+        params = dict(model.named_parameters())
+        state = init_opt_state(params, opt)
+        step = make_tp_train_step(cfg, opt, act_spec=act, **TPT_KW)
+        rows, picks = [], []
+        for s in range(TPT_STEPS):
+            if s:
+                _tpt_restore(params, work / f"tpt_p{s - 1}_{arch}.pt",
+                             lay.block)
+            picks_s = []
+            route, recorded = _forward_picks(moe, picks_s, cfg.num_layers)
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            tp.timed, tp.seconds, tp.calls, tp.data_calls = True, 0.0, 0, 0
+            moe.route = recorded
+            t0 = time.perf_counter()
+            try:
+                model, state, met = step(model, state, batch, tp)
+            finally:
+                moe.route = route
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            tp.timed = False
+            gaps, out = _tpt_gaps(params, work / f"tpt_p{s}_{arch}.pt",
+                                  lay.block, tp.all_reduce_max)
+            rows.append({"loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]), "ms": ms,
+                         "coll_ms": 1e3 * tp.seconds, "calls": tp.calls,
+                         "data_calls": tp.data_calls, "peak_bytes": peak,
+                         "gaps": gaps, "left_out": out})
+            if picks_s:
+                picks.append([torch.stack([e for e, _ in picks_s]).cpu(),
+                              torch.stack([p for _, p in picks_s]).cpu()])
+        if picks:
+            torch.save(picks, work / f"tpt{world}_{rank}_{arch}_picks.pt")
+        T = TPT_B * TPT_S // data           # the rank's tokens of the batch
+        summary["cases"][arch] = {
+            "steps": rows, "elements": sum(p.numel() for p in params.values()),
+            "tokens": [tp.data_rank * T, (tp.data_rank + 1) * T]}
+        del model, state, params, step
+        _free()
+    dist.destroy_process_group()
+    (work / f"tpt{world}_{rank}.json").write_text(json.dumps(summary))
+
+
+def _tpt_tie(picks, one, tokens) -> float | None:
+    """None where a rank's forward of a step routed its tokens as the
+    one-rank model's did; else, in the first layer whose picks differ,
+    the largest gap between the one-rank model's router probabilities of
+    the expert it took and the one the rank took."""
+    e, (oe, op) = picks[0], one
+    oe, op = oe[:, tokens[0]:tokens[1]], op[:, tokens[0]:tokens[1]]
+    mine, theirs = oe.sort(-1).values, e.sort(-1).values
+    if torch.equal(mine, theirs):
+        return None
+    first = int((mine != theirs).flatten(1).any(1).nonzero()[0])
+    gap = 0.0
+    for t in (mine[first] != theirs[first]).any(-1).nonzero().flatten():
+        a, b = set(mine[first, t].tolist()), set(theirs[first, t].tolist())
+        for x, y in zip(sorted(a - b), sorted(b - a)):
+            gap = max(gap, abs(float(op[first, t, x] - op[first, t, y])))
+    return gap
+
+
+def _tpt_one(cfg, opt, batch: dict, work: Path, arch: str) -> tuple:
+    """The one-rank run of phase 12: the seeded fp32 model and zero
+    moments, TPT_STEPS steps of ``make_train_step``, the parameters
+    after step s saved to ``work``/tpt_p<s>_<arch>.pt.  Returns (each
+    step's metrics, timing and peak; each step's MoE picks)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as ttf
+    from repro_torch.training import init_opt_state, make_train_step
+    model = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        TPT_SEED), device="cuda", dtype=torch.float32).set_trainable()
+    state = init_opt_state(dict(model.named_parameters()), opt)
+    step = make_train_step(cfg, opt, **TPT_KW)
+    rows, picks = [], []
+    for s in range(TPT_STEPS):
+        picks_s = []
+        route, recorded = _forward_picks(moe, picks_s, cfg.num_layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moe.route = recorded
+        t0 = time.perf_counter()
+        try:
+            model, state, met = step(model, state, batch)
+        finally:
+            moe.route = route
+        torch.cuda.synchronize()
+        rows.append({"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]),
+                     "ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_bytes": torch.cuda.max_memory_allocated()})
+        if picks_s:
+            picks.append([torch.stack([e for e, _ in picks_s]).cpu(),
+                          torch.stack([p for _, p in picks_s]).cpu()])
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                   work / f"tpt_p{s}_{arch}.pt")
+    del model, state, step
+    _free()
+    return rows, picks
+
+
+def tp_train_phase(smi: str, work: Path) -> dict:
+    """Phase 12: for each of TPT_CASES the one-rank model on the card (the
+    seeded fp32 weights, ``make_train_step``, TPT_STEPS steps on the
+    global batch), its parameters after each step saved for the ranks.
+    Then 2 and 4 gloo ranks sharing the card (``tpt_rank_main``, one
+    process each; TPT_MESH), each step from the one-rank run's parameters
+    before it: in every step each rank's loss within 1e-5 and grad norm
+    within 1e-4 of the one-rank model's (relative), and each of its
+    parameter blocks after the step within 2e-4 of the one-rank model's
+    but for the elements whose gradient was within 1e-4 of its leaf's
+    max-abs of 0 (their share printed).  An MoE step whose forward routed
+    a token otherwise than the one-rank model's on some rank is allowed
+    only at a near tie (TP_TIE of router probability, as in phase 11),
+    and that step's numbers are then not compared on any rank (the
+    gradients' all-reduce carries the flip to every rank); the other
+    steps are.  Times are host milliseconds of ranks sharing one card
+    through gloo: a layout test, not a multi-card figure."""
+    from repro_torch.training import OptConfig
+    t_phase = time.perf_counter()
+    opt = OptConfig(**TPT_OPT)
+    one, failures = {}, []
+    for arch, layers in TPT_CASES:
+        cfg = tp_config(arch, layers)
+        batch = tpt_batch(cfg)
+        torch.save(batch, work / f"tpt_in_{arch}.pt")
+        rows, picks = _tpt_one(cfg, opt, {k: v.cuda() for k, v in
+                                          batch.items()}, work, arch)
+        one[arch] = {"steps": rows, "picks": picks}
+    result = {"one_rank": {a: one[a]["steps"] for a in one}}
+    tol = {"loss": 1e-5, "grad_norm": 1e-4, "param": 2e-4}
+    for world in TPT_WORLDS:
+        init = work / f"tpt{world}.pg"
+        logs = [work / f"tpt{world}_{r}.log" for r in range(world)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(world):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"),
+                         "--tpt-rank", str(r), str(world), str(init),
+                         str(work)], stdout=log, stderr=subprocess.STDOUT))
+            for r, p in enumerate(procs):
+                if p.wait(timeout=TP_RANK_TIMEOUT) != 0:
+                    fail(f"12: rank {r} of {world} exited {p.returncode}:\n"
+                         + logs[r].read_text()[-3000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"tpt{world}_{r}.json").read_text())
+                 for r in range(world)]
+        by_arch = {}
+        for arch, layers in TPT_CASES:
+            cfg = tp_config(arch, layers)
+            (data, m), act = TPT_MESH[(arch, world)]
+            ref = one[arch]
+            flips, skip = [], set()
+            for r, rk in enumerate(ranks):
+                if not ref["picks"]:
+                    break
+                got = torch.load(work / f"tpt{world}_{r}_{arch}_picks.pt")
+                for s in range(TPT_STEPS):
+                    gap = _tpt_tie(got[s], ref["picks"][s],
+                                   rk["cases"][arch]["tokens"])
+                    if gap is None:
+                        continue
+                    flips.append((r, s, gap))
+                    skip.add(s)
+                    if gap > TP_TIE:
+                        failures.append(
+                            f"{arch} over {world} ranks, rank {r}'s step {s} "
+                            f"routed otherwise than the one-rank model, "
+                            f"{gap:.3e} apart (more than a near tie, "
+                            f"{TP_TIE:g})")
+            # each step's largest errors over the ranks: loss, grad norm
+            # (relative), parameters (absolute) and the leaf, rank and
+            # |gradient| / max-abs where that one lies
+            errs = []
+            for s in range(TPT_STEPS):
+                want = ref["steps"][s]
+                e = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0,
+                     "where": None, "compared": s not in skip}
+                for r, rk in enumerate(ranks):
+                    got = rk["cases"][arch]["steps"][s]
+                    for k in ("loss", "grad_norm"):
+                        e[k] = max(e[k], abs(got[k] - want[k]) / abs(want[k]))
+                    for n, (gap, rel) in got["gaps"].items():
+                        if gap > e["param"]:
+                            e["param"], e["where"] = gap, [n, r, rel]
+                errs.append(e)
+                if s in skip:
+                    continue
+                for k in tol:
+                    if not e[k] <= tol[k]:
+                        failures.append(
+                            f"{arch} over {world} ranks, step {s}: {k} "
+                            f"{e[k]:.3e} from the one-rank model's (tolerance "
+                            f"{tol[k]:g}{', ' + str(e['where']) if k == 'param' else ''})")
+            left = sum(st["left_out"] for rk in ranks
+                       for st in rk["cases"][arch]["steps"])
+            total = TPT_STEPS * sum(rk["cases"][arch]["elements"]
+                                    for rk in ranks)
+            steady = [[st["ms"] for st in rk["cases"][arch]["steps"][1:]]
+                      for rk in ranks]
+            coll = [[st["coll_ms"] for st in rk["cases"][arch]["steps"][1:]]
+                    for rk in ranks]
+            ms = [sum(x) / len(x) for x in steady]
+            cms = [sum(x) / len(x) for x in coll]
+            b = by_arch[arch] = {
+                "mesh": [data, m], "act_spec": act, "errs": errs, "tol": tol,
+                "tie": TP_TIE, "flips": flips, "left_out": left,
+                "elements": total, "ms": ms, "coll_ms": cms,
+                "one_rank_ms": sum(st["ms"] for st in ref["steps"][1:])
+                / max(len(ref["steps"]) - 1, 1),
+                "one_rank_peak_bytes": max(st["peak_bytes"]
+                                           for st in ref["steps"]),
+                "peak_bytes": [max(st["peak_bytes"] for st in
+                                   rk["cases"][arch]["steps"]) for rk in ranks],
+                "calls": [rk["cases"][arch]["steps"][0]["calls"] for rk in ranks],
+                "data_calls": [rk["cases"][arch]["steps"][0]["data_calls"]
+                               for rk in ranks]}
+            each = "; ".join(
+                f"step {s}: " + (f"loss {e['loss']:.2e}, grad norm "
+                                 f"{e['grad_norm']:.2e}, parameters "
+                                 f"{e['param']:.2e} ({e['where'][0]})"
+                                 if e["compared"] else "not compared (a flip)")
+                for s, e in enumerate(errs))
+            phase("tp", f"12 {arch} ({cfg.num_layers} layers, full width, "
+                  f"fp32) trained {TPT_STEPS} steps of {TPT_B} x {TPT_S} "
+                  f"tokens over {world} gloo ranks on a ({data}, {m}) mesh, "
+                  f"act_spec {'on' if act else 'off'}, each step from the "
+                  f"one-rank model's parameters before it, against the "
+                  f"one-rank make_train_step on the card: {each} (loss and "
+                  f"grad norm relative, tolerances 1e-5 and 1e-4; parameters "
+                  f"absolute, 2e-4, {left} of {total} element-steps "
+                  f"({100 * left / total:.4f}%) left out: a gradient within "
+                  f"1e-4 of its leaf's max-abs of 0)"
+                  + (f"; MoE routing as the one-rank model's but at near ties "
+                     f"(rank, step, gap) {flips}, within {TP_TIE:g}" if flips
+                     else "; MoE routing as the one-rank model's"
+                     if ref["picks"] else "")
+                  + f"; {b['calls'][0]} model and {b['data_calls'][0]} data "
+                  f"collectives a step a rank; ms a step "
+                  f"{[round(x, 1) for x in ms]} against {b['one_rank_ms']:.1f} "
+                  f"on one rank, collectives {[round(x, 1) for x in cms]} ms "
+                  f"of it ({100 * sum(cms) / max(sum(ms), 1e-9):.0f}%; host "
+                  "clock, gloo through the host, ranks sharing one card: a "
+                  "layout test, not a multi-card figure); peak "
+                  f"{[round(x / 1e9, 2) for x in b['peak_bytes']]} GB a rank, "
+                  f"{b['one_rank_peak_bytes'] / 1e9:.2f} on one rank "
+                  f"(max_memory_allocated over a step); on {smi}")
+        result[f"tpt{world}"] = {"wall_s": wall, "archs": by_arch}
+    result["s"] = time.perf_counter() - t_phase
+    phase("tp", f"phase 12 in {result['s']:.1f} s")
+    if failures:
+        fail("12: " + "; ".join(failures))
+    return result
+
+
+def tp_train_memory(smi: str, tpt: dict) -> list:
+    """Phase 10's check of phase 12's memory, after phase 12:
+    ``dry_run_cell``'s rank-0 tensor-parallel train peak at phase 12's
+    shape (its mesh, ``act_spec``, chunks, fp32 weights and moments)
+    beside each rank's measured ``max_memory_allocated`` over a step;
+    the gap printed (a finding, not a failure)."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.sharding import MeshAxes
+    from repro_torch.launch import dryrun
+    rows = []
+    for world in TPT_WORLDS:
+        for arch, layers in TPT_CASES:
+            b = tpt[f"tpt{world}"]["archs"][arch]
+            d = dryrun.dry_run_cell(
+                arch, "phase12", mesh=MeshAxes(("data", "model"), tuple(b["mesh"])),
+                cfg=tp_config(arch, layers),
+                suite=ShapeSuite("phase12", "train_step", TPT_S, TPT_B),
+                attn_chunk=TPT_KW["attn_chunk"], loss_chunk=TPT_KW["loss_chunk"],
+                remat_group=TPT_KW["remat_group"], param_dtype=torch.float32,
+                variant={"accum": 1, "rules": "default",
+                         "act_mode": "model" if b["act_spec"] else "none"},
+                verbose=False)
+            if d["status"] != "ok":
+                fail(f"launch: dry run of phase 12's {arch}: {d.get('error')}")
+            pred = d["memory"]["peak_bytes"]
+            meas = max(b["peak_bytes"])
+            rows.append({"arch": arch, "world": world, "mesh": b["mesh"],
+                         "predicted_bytes": pred, "measured_bytes": b["peak_bytes"],
+                         "tp_program": d["tp_program"]})
+            phase("launch", f"memory (phase 12) {arch} over {world} ranks "
+                  f"({tuple(b['mesh'])} mesh, act_spec "
+                  f"{'on' if b['act_spec'] else 'off'}): dry run's rank 0 "
+                  f"({d['tp_program']}) {pred / 1e9:.3f} GB (arguments "
+                  f"{d['memory']['argument_bytes'] / 1e9:.3f} + temporaries "
+                  f"{d['memory']['temp_bytes'] / 1e9:.3f}) against measured "
+                  f"{[round(x / 1e9, 3) for x in b['peak_bytes']]} GB a rank: "
+                  f"{100 * (pred / max(meas, 1) - 1):+.1f}% of the largest (a "
+                  f"finding, not a failure); on {smi}")
+    return rows
+
+
+def tpt_main() -> None:
+    """Phase 12 alone (no kernel runs on its path), then phase 10's check
+    of its memory."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    phase("card", f"{smi} | torch: {torch.cuda.get_device_name(0)}")
+    with tempfile.TemporaryDirectory() as d:
+        out = tp_train_phase(smi, Path(d))
+    out["memory"] = tp_train_memory(smi, out)
+    print(smi)
+    print(json.dumps({"tp_train": out}))
 
 
 def _call(fn):
@@ -4859,6 +5340,14 @@ def main() -> None:
     tp_local = {name: [{"shape": r["shape"], "dtype": r["dtype"], **r[name]}
                        for r in tp_out["local"]]
                 for name in ("flash_decode_paged", "flash_decode")}
+
+    # 12) tensor-parallel training: 2 and 4 gloo ranks sharing the card
+    #     against the one-rank train step; then phase 10's check of its
+    #     ranks' memory against the dry run's rank 0
+    with tempfile.TemporaryDirectory() as d:
+        tpt_out = tp_train_phase(smi, Path(d))
+    tpt_out["memory"] = tp_train_memory(smi, tpt_out)
+    phase("tp", json.dumps({"tp_train": tpt_out}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -4971,6 +5460,11 @@ if __name__ == "__main__":
     elif len(sys.argv) == 6 and sys.argv[1] == "--tp-rank":
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                      Path(sys.argv[5]))
+    elif len(sys.argv) == 2 and sys.argv[1] == "--tp-train":
+        tpt_main()
+    elif len(sys.argv) == 6 and sys.argv[1] == "--tpt-rank":
+        tpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                      Path(sys.argv[5]))
     elif len(sys.argv) == 1:
         main()
     else:
@@ -4978,4 +5472,4 @@ if __name__ == "__main__":
              "PARENT | --attn-timing DIR BITS | --attn-ab PARENT | "
              "--retrieval-timing DIR | --retrieval-ab PARENT | "
              "--centroid-timing DIR | --centroid-ab PARENT | --distributed | "
-             "--tensor-parallel]")
+             "--tensor-parallel | --tp-train]")

@@ -36,24 +36,44 @@ which is fp32 until its one cast):
 
 * ``all_reduce_sum``: after ``wo``, after ``w_down`` or the MoE combine
   (and arctic's dense residual), once each a layer where the dim splits;
-* ``embed_lookup``: the masked lookup then ``all_reduce_sum``;
+* ``TPRank.embed_lookup``: the masked lookup then ``all_reduce_sum``;
 * ``all_gather_last``: the logits [..., V / model] to [..., V].
 
 ``MetaTPGroup`` makes none of them: it returns a tensor of the right
 shape and hands the collective's bytes (its output's size, the
 reference's convention) to ``launch.op_cost``, for the dry run.
 
+Training (``entry="train_step"``, gradients on) runs the same layers
+with Megatron's pair of autograd functions around those collectives
+(``TPRank.copy`` and ``TPRank.reduce``): "f", identity forward and
+all-reduce backward, wherever a replicated tensor enters split
+computation (the layer input before the split projections; the whole
+K and V where the query heads split and the KV heads do not; the MoE
+gates before the split combine), and "g", all-reduce forward and
+identity backward, after ``wo``, ``w_down`` and the MoE combine.  The
+masked embedding lookup's backward reaches the rank's vocabulary rows
+alone; ``all_gather_last``'s backward is the rank's slice of the
+gradient (``TPRank.gather_last``), ``split_last`` its inverse; the loss
+is vocabulary-parallel (``TPRank.nll``: the max and the exp-sum
+all-reduced, the target's logit from the rank that holds it).
+
+A group may also carry the mesh's ``data`` axis (``TPGroup(data=...)``,
+or a ``DeviceMesh`` with a ``data`` dim): an MoE layer then routes its
+dispatch groups as the reference's global program does across data
+shards (``models/moe.py``), and a train step sums its token counts,
+loss and gradients over ``data``.
+
 Not here (``check_tp_supported`` raises): gemma2's rings and split
-cache, MLA, RWKV6, zamba2, ``kv_seq`` over ``model`` in a decode step
-(sequence-parallel decode), weights split over another axis (FSDP), and
-any step with gradients on.
+cache, MLA, RWKV6, zamba2, ``kv_seq`` over ``model`` in a decode or
+train step (sequence-parallel KV), weights split over another axis
+(FSDP), and a decode step with gradients on.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,7 +86,8 @@ from repro_torch.distributed import sharding as shd
 AXIS = "model"
 # the paged slab [L, NP, ps, KVH, Dh], split as the dense cache's heads
 SLAB_AXES = ("layers", None, None, "kv_heads", None)
-ENTRIES = ("serve_step", "serve_step_paged", "prefill")
+ENTRIES = ("serve_step", "serve_step_paged", "prefill", "train_step")
+DATA = "data"
 
 
 def _model_mesh(size: int) -> shd.MeshAxes:
@@ -83,17 +104,17 @@ def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAU
     """Raise unless ``entry`` of ``cfg`` has a tensor-parallel program
     here under ``rules`` on ``mesh``: a global-causal or plainly windowed
     GQA/MQA decoder (dense MLP or MoE, an image prefix or codebooks),
-    its weights split over ``model`` alone, no gradients, and for a
-    decode step KV not split along the sequence (a prefill returns the
-    rank's block of its cache whatever splits it)."""
+    its weights split over ``model`` alone, gradients only in a train
+    step, and for a decode or train step KV not split along the
+    sequence (a prefill returns the rank's block of its cache whatever
+    splits it)."""
     from repro_torch.models import transformer as tf
     if entry not in ENTRIES:
-        raise ValueError(f"no tensor-parallel program for {entry!r}: "
-                         f"serve steps only ({', '.join(ENTRIES)})")
-    if grad:
-        raise ValueError("tensor-parallel steps run without gradients "
-                         "(torch.no_grad): tensor-parallel training is not "
-                         "ported")
+        raise ValueError(f"no tensor-parallel program for {entry!r} "
+                         f"({', '.join(ENTRIES)})")
+    if grad and entry != "train_step":
+        raise ValueError(f"a tensor-parallel {entry} runs without gradients "
+                         "(torch.no_grad); gradients belong to train_step")
     kind = tf.family_kind(cfg)
     why = None
     if kind != "attn":
@@ -118,7 +139,7 @@ def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAU
     if m > 1 and AXIS in shd._mesh_axes(sizes, rules.get("kv_seq")):
         if entry != "prefill":
             raise ValueError("kv_seq over the model axis is sequence-parallel "
-                             "decode, which has no program")
+                             "KV (decode or training), which has no program")
         if cfg.num_kv_heads % m == 0:
             raise ValueError("a prefill cache split along the sequence from "
                              "K/V split along the heads needs an all-to-all, "
@@ -155,6 +176,17 @@ class TPLayout:
     def block(self, name: str) -> Tuple[slice, ...]:
         return shd.local_block(self.specs[name], self.shapes[name],
                                _model_mesh(self.size), (self.rank,))
+
+    def split_dim(self, name: str) -> Optional[int]:
+        """The dim of parameter ``name`` split over the ranks, or None
+        where every rank holds it whole."""
+        dims = [d for d, e in enumerate(self.specs[name]) if e is not None]
+        return dims[0] if dims and self.size > 1 else None
+
+    @property
+    def split_names(self) -> Tuple[str, ...]:
+        """The parameters split over the ranks (their blocks differ)."""
+        return tuple(n for n in self.shapes if self.split_dim(n) is not None)
 
     # the ranges the layers read (None: whole on every rank)
     @property
@@ -222,40 +254,46 @@ def local_kv_heads(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT
     return cfg.num_kv_heads // model_size(mesh) if split else cfg.num_kv_heads
 
 
-class _Collectives:
-    """The embedding's collective, made of the other two."""
-
-    def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
-                     lo: int) -> torch.Tensor:
-        """Rows ``tokens`` (global ids) of a table whose rank block holds
-        rows [lo, lo + n): ``masked_lookup``, then ``all_reduce_sum``;
-        each row is one rank's, so the sum is exact."""
-        return self.all_reduce_sum(masked_lookup(table, tokens, lo))
-
-
-class TPGroup(_Collectives):
+class TPGroup:
     """The ``model`` axis's process group: a ``DeviceMesh``'s ``model``
-    dim (``TPGroup(mesh=...)``) or a plain group (``TPGroup(group)``,
-    default the world), its rank and size, and the three collectives the
-    tensor-parallel steps make.  A CUDA tensor goes to the backend as it
-    is (gloo included: no copy through the host here, and none when a
-    backend refuses one).  ``timed`` adds each collective's host seconds
-    (the device synchronized before it starts and after it ends) to
-    ``seconds``; ``calls`` counts them."""
+    dim (``TPGroup(mesh=...)``, its ``data`` dim too where it has one)
+    or a plain group (``TPGroup(group)``, default the world), its rank
+    and size, and the collectives the tensor-parallel steps make.
+    ``data``: the process group of the mesh's ``data`` axis through this
+    rank (None: a ``data`` axis of one), which an MoE layer routes over
+    and a train step reduces over.  A CUDA tensor goes to the backend
+    as it is (gloo included: no copy through the host here, and none
+    when a backend refuses one).  ``timed`` adds each collective's host
+    seconds (the device synchronized before it starts and after it
+    ends) to ``seconds``; ``calls`` counts those over ``model`` and
+    ``data_calls`` those over ``data``."""
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None, *,
-                 mesh=None, timed: bool = False):
+                 mesh=None, data: Optional[dist.ProcessGroup] = None,
+                 timed: bool = False):
         if mesh is not None:
             group = mesh.get_group(AXIS)
+            if DATA in (mesh.mesh_dim_names or ()):
+                data = mesh.get_group(DATA)
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.data = data
+        self.data_rank = dist.get_rank(data) if data is not None else 0
+        self.data_size = dist.get_world_size(data) if data is not None else 1
         self.timed = timed
         self.seconds = 0.0
         self.calls = 0
+        self.data_calls = 0
 
-    def _begin(self, x: torch.Tensor) -> float:
-        self.calls += 1
+    def _pg(self, axis: str):
+        return self.group if axis == AXIS else self.data
+
+    def _begin(self, x: torch.Tensor, axis: str) -> float:
+        if axis == AXIS:
+            self.calls += 1
+        else:
+            self.data_calls += 1
         if not self.timed:
             return 0.0
         if x.is_cuda:
@@ -268,30 +306,50 @@ class TPGroup(_Collectives):
                 torch.cuda.synchronize(x.device)
             self.seconds += time.perf_counter() - t0
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``x``, in place; returns ``x``."""
-        t0 = self._begin(x)
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+    def all_reduce_sum(self, x: torch.Tensor, axis: str = AXIS) -> torch.Tensor:
+        """The sum of every rank's ``x`` over ``axis``, in place; returns
+        ``x``."""
+        t0 = self._begin(x, axis)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._pg(axis))
         self._end(x, t0)
         return x
 
-    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` [..., n] joined in rank order along the last
-        dim: [..., n * size]."""
-        t0 = self._begin(x)
+    def all_reduce_max(self, x: torch.Tensor, axis: str = AXIS) -> torch.Tensor:
+        """The elementwise max of every rank's ``x``, in place."""
+        t0 = self._begin(x, axis)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self._pg(axis))
+        self._end(x, t0)
+        return x
+
+    def _gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        t0 = self._begin(x, axis)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
-        out = torch.cat(parts, dim=-1)
+        n = self.size if axis == AXIS else self.data_size
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._pg(axis))
+        out = torch.cat(parts, dim=dim)
         self._end(out, t0)
         return out
+
+    def all_gather_last(self, x: torch.Tensor, axis: str = AXIS
+                        ) -> torch.Tensor:
+        """Every rank's ``x`` [..., n] joined in rank order along the last
+        dim: [..., n * size]."""
+        return self._gather(x, axis, -1)
+
+    def all_gather_first(self, x: torch.Tensor, axis: str = DATA
+                         ) -> torch.Tensor:
+        """Every rank's ``x`` [n, ...] joined in rank order along the first
+        dim (the ``data`` axis by default): [n * size, ...]."""
+        return self._gather(x, axis, 0)
 
 
 def masked_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
                   ) -> torch.Tensor:
     """``table`` [n, d] (or [c, n, d] with ``tokens`` [..., c]: one table a
     codebook, giving [..., c, d]) at the rows of ``tokens`` - lo that
-    fall in [0, n), zeros elsewhere."""
+    fall in [0, n), zeros elsewhere (so backward reaches only those
+    rows)."""
     n = table.shape[-2]
     local = tokens.long() - lo
     ok = (local >= 0) & (local < n)
@@ -305,46 +363,221 @@ def masked_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
                                                         device=rows.device))
 
 
-class MetaTPGroup(_Collectives):
-    """A ``TPGroup`` of ``size`` ranks that makes no call: each
-    collective returns a tensor of its result's shape (an all-reduce its
-    input) and hands its bytes, the output's size as the reference
-    counts a collective, to ``launch.op_cost.collective`` under the
-    ``model`` axis."""
+class MetaTPGroup:
+    """A ``TPGroup`` of ``size`` ranks (and a ``data`` axis of
+    ``data_size``) that makes no call: each collective returns a tensor
+    of its result's shape (an all-reduce its input) and hands its bytes,
+    the output's size as the reference counts a collective, to
+    ``launch.op_cost.collective`` under its axis (``data`` ones under
+    ``data_axis``, the mesh axes the batch crosses, "pod+data" on a
+    multi-pod mesh); backward's collectives are counted as they run."""
 
-    def __init__(self, size: int, rank: int = 0):
+    def __init__(self, size: int, rank: int = 0, data_size: int = 1,
+                 data_axis: str = DATA):
         self.size, self.rank = size, rank
-        self.seconds, self.calls, self.timed = 0.0, 0, False
+        self.data, self.data_rank, self.data_size = None, 0, data_size
+        self.data_axis = data_axis
+        self.seconds, self.calls, self.data_calls, self.timed = 0.0, 0, 0, False
 
-    def _count(self, kind: str, out: torch.Tensor) -> None:
+    def _count(self, kind: str, out: torch.Tensor, axis: str) -> None:
         from repro_torch.launch import op_cost
-        self.calls += 1
-        op_cost.collective(AXIS, kind, float(out.numel()) * out.element_size())
+        if axis == AXIS:
+            self.calls += 1
+        else:
+            self.data_calls += 1
+            axis = self.data_axis
+        op_cost.collective(axis, kind, float(out.numel()) * out.element_size())
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        self._count("all-reduce", x)
+    def all_reduce_sum(self, x: torch.Tensor, axis: str = AXIS) -> torch.Tensor:
+        self._count("all-reduce", x, axis)
         return x
 
-    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.new_empty(tuple(x.shape[:-1]) + (x.shape[-1] * self.size,))
-        self._count("all-gather", out)
+    all_reduce_max = all_reduce_sum
+
+    def all_gather_last(self, x: torch.Tensor, axis: str = AXIS
+                        ) -> torch.Tensor:
+        n = self.size if axis == AXIS else self.data_size
+        out = x.new_empty(tuple(x.shape[:-1]) + (x.shape[-1] * n,))
+        self._count("all-gather", out, axis)
+        return out
+
+    def all_gather_first(self, x: torch.Tensor, axis: str = DATA
+                         ) -> torch.Tensor:
+        n = self.size if axis == AXIS else self.data_size
+        out = x.new_empty((x.shape[0] * n,) + tuple(x.shape[1:]))
+        self._count("all-gather", out, axis)
         return out
 
 
 Group = Union[TPGroup, MetaTPGroup]
 
 
+class _Copy(torch.autograd.Function):
+    """Megatron's "f": identity forward, the gradient all-reduced over
+    ``axis`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce_sum(
+            g.clone(memory_format=torch.contiguous_format), ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's "g": all-reduce over ``axis`` forward, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        return group.all_reduce_sum(x.clone(memory_format=torch.contiguous_format),
+                                    axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather along the last dim over ``model``; backward the rank's
+    slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return group.all_gather_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.group.rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+class _SplitLast(torch.autograd.Function):
+    """The rank's slice of a replicated tensor's last dim (a copy, so the
+    whole tensor can be freed); backward all-gathers the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = x.shape[-1] // group.size
+        return x[..., group.rank * n:(group.rank + 1) * n].clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather_last(g.contiguous()), None
+
+
+def _vocab_nll(logits: torch.Tensor, labels: torch.Tensor, lo: int, group):
+    """fp32 per-token NLL of logits whose last dim is the rank's vocabulary
+    columns [lo, lo + n): the max and the exp-sum all-reduced over
+    ``model`` (``log(sum(exp(l - max))) + max``, as the reference's
+    ``logsumexp``), the target's logit taken by the rank that holds it
+    and summed.  Returns (nll, the rank's softmax columns, the targets'
+    local columns [..., 1], whether the rank holds each target)."""
+    n = logits.shape[-1]
+    m = group.all_reduce_max(logits.detach().amax(dim=-1))
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - m[..., None])
+    s = group.all_reduce_sum(e.sum(dim=-1))
+    local = labels.long() - lo
+    ok = (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1)[..., None]
+    gold = torch.where(ok, logits.gather(-1, idx)[..., 0],
+                       torch.zeros((), dtype=logits.dtype, device=logits.device))
+    gold = group.all_reduce_sum(gold.contiguous())
+    return torch.log(s) + m - gold, e.div_(s[..., None]), idx, ok
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """``_vocab_nll`` with its backward, (softmax - onehot) x grad on the
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        nll, sm, idx, ok = _vocab_nll(logits, labels, lo, group)
+        ctx.save_for_backward(sm, idx, ok)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        sm, idx, ok = ctx.saved_tensors
+        grad = sm * g[..., None]
+        grad.scatter_add_(-1, idx, -(g * ok)[..., None].to(grad.dtype))
+        return grad, None, None, None
+
+
 @dataclass(frozen=True)
 class TPRank:
-    """What the layers read on a rank: its ``layout`` and its ``group``."""
+    """What the layers read on a rank: its ``layout`` and its ``group``.
+    Each collective is the plain in-place call without gradients, and an
+    autograd function (``_Copy``, ``_Reduce``, ...) where its input takes
+    one."""
 
     layout: TPLayout
     group: Group
+    # the step's batch is this rank's shard of one split over ``data`` (a
+    # paged step's is its data replica's own)
+    batch_over_data: bool = True
 
-    def reduce(self, x: torch.Tensor, split) -> torch.Tensor:
-        """``x`` all-reduced where ``split`` (the contracted dim is split
-        over the ranks), else ``x``."""
-        return self.group.all_reduce_sum(x) if split else x
+    @property
+    def data_size(self) -> int:
+        """The ``data`` shards the step's batch is split over."""
+        return self.group.data_size if self.batch_over_data else 1
+
+    def reduce(self, x: torch.Tensor, split, axis: str = AXIS) -> torch.Tensor:
+        """Megatron's "g": ``x`` all-reduced where ``split`` (the
+        contracted dim is split over the ranks), else ``x``."""
+        if not split:
+            return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Reduce.apply(x, self.group, axis)
+        return self.group.all_reduce_sum(x, axis)
+
+    def copy(self, x: torch.Tensor, split=True, axis: str = AXIS
+             ) -> torch.Tensor:
+        """Megatron's "f": ``x`` as it is, its gradient all-reduced where
+        ``split`` (``x`` is replicated and enters split computation)."""
+        if split and torch.is_grad_enabled() and x.requires_grad:
+            return _Copy.apply(x, self.group, axis)
+        return x
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` [..., n] joined along the last dim;
+        backward the rank's slice."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _GatherLast.apply(x, self.group)
+        return self.group.all_gather_last(x)
+
+    def split_last(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's 1 / size of a replicated ``x``'s last dim;
+        backward all-gathers."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _SplitLast.apply(x, self.group)
+        n = x.shape[-1] // self.group.size
+        return x[..., self.group.rank * n:(self.group.rank + 1) * n].clone(
+            memory_format=torch.contiguous_format)
+
+    def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
+                     lo: int) -> torch.Tensor:
+        """Rows ``tokens`` (global ids) of a table whose rank block holds
+        rows [lo, lo + n): ``masked_lookup``, then "g"; each row is one
+        rank's, so the sum is exact."""
+        return self.reduce(masked_lookup(table, tokens, lo), True)
+
+    def nll(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """fp32 per-token NLL of the rank's logit columns (its block of
+        the unembedding's vocabulary) against global ``labels``
+        (``_VocabParallelNLL``)."""
+        lo = self.layout.unembed_vocab[0]
+        logits = logits.float()
+        if torch.is_grad_enabled() and logits.requires_grad:
+            return _VocabParallelNLL.apply(logits, labels, lo, self.group)
+        return _vocab_nll(logits, labels, lo, self.group)[0]
 
 
 def bind(model, tp: Optional[Group], entry: str) -> Optional[TPRank]:
@@ -363,7 +596,7 @@ def bind(model, tp: Optional[Group], entry: str) -> Optional[TPRank]:
                          f"{layout.rank} of {layout.size}")
     check_tp_supported(model.cfg, _model_mesh(layout.size), layout.rules,
                        entry=entry, grad=torch.is_grad_enabled())
-    return TPRank(layout, tp)
+    return TPRank(layout, tp, batch_over_data=entry != "serve_step_paged")
 
 
 def prefill_block(layout: TPLayout, cache: Dict[str, torch.Tensor]
@@ -464,3 +697,46 @@ def gather_cache(cache, cfg: ArchConfig, tp: TPGroup):
                           page_size=cache.page_size, free=list(cache.free))
     axes = tf.cache_axes(cfg, any(n.endswith("_scale") for n in cache))
     return {n: whole(t, axes[n].index("kv_heads")) for n, t in cache.items()}
+
+
+def shard_tree(tree: Mapping[str, object], layout: TPLayout, *,
+               device: DeviceLike = "cuda",
+               dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A rank's blocks of whole arrays keyed by parameter name (tensors or
+    numpy: gradients, or AdamW's moments, whose blocks follow their
+    parameters' as the reference's ``opt_shardings`` do), copied to
+    ``device`` in ``dtype`` (None: each array's own)."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in tree.items():
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        t = t[layout.block(name)]
+        out[name] = t.to(device=dev, dtype=dtype or t.dtype,
+                         copy=True).contiguous()
+    return out
+
+
+def shard_opt_state(state: Mapping[str, object], layout: TPLayout, *,
+                    device: DeviceLike = "cuda") -> Dict[str, object]:
+    """A rank's block of an AdamW state {"m", "v" (whole arrays by
+    parameter name, ``shard_tree``), "step"}."""
+    dev = resolve_device(device)
+    step = state["step"]
+    step = step if isinstance(step, torch.Tensor) else torch.tensor(int(step))
+    return {"m": shard_tree(state["m"], layout, device=dev),
+            "v": shard_tree(state["v"], layout, device=dev),
+            "step": step.to(device=dev, dtype=torch.int32).clone()}
+
+
+def gather_tree(blocks: Mapping[str, torch.Tensor], layout: TPLayout,
+                tp: "TPGroup") -> Dict[str, torch.Tensor]:
+    """``shard_tree``'s inverse over the ``model`` axis: each split
+    block all-gathered along its split dim (whole ones as they are), for
+    tests and checkpoints."""
+    out = {}
+    for name, t in blocks.items():
+        d = layout.split_dim(name)
+        t = t.detach()
+        out[name] = t if d is None else tp.all_gather_last(
+            t.movedim(d, -1)).movedim(-1, d).contiguous()
+    return out

@@ -11,15 +11,18 @@ each cell is planned from shapes and traced on meta tensors
     every parameter, AdamW moment (bf16 past 100e9 parameters, the
     reference's ``default_opt_cfg``), cache and batch tensor under the
     cell's rules, as the reference's ``input_specs`` shards them;
-  * a serve cell (``prefill``, ``serve_step``) whose program
-    ``tensor_parallel`` has (``check_tp_supported``: the GQA/MQA/MoE
-    decoders, weights over ``model`` alone, no sequence-parallel
-    decode) traces ONE RANK's program at the cell's ``model`` size:
-    ``shard_model`` of a meta model (rank 0's blocks), its cache block,
-    and a ``MetaTPGroup`` that counts each collective's bytes (its
-    output's size, the reference's convention); the card's temporaries
-    are that trace's peak less its arguments, and its collectives go to
-    the ``model`` axis;
+  * a cell whose program ``tensor_parallel`` has
+    (``check_tp_supported``: the GQA/MQA/MoE decoders, weights over
+    ``model`` alone, no sequence-parallel KV; a train cell under
+    ``RULES_DEFAULT``, as the hillclimb's ``"rules": "default"``
+    variants ask) traces ONE RANK's program at the cell's ``model``
+    size: ``shard_model`` of a meta model (rank 0's blocks), its cache
+    block or its moments' blocks, and a ``MetaTPGroup`` that counts
+    each collective's bytes (its output's size, the reference's
+    convention), forward and backward; the card's temporaries are that
+    trace's peak less its arguments, and its collectives go to the
+    ``model`` axis and, for a train step (the loss's sums, an MoE
+    layer's routing, the gradients' all-reduce), the batch's axes;
   * elsewhere temporaries a card are an ESTIMATE: the ``op_cost`` peak,
     less the arguments, of one card's batch shard (the global batch over
     ``data`` x ``pod``), traced at ``model`` = 1 and divided by the
@@ -34,9 +37,12 @@ each cell is planned from shapes and traced on meta tensors
 A training cell runs the reference's step: ``make_loss_fn`` (remat in
 groups of ``remat_group`` = 1, attention chunks of 1024) over ``accum``
 microbatches (16 past 100e9 parameters, else 4; a card runs min(accum,
-its rows) microbatches), then ``adamw_update``.  Every microbatch does
-the same work, so a trace runs one (from live gradients when there are
-more) and counts it that many times.  A prefill cell halves its batch
+its rows) microbatches), then ``adamw_update``; a tensor-parallel one
+runs ``train_loop.tp_microbatch`` and ``tp_update`` instead, with the
+reference's ``act_spec`` unless the variant's ``act_mode`` is "none".
+Every microbatch does the same work, so a trace runs one (from live
+gradients when there are more) and counts it, and its collectives,
+that many times.  A prefill cell halves its batch
 until it fits 80 GB, recorded as ``wave_batch`` / ``num_waves``.
 
 Results are cached as JSON under experiments/dryrun_h100/<mesh>/, so
@@ -77,7 +83,8 @@ from repro_torch.launch.mesh import (make_production_mesh, mesh_chip_count,
 from repro_torch.models import transformer as tf
 from repro_torch.training.optimizer import (OptConfig, adamw_update,
                                             init_opt_state)
-from repro_torch.training.train_loop import make_loss_fn
+from repro_torch.training.train_loop import (make_loss_fn, tp_microbatch,
+                                             tp_update)
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_h100")
@@ -94,8 +101,9 @@ TEMP_NOTE = ("estimate: the op_cost peak less the arguments of one card's "
 TP_TEMP_NOTE = ("the op_cost peak less the arguments of one rank's "
                 "tensor-parallel program (tensor_parallel) on its batch "
                 "shard, traced at the cell's model size")
-ACT_SKIP = ("act_mode sets or drops act_spec (activation sharding inside "
-            "the layers), which waits for tensor parallelism")
+ACT_SKIP = ("act_mode sets or drops act_spec under FSDP rules, which have "
+            "no program here (weights sharded beyond the model axis wait "
+            "for FSDP)")
 
 # (shape, dtype, spec) of one argument tensor
 Leaf = Tuple[Tuple[int, ...], torch.dtype, shd.Spec]
@@ -153,14 +161,16 @@ def batch_spec(mesh, rules: shd.Rules, ndim: int, batch: int) -> shd.Spec:
 
 def input_specs(cfg: ArchConfig, suite: ShapeSuite, mesh, rules: shd.Rules,
                 *, opt_cfg: Optional[OptConfig] = None,
-                kv_quant: bool = False) -> Dict[str, Dict[str, Leaf]]:
+                kv_quant: bool = False,
+                param_dtype: torch.dtype = torch.bfloat16,
+                ) -> Dict[str, Dict[str, Leaf]]:
     """Every entry-point input as (shape, dtype, spec), by group:
     "params", and "opt_state" + "batch" (train), "inputs" (prefill and
     serve), "cache" (serve), as the reference's ``input_specs``."""
     B, S = suite.global_batch, suite.seq_len
     pshapes = tf.param_shapes(cfg)
     pspecs = shd.tree_shardings(tf.param_axes(cfg), pshapes, mesh, rules)
-    out = {"params": {n: (s, torch.bfloat16, pspecs[n])
+    out = {"params": {n: (s, param_dtype, pspecs[n])
                       for n, s in pshapes.items()}}
     fe = cfg.frontend
     nc = tf.codebooks(cfg)
@@ -265,13 +275,14 @@ def _trace(fn, args) -> Dict[str, float]:
 
 
 def _train_trace(cfg: ArchConfig, opt_cfg: OptConfig, batch: Dict[str, Any],
-                 accum: int, kw: Dict[str, int]) -> Dict[str, float]:
+                 accum: int, kw: Dict[str, int],
+                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, float]:
     """The train step on ``batch``: min(accum, rows) microbatches of
     loss and backward, then AdamW.  Every microbatch does the same work,
     so one is traced and counted that many times; past the first, the
     gradients are live from its start, so with more than one the traced
     microbatch starts from live gradients (its peak is the step's)."""
-    model = op_cost.meta_model(cfg, trainable=True)
+    model = op_cost.meta_model(cfg, dtype, trainable=True)
     params = dict(model.named_parameters())
     state = init_opt_state(params, opt_cfg)
     loss_fn = make_loss_fn(cfg, **kw)
@@ -297,15 +308,56 @@ def _train_trace(cfg: ArchConfig, opt_cfg: OptConfig, batch: Dict[str, Any],
             "microbatches": n, "coll": counter.coll}
 
 
+def _tp_train_trace(cfg: ArchConfig, opt_cfg: OptConfig,
+                    batch: Dict[str, Any], accum: int, kw: Dict[str, Any],
+                    mesh, rules: shd.Rules, act_spec: bool,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, float]:
+    """Rank 0's tensor-parallel train step at ``mesh``'s ``model`` size
+    on its ``batch`` rows: min(accum, rows) microbatches of
+    ``tp_microbatch``, then ``tp_update``; one microbatch traced and
+    counted that many times, as ``_train_trace``, its collectives too."""
+    m = tpm.model_size(mesh)
+    sizes = shd._sizes(mesh)
+    axes = [a for a in shd._entry_axes(rules["batch"]) if sizes.get(a, 1) > 1]
+    group = tpm.MetaTPGroup(m, data_size=math.prod(sizes[a] for a in axes),
+                            data_axis="+".join(axes) or tpm.DATA)
+    model = tpm.shard_model(op_cost.meta_model(cfg, dtype), cfg,
+                            shd.MeshAxes(("model",), (m,)), rules, rank=0,
+                            device="meta").set_trainable()
+    params = dict(model.named_parameters())
+    state = init_opt_state(params, opt_cfg)
+    B = next(iter(batch.values())).shape[0]
+    mb = max(B // accum, 1)
+    n = B // mb
+    counter = op_cost.OpCounter()
+    counter.track((model, state, batch))
+    held = counter.live
+    with counter:
+        if n > 1:
+            for p in params.values():
+                p.grad = torch.zeros_like(p)
+        tp_microbatch(model, {k: v[:mb] for k, v in batch.items()}, group,
+                      act_spec=act_spec, **kw)
+        f_mb, b_mb = counter.flops, counter.bytes
+        c_mb = {a: dict(k) for a, k in counter.coll.items()}
+        tp_update(model, state, opt_cfg, group, n)
+    coll = {a: {k: v + (n - 1) * c_mb.get(a, {}).get(k, 0.0)
+                for k, v in by.items()} for a, by in counter.coll.items()}
+    return {"flops": counter.flops + (n - 1) * f_mb,
+            "bytes": counter.bytes + (n - 1) * b_mb,
+            "peak_bytes": counter.peak, "args_bytes": held, "out_bytes": 0.0,
+            "microbatches": n, "coll": coll}
+
+
 def tp_program(cfg: ArchConfig, suite: ShapeSuite, mesh, rules: shd.Rules
                ) -> Optional[str]:
-    """None where the cell has a tensor-parallel program to trace (a
-    serve cell that ``check_tp_supported`` takes, ``model`` > 1), else
-    why not."""
+    """None where the cell has a tensor-parallel program to trace (a cell
+    that ``check_tp_supported`` takes, ``model`` > 1), else why not."""
     if tpm.model_size(mesh) == 1:
         return "model = 1"
     try:
-        tpm.check_tp_supported(cfg, mesh, rules, entry=suite.entry)
+        tpm.check_tp_supported(cfg, mesh, rules, entry=suite.entry,
+                               grad=suite.entry == "train_step")
     except ValueError as e:
         return str(e)
     return None
@@ -315,17 +367,23 @@ def trace_cell(cfg: ArchConfig, suite: ShapeSuite, specs, batch: int, *,
                opt_cfg: OptConfig, accum: int, kv_quant: bool,
                attn_chunk: int, loss_chunk: int, remat_group: int,
                tp: Optional[Tuple[Any, shd.Rules]] = None,
+               act_spec: bool = True,
                ) -> Dict[str, float]:
     """The cell's entry point traced on meta tensors at ``batch`` rows:
     the whole model on one card (``model`` = 1), or with ``tp`` = (mesh,
     rules) rank 0's tensor-parallel program at the mesh's ``model`` size
-    (its blocks, its cache block, a ``MetaTPGroup``)."""
+    (its blocks, its cache block or moments' blocks, a
+    ``MetaTPGroup``; a train step with ``act_spec``)."""
+    dtype = next(iter(specs["params"].values()))[1]
     if suite.entry == "train_step":
-        return _train_trace(cfg, opt_cfg, _meta_inputs(specs["batch"], batch),
-                            accum, dict(attn_chunk=attn_chunk, remat=True,
-                                        remat_group=remat_group,
-                                        loss_chunk=loss_chunk))
-    model, kw, kv_heads = op_cost.meta_model(cfg), {}, None
+        rows = _meta_inputs(specs["batch"], batch)
+        kw = dict(attn_chunk=attn_chunk, remat=True, remat_group=remat_group,
+                  loss_chunk=loss_chunk)
+        if tp is not None:
+            return _tp_train_trace(cfg, opt_cfg, rows, accum, kw, *tp,
+                                   act_spec=act_spec, dtype=dtype)
+        return _train_trace(cfg, opt_cfg, rows, accum, kw, dtype)
+    model, kw, kv_heads = op_cost.meta_model(cfg, dtype), {}, None
     if tp is not None:
         mesh, rules = tp
         m = tpm.model_size(mesh)
@@ -384,15 +442,18 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                  cfg: Optional[ArchConfig] = None,
                  suite: Optional[ShapeSuite] = None,
                  attn_chunk: int = 1024, loss_chunk: int = 512,
-                 remat_group: int = 1) -> Dict[str, Any]:
+                 remat_group: int = 1,
+                 param_dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """One cell's plan (the counterpart of the reference's
     ``compile_cell``): the reference's keys, ``fits_80gb`` for
     ``fits_16gb``.  ``mesh`` (a ``MeshAxes``), ``cfg`` and ``suite``
     override the production mesh, the registered config and shape
-    (tests, ``chip_smoke.py``'s prediction of its own runs); ``variant``
+    (tests, ``chip_smoke.py``'s prediction of its own runs), and
+    ``param_dtype`` the weights' bf16 (an fp32 run's); ``variant``
     takes the hillclimb knobs (``accum``, ``moe_group``, ``split_cache``,
-    ``kv_quant``, ``rules``, ``moment_bf16``; ``act_mode`` is refused as
-    skipped)."""
+    ``kv_quant``, ``rules``, ``moment_bf16``, ``act_mode``: "none" drops
+    a tensor-parallel train step's ``act_spec``; under FSDP rules, which
+    have no program, an ``act_mode`` variant is skipped)."""
     variant = dict(variant or {})
     cfg = apply_variant(cfg or get_arch(arch), variant)
     suite = suite or get_shape(shape)
@@ -405,8 +466,11 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     res: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mname,
                            "rules": rules_override or "auto",
                            "variant": variant}
+    fsdp = any(a != "model" and a in shd._sizes(mesh) for a in
+               shd._entry_axes(rules_for(cfg, suite, mesh, rules_override)
+                               .get("embed")))
     skip = suite.skip_reason(cfg) or (ACT_SKIP if "act_mode" in variant
-                                      else None)
+                                      and fsdp else None)
     if skip:
         res["status"] = "skipped"
         res["skip_reason"] = skip
@@ -419,13 +483,14 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     kv_quant = bool(variant.get("kv_quant"))
     kw = dict(opt_cfg=opt_cfg, accum=accum, kv_quant=kv_quant,
               attn_chunk=attn_chunk, loss_chunk=loss_chunk,
-              remat_group=remat_group)
+              remat_group=remat_group,
+              act_spec=variant.get("act_mode", "model") != "none")
     try:
         eff, waves = suite, 1
         while True:
             rules = rules_for(cfg, eff, mesh, rules_override)
             specs = input_specs(cfg, eff, mesh, rules, opt_cfg=opt_cfg,
-                                kv_quant=kv_quant)
+                                kv_quant=kv_quant, param_dtype=param_dtype)
             args = argument_bytes(specs, mesh)
             group = specs["batch" if eff.entry == "train_step" else "inputs"]
             first = next(iter(group.values()))
@@ -448,8 +513,9 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         glob = card if b == eff.global_batch else trace_cell(
             cfg, eff, specs, eff.global_batch, **kw)
         t_glob = time.time() - t0
-        coll = dp_collectives(specs, mesh) if eff.entry == "train_step" \
-            else {}
+        # a tensor-parallel train trace counted its gradients' all-reduce
+        coll = dp_collectives(specs, mesh) if (eff.entry == "train_step"
+                                               and no_tp) else {}
         kinds = {"all-reduce": sum(coll.values())} if coll else {}
         for axis, by_kind in card["coll"].items():
             coll[axis] = coll.get(axis, 0.0) + sum(by_kind.values()) * waves

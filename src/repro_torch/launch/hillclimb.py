@@ -4,12 +4,15 @@ dry run, on the ``h100x32x8`` mesh (the reference's
 
 Each of the 15 variants of three cells goes through
 ``dryrun.dry_run_cell`` and its JSON to experiments/hillclimb_h100/.
-The knobs the port can express (``accum``, ``moe_group``,
-``split_cache``, ``kv_quant``, ``rules``, ``moment_bf16``) apply as the
-reference applies them.  ``act_mode`` sets or drops ``act_spec``,
-activation sharding inside the layers, which waits for tensor
-parallelism: those variants (both modes, each measured against the
-other) are written as ``status: "skipped"`` with that reason, never
+The knobs (``accum``, ``moe_group``, ``split_cache``, ``kv_quant``,
+``rules``, ``moment_bf16``, ``act_mode``) apply as the reference applies
+them.  ``act_mode`` sets or drops ``act_spec``, the saved residual
+stream's split over ``model`` in a tensor-parallel train step: the two
+``v5_tponly_accum4`` variants (``RULES_DEFAULT``) run, granite-moe-3b's
+as rank 0's tensor-parallel train program and gemma2-27b's as the
+``NO_TP`` estimate (no tensor-parallel program for its rings); the
+other ``act_mode`` variants keep the FSDP rules, which have no program,
+and are written as ``status: "skipped"`` with that reason, never
 dropped.  The hypotheses are the reference's, about TPU v5e pods; their
 numbers are not the port's.
 

@@ -98,13 +98,24 @@ def attn_forward(layer: Dict[str, torch.Tensor], x: torch.Tensor,
     [S] int32; ``window`` W > 0 attends to the last W positions only.
     Returns (out [B, S, d], (k, v) [B, S, KVH, Dh] for the cache, k
     rotated), as the reference's ``attn_forward``; on a rank (``tp``)
-    its heads' K/V, ``wo``'s product all-reduced where the heads split."""
+    its heads' K/V, ``wo``'s product all-reduced where the heads split.
+    With gradients on, x enters the split projections through
+    Megatron's "f" (``TPRank.copy``); where the query heads split and
+    the KV heads do not (MQA, the padded layout), x enters the whole
+    K/V projections as it is and the whole K and V get the "f" instead,
+    so ``wk`` and ``wv`` take the gradient of every rank's heads."""
     B, S, _ = x.shape
     H, KVH, Dh = layer["wq"].shape[-2], layer["wk"].shape[-2], \
         cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, layer["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, layer["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, layer["wv"])
+    heads = tp is not None and tp.layout.heads is not None
+    kv_split = tp is not None and tp.layout.kv_heads is not None
+    xq = tp.copy(x, heads) if tp is not None else x
+    xkv = xq if kv_split else x
+    q = torch.einsum("bsd,dhk->bshk", xq, layer["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xkv, layer["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xkv, layer["wv"])
+    if heads and not kv_split:      # whole K/V enter the split attention
+        k, v = tp.copy(k), tp.copy(v)
     q = apply_rope(q, positions, fraction=cfg.rope_fraction,
                    theta=cfg.rope_theta)
     k = apply_rope(k, positions, fraction=cfg.rope_fraction,

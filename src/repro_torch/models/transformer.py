@@ -424,7 +424,7 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
     nc = codebooks(cfg)
     vocab = tp.layout.vocab if tp is not None else None
     if vocab is not None:
-        rows = tp.group.embed_lookup(model.embed, tokens, vocab[0])
+        rows = tp.embed_lookup(model.embed, tokens, vocab[0])
         x = rows if not nc else rows[..., 0, :]
         for c in range(1, nc):
             x = x + rows[..., c, :]
@@ -440,31 +440,38 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
 
 
 def unembed(model: Transformer, x: torch.Tensor,
-            tp: Optional[TPRank] = None) -> torch.Tensor:
+            tp: Optional[TPRank] = None, gather: bool = True) -> torch.Tensor:
     """x: [..., d] -> logits [..., V] (an audio model's [..., codebooks,
     V]); through the embedding when tied; capped at the config's final
     logit softcap.  On a rank whose block holds part of the vocabulary,
-    its logits' columns are all-gathered from every rank."""
+    its logits' columns are all-gathered from every rank (``gather``;
+    else the rank's columns alone, x entering them through "f")."""
+    split = tp is not None and tp.layout.unembed_vocab is not None
+    if split and not gather:
+        x = tp.copy(x)
     if codebooks(model.cfg):
         logits = torch.einsum("...d,cdv->...cv", x, model.unembed)
     elif model.cfg.tie_embeddings:
         logits = x @ model.embed.T
     else:
         logits = x @ model.unembed
-    if tp is not None and tp.layout.unembed_vocab is not None:
-        logits = tp.group.all_gather_last(logits)
+    if split and gather:
+        logits = tp.gather_last(logits)
     return softcap(logits, model.cfg.final_logit_softcap)
 
 
 def _mlp(lp: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
-         tp: Optional[TPRank] = None,
+         tp: Optional[TPRank] = None, want_aux: bool = True,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's MLP or MoE on x [..., d]: (out, MoE aux loss or None);
-    on a rank, the MLP column-parallel then row-parallel, all-reduced
-    where its hidden dim splits."""
+    on a rank, the MLP column-parallel (x through "f") then row-parallel,
+    all-reduced where its hidden dim splits, and the MoE aux loss (whose
+    sums cross ``data``) only where ``want_aux``."""
     if cfg.moe is not None:   # the unsharded call keeps its three arguments
         return (moe.moe_forward(lp, x, cfg) if tp is None
-                else moe.moe_forward(lp, x, cfg, tp))
+                else moe.moe_forward(lp, x, cfg, tp, want_aux))
+    if tp is not None:
+        x = tp.copy(x, tp.layout.mlp_split)
     out = mlp_forward(lp, x, cfg.mlp_act, cfg.mlp_gated)
     if tp is not None:
         out = tp.reduce(out, tp.layout.mlp_split)
@@ -496,7 +503,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             attn_chunk: int = 1024, remat: bool = False,
             remat_group: int = 4, want_cache: bool = False,
-            tp: Optional[TPGroup] = None,
+            tp: Optional[TPGroup] = None, act_spec: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor,
                        Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence forward: tokens [B, S] (an audio model's [B, S,
@@ -526,11 +533,18 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     states as the blocks return them).
 
     ``tp``: a rank's model (``tensor_parallel.shard_model``) runs with
-    its ``model`` group, under ``torch.no_grad`` only: its layers on
-    their blocks, its cache the rank's KV heads (all of them where they
-    do not split)."""
+    its ``model`` group: its layers on their blocks, its cache the
+    rank's KV heads (all of them where they do not split); with
+    gradients on, as a train step's (Megatron's "f" and "g" around the
+    collectives, ``check_tp_supported(entry="train_step")``).
+    ``act_spec`` (with ``tp`` and ``remat``): the reference's
+    ``act_spec`` over ``model``, the residual stream saved at each remat
+    group's boundary the rank's ``d / model`` columns
+    (``TPRank.split_last``), all-gathered when the group runs and when
+    backward recomputes it; the values are the same either way."""
     cfg = model.cfg
-    tp = bind(model, tp, "prefill")
+    tp = bind(model, tp, "train_step" if torch.is_grad_enabled()
+              else "prefill")
     x = embed_tokens(model, tokens, tp)                  # [B, S, d]
     if image_embeds is not None:
         prefix = torch.einsum("bpe,ed->bpd", image_embeds.to(x.dtype),
@@ -551,15 +565,25 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     ks, vs = [], []
     if remat and not want_cache:
         g = largest_divisor(cfg.num_layers, remat_group)
+        sliced = act_spec and tp is not None and tp.layout.size > 1
+        if sliced and cfg.d_model % tp.layout.size:
+            raise ValueError(f"act_spec: d_model {cfg.d_model} does not "
+                             f"split over {tp.layout.size} ranks")
 
         def group(h, a, lps, wins):
+            if sliced:
+                h = tp.gather_last(h)
             for lp, w in zip(lps, wins):
-                h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk, w)
-            return h, a
+                h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk, w, tp)
+            return (tp.split_last(h) if sliced else h), a
 
+        if sliced:
+            x = tp.split_last(x)
         for i in range(0, cfg.num_layers, g):
             x, aux = checkpoint(group, x, aux, layers[i:i + g],
                                 windows[i:i + g], use_reentrant=False)
+        if sliced:
+            x = tp.gather_last(x)
     else:
         for lp, w in zip(layers, windows):
             x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk, w,
@@ -715,7 +739,8 @@ def _zamba2_forward(model: Transformer, x: torch.Tensor, attn_chunk: int,
 
 def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
             attn_chunk: int = 1024, remat: bool = True, remat_group: int = 4,
-            loss_chunk: int = 512,
+            loss_chunk: int = 512, tp: Optional[TPGroup] = None,
+            act_spec: bool = False,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean LM loss of ``batch`` {"tokens", "labels"} [B, S] (an
     audio model's [B, S, codebooks]), an optional "loss_mask" [B, S] and
@@ -727,19 +752,34 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
     ``torch.utils.checkpoint``, so backward recomputes its [B, c, V]
     logits and the whole sequence's are never kept, as the reference's
     ``loss_fn`` does.  Returns (loss = ce + the MoE aux loss, {"ce",
-    "aux", "tokens"}), all fp32 scalars."""
+    "aux", "tokens"}), all fp32 scalars.
+
+    ``tp``: a rank's model with its group (``forward``, ``act_spec``
+    too).  Where the rank holds part of the unembedding's vocabulary,
+    the loss is vocabulary-parallel over the rank's logit columns within
+    each chunk (``TPRank.nll``), the [B, c, V] logits never gathered.
+    With a ``data`` axis the batch is this shard's rows of the global
+    one: the token count is summed over ``data`` and the NLL sum through
+    "g" (all-reduce forward, identity backward), so every shard returns
+    the global batch's loss and backward reaches its own tokens."""
     labels, mask = batch["labels"], batch.get("loss_mask")
     image_embeds = batch.get("image_embeds")
     x, aux, _ = forward(model, batch["tokens"], image_embeds=image_embeds,
                         attn_chunk=attn_chunk, remat=remat,
-                        remat_group=remat_group)
+                        remat_group=remat_group, tp=tp, act_spec=act_spec)
+    rank = bind(model, tp, "train_step" if torch.is_grad_enabled()
+                else "prefill")
+    vocab_split = rank is not None and rank.layout.unembed_vocab is not None
     if image_embeds is not None:
         x = x[:, image_embeds.shape[1]:]        # the loss on text positions
     S = x.shape[1]
     c = S // largest_divisor(S, max(S // loss_chunk, 1))
 
     def chunk_loss(xc, lc, mc):
-        nll = token_nll(unembed(model, xc), lc)
+        if vocab_split:
+            nll = rank.nll(unembed(model, xc, rank, gather=False), lc)
+        else:
+            nll = token_nll(unembed(model, xc, rank), lc)
         if nll.dim() == 3:                      # audio: [B, c, codebooks]
             nll = nll.mean(-1)
         return torch.sum(nll * mc), torch.sum(mc)
@@ -753,6 +793,9 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
         t, n = checkpoint(chunk_loss, x[:, i:i + c], lc, mc,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + n
+    if rank is not None and rank.data_size > 1:
+        cnt = rank.group.all_reduce_sum(cnt.detach(), "data")
+        tot = rank.reduce(tot, True, "data")
     ce = tot / torch.clamp(cnt, min=1.0)
     return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
@@ -913,7 +956,7 @@ def _decode(model: Transformer, tokens: torch.Tensor,
         lp = model.layer(l)
         h = h + attend(l, lp, rms_norm(h, lp["attn_norm"], cfg.norm_eps))
         m_out, _ = _mlp(lp, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), cfg,
-                        tp)
+                        tp, want_aux=False)
         h = h + m_out
     return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps), tp)
 

@@ -13,14 +13,16 @@ each tensor is split along its first dim into pieces of at most
 ``PIECE`` elements (one layer of a stacked ``[L, ...]`` parameter), so
 the fp32 scratch stays one layer big where an fp32 copy of Llama-3-8B's
 stacked MLP weight alone would take 7.5 GB.  ``global_norm`` sums the
-same pieces.
+same pieces; ``sharded_global_norm`` is the same norm over a
+tensor-parallel rank's blocks.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Mapping, Tuple, Union
+from typing import (Callable, Collection, Dict, Iterable, List, Mapping,
+                    Optional, Tuple, Union)
 
 import torch
 
@@ -77,29 +79,52 @@ def pieces(t: torch.Tensor) -> List[torch.Tensor]:
     return list(t.split(max(1, PIECE // (t.numel() // t.shape[0]))))
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
+def _sum_squares(tensors: Iterable[torch.Tensor]) -> Optional[torch.Tensor]:
     total = None
     for t in tensors:
         for piece in pieces(t):
             sq = torch.sum(torch.square(piece.float()))
             total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return torch.sqrt(_sum_squares(tensors))
+
+
+def sharded_global_norm(grads: Mapping[str, torch.Tensor],
+                        split: Collection[str],
+                        reduce: Callable[[torch.Tensor], torch.Tensor],
+                        ) -> torch.Tensor:
+    """``global_norm`` of the whole tree when each rank of a group holds
+    the blocks ``grads``: the squares of the blocks named in ``split``
+    (parameters split over the group) summed over the ranks by
+    ``reduce`` (an all-reduce), every other tensor (replicated, the same
+    on every rank) counted once."""
+    dev = next(iter(grads.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    part = _sum_squares(g for n, g in grads.items() if n in split)
+    whole = _sum_squares(g for n, g in grads.items() if n not in split)
+    total = reduce(zero + (part if part is not None else zero))
+    return torch.sqrt(total + (whole if whole is not None else zero))
 
 
 def adamw_update(params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: Dict[str, object],
-                 cfg: OptConfig,
+                 cfg: OptConfig, grad_norm: Optional[torch.Tensor] = None,
                  ) -> Tuple[Mapping[str, torch.Tensor], Dict[str, object],
                             Dict[str, torch.Tensor]]:
     """One AdamW step, the reference's arithmetic, IN PLACE: the
     parameters and ``state``'s moments are overwritten and its step
-    advanced.  Gradients are clipped to a global norm of ``grad_clip``.
-    Returns (params, state, {"lr", "grad_norm"}) — the same objects, so
-    the call reads as the reference's."""
+    advanced.  Gradients are clipped to a global norm of ``grad_clip``
+    (``grad_norm`` where given: a rank's blocks' ``sharded_global_norm``;
+    the update stays elementwise on the blocks).  Returns (params, state,
+    {"lr", "grad_norm"}) — the same objects, so the call reads as the
+    reference's."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values()) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     bc1 = 1.0 - cfg.b1 ** step.float()
     bc2 = 1.0 - cfg.b2 ** step.float()

@@ -5,11 +5,18 @@ in place of ``jax.value_and_grad`` and the update in place:
 * ``make_manual_dp_train_step``: its explicit-collective data-parallel
   step over a ``torch.distributed`` process group: each rank's slice of
   the global batch, then an all-reduce of the gradients, averaged or
-  int8-compressed with error feedback (``distributed/compression.py``).
+  int8-compressed with error feedback (``distributed/compression.py``);
+* ``make_tp_train_step``: the program the reference's partitioner makes
+  of ``make_train_step`` under ``RULES_DEFAULT`` on a ("data", "model")
+  mesh: a rank's model blocks (``tensor_parallel.shard_model``) and its
+  moments' blocks (``shard_opt_state``), its rows of each microbatch,
+  the loss and token counts of the global batch, the gradients summed
+  over ``data``, the norm over the whole tree.
 
 The reference's ``act_spec`` (a GSPMD sharding constraint on the saved
-residual stream) changes nothing on one device and has no counterpart:
-its eager form is tensor parallelism inside the layers.
+residual stream) changes nothing on one device; under tensor
+parallelism it is ``forward``'s ``act_spec``: the residual saved at each
+remat group's boundary is the rank's ``d / model`` columns.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import compression as comp
 from repro_torch.models import transformer as tf
 from repro_torch.training.optimizer import (OptConfig, adamw_update,
-                                            init_opt_state)
+                                            init_opt_state,
+                                            sharded_global_norm)
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -101,6 +109,104 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
         return model, opt_state, metrics
 
     return train_step
+
+
+def tp_rows(B: int, i: int, accum: int, data: int, shard: int) -> slice:
+    """Shard ``shard`` of ``data``'s rows of microbatch ``i`` of ``accum``
+    over a global batch of ``B``: the reference's microbatch is global
+    rows [i mb, (i+1) mb) (mb = B / accum), split over ``data`` as its
+    batch sharding splits them."""
+    if B % accum or (B // accum) % data:
+        raise ValueError(f"a batch of {B} rows does not split into {accum} "
+                         f"microbatches over {data} data shards")
+    mb = B // accum
+    n = mb // data
+    return slice(i * mb + shard * n, i * mb + (shard + 1) * n)
+
+
+def make_tp_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
+                       attn_chunk: int = 1024, remat: bool = True,
+                       remat_group: int = 4, act_spec: bool = False,
+                       loss_chunk: int = 512, accum_steps: int = 1,
+                       ) -> Callable:
+    """The tensor-parallel train step of a rank: (model, opt_state,
+    batch, tp) -> (model, opt_state, metrics), the rank's parameter and
+    moment blocks updated in place.
+
+    ``model`` is the rank's ``shard_model`` (trainable), ``opt_state``
+    its moments' blocks (``init_opt_state`` of its parameters, or
+    ``shard_opt_state``), ``tp`` its ``TPGroup`` (with the ``data``
+    axis's group where the mesh has one) or a ``MetaTPGroup``, and
+    ``batch`` the GLOBAL batch on every rank: microbatch i is the
+    reference's (global rows [i mb, (i+1) mb)), of which this data shard
+    runs its ``tp_rows``.  Each microbatch's loss is the global one
+    (``loss_fn``'s ``tp``: token counts summed over ``data``; an MoE
+    layer's groups and aux loss over the whole microbatch), its
+    backward the rank's share; the gradients are summed over
+    microbatches and scaled by 1/accum_steps as the reference's scan,
+    all-reduced over ``data``, and clipped by the whole tree's norm
+    (``sharded_global_norm``: split blocks' squares summed over
+    ``model``, replicated parameters counted once).  ``act_spec`` as
+    ``forward``'s.  Metrics as ``make_train_step``'s, the same on every
+    rank."""
+    check_trainable(cfg)
+    kw = dict(attn_chunk=attn_chunk, remat=remat, remat_group=remat_group,
+              loss_chunk=loss_chunk, act_spec=act_spec)
+
+    def train_step(model: tf.Transformer, opt_state: Dict[str, object],
+                   batch: Batch, tp):
+        for p in model.parameters():
+            p.grad = None
+        B = next(iter(batch.values())).shape[0]
+        loss, aux = 0.0, {"ce": 0.0, "aux": 0.0, "tokens": 0.0}
+        for i in range(accum_steps):
+            rows = tp_rows(B, i, accum_steps, tp.data_size, tp.data_rank)
+            l, a = tp_microbatch(model, {k: v[rows] for k, v in batch.items()},
+                                 tp, **kw)
+            loss = loss + l
+            aux = {k: aux[k] + a[k] for k in aux}
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            loss = loss * inv
+            aux = {"ce": aux["ce"] * inv, "aux": aux["aux"] * inv,
+                   "tokens": aux["tokens"]}
+        opt_state, om = tp_update(model, opt_state, opt_cfg, tp, accum_steps)
+        return model, opt_state, {"loss": loss, **aux, **om}
+
+    return train_step
+
+
+def tp_microbatch(model: tf.Transformer, rows: Batch, tp, **kw):
+    """One microbatch of the tensor-parallel step: ``loss_fn`` of this
+    data shard's ``rows`` with ``tp`` and its backward, the gradients
+    added to the parameters' ``.grad``.  Returns the global loss and
+    {"ce", "aux", "tokens"}, detached."""
+    loss, aux = tf.loss_fn(model, rows, tp=tp, **kw)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def tp_update(model: tf.Transformer, opt_state: Dict[str, object],
+              opt_cfg: OptConfig, tp, accum_steps: int = 1):
+    """The tensor-parallel step's end: the summed gradients scaled by
+    1/accum_steps and all-reduced over ``data``, the whole tree's norm
+    (``sharded_global_norm``) and AdamW on the rank's blocks.  Returns
+    (opt_state, {"lr", "grad_norm"})."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for p in params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if accum_steps > 1:
+                p.grad.mul_(1.0 / accum_steps)
+            if tp.data_size > 1:
+                tp.all_reduce_sum(p.grad, "data")
+    grads = {n: p.grad for n, p in params.items()}
+    norm = sharded_global_norm(grads, model.tp_layout.split_names,
+                               lambda t: tp.all_reduce_sum(t))
+    _, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
+                                    grad_norm=norm)
+    return opt_state, om
 
 
 def make_manual_dp_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels against their plain versions, on a
 card, and train steps (Llama-3 and one arch of each other family kind,
 against the CPU's) and a checkpoint round trip there (training runs no
-hand-written kernel); and, over an NCCL process group of one rank, the
+hand-written kernel); over an NCCL process group of one rank, the
 data-parallel step against the train step (to the bit) and the sharded
-search against kernel 3.  Every test is marked ``cuda`` and skips inside its body when
+search against kernel 3; and over gloo ranks sharing the card, the
+tensor-parallel serve steps and train step against the one-rank ones.  Every test is marked ``cuda`` and skips inside its body when
 ``torch.cuda.is_available()`` is False.  The file imports neither JAX nor
 the JAX package, so it runs on a card host that has neither:
 
@@ -1571,3 +1572,74 @@ def test_tensor_parallel_steps_over_gloo_ranks_on_the_card(arch, tmp_path):
                 assert got.shape == w.shape, (mname, r, key)
                 err = np.abs(got - w).max()
                 assert err <= 1e-4 * np.abs(w).max(), (mname, r, key, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-20b",
+                                  "granite-moe-3b-a800m", "internvl2-1b"])
+def test_tensor_parallel_train_over_gloo_ranks_on_the_card(arch, tmp_path):
+    """The reduced ``arch`` (fp32) trained 2 steps over 4 gloo ranks on
+    card 0 (``torch_dist_ranks``' ``tp_train``: a (1, 2) mesh with one
+    microbatch, and a (2, 2) mesh with two and ``act_spec``) against the
+    one-rank ``make_train_step`` on the card, in the reference's place:
+    each rank's loss within rtol 1e-5, grad norm 1e-4, parameter blocks
+    within 2e-4 but for the elements whose gradient is within 1e-4 of
+    its leaf's max-abs of 0, moments within 1e-4 of their leaf's max-abs,
+    and ``act_spec`` on and off equal to the bit."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks
+    import torch_tp_cases as cases
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_train_step)
+    dev = _card()
+    cfg = cases.config(arch)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    kw = dict(attn_chunk=8, remat_group=2, loss_chunk=8)
+    paths = {**ttf._JAX_PATHS, **ttf._FAMILY_PATHS}
+    flat = cases.weights(cfg)
+    batches = [cases.train_batch(cfg, s) for s in range(2)]
+    cells = [["1x2", [1, 2], 1, False], ["2x2", [2, 2], 2, True]]
+    ref = {}
+    for mname, _, accum, _ in cells:        # the one-rank step in its place
+        model = ttf.from_jax_params(cases.tree(flat), cfg,
+                                    device=dev).set_trainable()
+        params = dict(model.named_parameters())
+        state = init_opt_state(params, opt)
+        step = make_train_step(cfg, opt, remat=True, accum_steps=accum, **kw)
+        for s, b in enumerate(batches):
+            model, state, m = step(model, state, {
+                k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            at = f"{arch}/{mname}/{accum}/{s}"
+            ref.update({f"{at}/{k}": np.asarray(float(v)) for k, v in m.items()})
+            ref[f"{at}/step"] = np.asarray(int(state["step"]))
+            for n, p in params.items():
+                path = "/".join(paths[n])
+                ref[f"{at}/params/{path}"] = p.detach().cpu().numpy().copy()
+                for k in ("m", "v"):
+                    ref[f"{at}/{k}/{path}"] = state[k][n].cpu().numpy().copy()
+    np.savez(tmp_path / "ref.0.npz", **ref)
+    meta = {"cases": [[arch, *c] for c in cells], "steps": 2, "opt": dict(
+        lr=1e-3, warmup_steps=1, total_steps=10), "kw": kw, "device": "cuda",
+        "reference": [str(tmp_path / "ref.0.npz")]}
+    np.savez(tmp_path / "in.npz", meta=np.array(json.dumps(meta)),
+             **{f"w/{arch}/{k}": v for k, v in flat.items()},
+             **{f"batch/{arch}/{s}/{k}": v for s, b in enumerate(batches)
+                for k, v in b.items()})
+    ranks = torch_dist_ranks.run("tp_train", 4, tmp_path / "in.npz", tmp_path)
+    for mname, shape, accum, _ in cells:
+        for r in range(shape[0] * shape[1]):
+            for s in range(2):
+                at = f"{arch}/{mname}/{accum}/{s}"
+                assert bool(ranks[r][f"{at}/act_same"]), (mname, r, s)
+                for act in (0, 1):
+                    got = ranks[r]
+                    for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+                        np.testing.assert_allclose(got[f"{at}/{act}/{k}"],
+                                                   ref[f"{at}/{k}"], rtol=rtol)
+                    for n in ttf.param_shapes(cfg):
+                        e_p, _, _, e_m, s_m, e_v, s_v = got[f"{at}/{act}/leaf/{n}"]
+                        assert e_p <= 2e-4 and e_m <= 1e-4 * s_m + 1e-12 \
+                            and e_v <= 1e-4 * s_v + 1e-12, (mname, r, s, n)

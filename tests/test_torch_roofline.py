@@ -17,8 +17,12 @@ the reference's, on the CPU.
 * One reduced-arch ``dry_run_cell`` of each entry on a 2 x 2 mesh returns
   ``status: "ok"`` with the reference's cell keys, and
   ``report.roofline_table`` renders it.
-* The hillclimb plan is the reference's, with the ``act_mode`` variants
-  skipped with their reason.
+* The hillclimb plan is the reference's.  Its ``act_mode`` variants
+  under FSDP rules are skipped with their reason; the two
+  ``v5_tponly_accum4`` variants (``RULES_DEFAULT``) run, on a reduced
+  config and a 2 x 2 mesh: granite-moe-3b traces rank 0's
+  tensor-parallel train program, gemma2-27b stays ``NO_TP`` with its
+  reason.
 * The production meshes' names and sizes, and ``make_host_mesh`` over a
   gloo world of one.
 """
@@ -233,11 +237,28 @@ def test_dry_run_cell_of_each_entry_on_a_small_mesh(arch):
 
 def test_hillclimb_plan_is_the_reference_one():
     assert [p[:5] for p in thc.PLAN] == [p[:5] for p in jhc.PLAN]
+    ran = []
     for cell, arch, shape, vname, variant, _ in thc.PLAN:
         if "act_mode" not in variant:
             continue
-        d = tdr.dry_run_cell(arch, shape, variant=variant, verbose=False)
-        assert d["status"] == "skipped" and "tensor parallelism" in \
-            d["skip_reason"], (cell, vname)
+        if variant.get("rules") != "default":
+            d = tdr.dry_run_cell(arch, shape, variant=variant, verbose=False)
+            assert d["status"] == "skipped" and "FSDP" in \
+                d["skip_reason"], (cell, vname)
+            continue
+        # a TP-only variant runs; reduced, so the test stays quick
+        d = tdr.dry_run_cell(arch, shape, variant=variant, verbose=False,
+                             cfg=tget_arch(arch).reduced(),
+                             mesh=tsh.MeshAxes(("data", "model"), (2, 2)),
+                             suite=ShapeSuite(shape, "train_step", 32, 8),
+                             attn_chunk=8, loss_chunk=8)
+        assert d["status"] == "ok", d.get("traceback")
+        tp = arch != "gemma2-27b"
+        assert d["tp_program"].startswith("rank 0" if tp else "none: ")
+        assert d["roofline"]["tp_collectives"] == (trl.TP_COUNTED if tp
+                                                   else trl.NO_TP)
+        assert ("model" in d["roofline"]["coll_by_axis"]) == tp
+        ran.append(vname)
+    assert ran == ["v5_tponly_accum4", "v5_tponly_accum4"]
     kept = [p for p in thc.PLAN if "act_mode" not in p[4]]
     assert [p[3] for p in kept] == ["v0_unsplit", "v1_split", "v2_split_int8"]

@@ -15,12 +15,13 @@ jitted under ``param_shardings`` / ``cache_shardings`` on the (1, 4) and
 Each rank's outputs are held against the reference's: on (1, 1) and
 (1, 2), and for the paged step everywhere (the reference runs it
 unsharded), the unsharded step's; on (1, 4) and (2, 2) the partitioned
-program's.  On (2, 2) a rank runs its ``data`` shard's rows, so an MoE
-config dispatches those rows as its groups, where the reference's global
-program groups the whole batch: its capacity drops can differ, and an
-MoE config there is held to the reference's unsharded step on each
-shard's rows.  The rank's logits are its batch rows, its cache and slab
-the ``local_block`` of the reference's.  Tolerances: fp32 logits,
+program's.  On (2, 2) a rank runs its ``data`` shard's rows, and an MoE
+config routes them as the reference's global program does, its
+dispatch groups the whole batch's (the selected experts all-gathered
+over ``data`` where a group spans the shards); ``"c05"``, one capacity
+slot an expert a decode step, drops other tokens where a shard's rows
+are taken for a group.  The rank's logits are its batch rows, its cache
+and slab the ``local_block`` of the reference's.  Tolerances: fp32 logits,
 caches and slabs within 1e-5 of the largest value (the scale).  bf16 is
 held to the reference's fp32 step at the same place, within the
 distance of the reference's own bf16 step from it plus 3e-2 of the
@@ -39,6 +40,27 @@ whole and their MLP split (6 experts over 4 ranks), a vocabulary that
 does not divide (514 over 4 ranks).  With no ``tp`` the steps give the
 bytes they gave before tensor parallelism existed
 (``tests/data/tp_none_digests.json``).
+
+Every fp32 case also runs ``serve_step(kv_quant=True)`` over an int8
+cache (``shard_cache`` splits its bf16 scales as ``cache_axes`` does)
+against the reference's, partitioned under the dry run's ``kv_quant``
+cache shardings on (1, 4) and (2, 2).  The reference rounds the scaled
+q and the probabilities to bf16 over its dequantized bf16 cache, where
+the port's kernel keeps them fp32 (``tests/test_torch_gemma2.py``), so
+the unsharded port's int8 logits lie up to 1.3% of their scale from the
+reference's on these random caches (held within the bf16 tolerance,
+3e-2); a rank's logits are held within 1e-5 of the scale beyond that
+known gap (the port's unsharded step from the reference's unsharded
+one, plus the reference's partitioned program from its unsharded
+one).  The cache's int8 values and bf16 scales are held the same way:
+layer 0's (the embeddings' K/V) within one int8 step and the bf16
+tolerance of the reference's, the later layers' (whose inputs carry the
+reference's bf16 rounding) within the same known gap plus that.  Each
+rank is also held tight to the port's own unsharded int8 step on the
+same rows and block: logits and bf16 scales within 1e-5 of the scale,
+int8 values within one rounding step at no more than 1e-3 of the
+elements (arctic-480b's V, summed in another order, rounds one element
+of 8192 the other way).
 """
 
 import json
@@ -64,7 +86,8 @@ CASES = ([(a, "", "float32") for a in cases.ARCHS]
          + [(a, "", "bfloat16") for a in ("llama3-8b", "granite-20b",
                                           "internvl2-1b")]
          + [("llama3-8b", "v514", "float32"),
-            ("granite-moe-3b-a800m", "e6", "float32")])
+            ("granite-moe-3b-a800m", "e6", "float32"),
+            ("granite-moe-3b-a800m", "c05", "float32")])
 MESHES = [["1x1", [1, 1]], ["1x2", [1, 2]], ["1x4", [1, 4]], ["2x2", [2, 2]]]
 STEPS = ("dense", "paged", "prefill")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -102,8 +125,6 @@ def _want(mname, data, cfg, key, step, rank):
                                            (dc + 1) * cases.B // data)
         if step == "paged":
             rows = slice(None)
-    elif cfg.moe is not None and data > 1:
-        base, rows = f"{mname}/{dc}/{key}", slice(None)
     else:
         base, rows = f"{mname}/{key}", slice(dc * cases.B // data,
                                              (dc + 1) * cases.B // data)
@@ -134,11 +155,7 @@ def test_tp_step_matches_reference(runs, arch, tw, dname, mname, shape, step):
         # bf16: against the reference's fp32 step at the same place, within
         # its own bf16 step's distance from it plus 3e-2 of the scale
         exact = base.replace("/bfloat16", "/float32")
-        if base.startswith(f"{mname}/{r // m}/"):
-            # an MoE replica's own rows: its block over the model axis
-            bm, bc = sh.MeshAxes(("model",), (m,)), (r % m,)
-        else:
-            bm, bc = mesh, (r // m, r % m)
+        bm, bc = mesh, (r // m, r % m)
         for out in ("logits", "k", "v"):
             got = ranks[r][f"{mname}/{key}/{step}/{out}"]
             want = ref[f"{exact}/{step}/{out}"]
@@ -153,6 +170,60 @@ def test_tp_step_matches_reference(runs, arch, tw, dname, mname, shape, step):
                                     want.shape, bm, bc)
             floor = float(np.abs(mine[sl] - want[sl]).max())
             _close(got, want[sl], TOL[dname], f"rank {r} {out}", floor)
+
+
+@pytest.mark.parametrize("mname,shape", MESHES)
+@pytest.mark.parametrize("arch,tw", [(a, tw) for a, tw, d in CASES
+                                     if d == "float32"])
+def test_tp_int8_step_matches_reference(runs, arch, tw, mname, shape):
+    """``serve_step(kv_quant=True, tp=...)`` on each rank against the
+    reference's int8 step (partitioned on (1, 4) and (2, 2), unsharded
+    on the smaller meshes): the rank's logits rows, and its block of the
+    int8 cache and of the bf16 scales."""
+    ref, ranks = runs
+    data, m = shape
+    cfg = cases.config(arch, tw)
+    key = f"{arch}{tw}/float32"
+    mesh = sh.MeshAxes(("data", "model"), (data, m))
+    axes = tf.cache_axes(cfg, kv_quant=True)
+    whole, port = ref[f"whole/{key}/int8/logits"], \
+        ranks[0][f"1x1/{key}/int8/logits"]
+    _close(port, whole, TOL["bfloat16"], "the unsharded port")
+    for r in range(data * m):
+        base, rows = _want(mname, data, cfg, key, "int8", r)
+        got = ranks[r][f"{mname}/{key}/int8/logits"]
+        want = ref[f"{base}/int8/logits"][rows]
+        floor = float(np.abs(port[rows] - whole[rows]).max()
+                      + np.abs(whole[rows] - want).max())
+        _close(got, want, TOL["float32"], f"rank {r} logits", floor)
+        _close(got, port[rows], TOL["float32"],
+               f"rank {r} logits against the unsharded port")
+        for n in ("k", "v", "k_scale", "v_scale"):
+            want = ref[f"{base}/int8/{n}"]
+            sl = sh.local_block(sh.spec_for(axes[n], want.shape, mesh,
+                                            sh.RULES_DEFAULT),
+                                want.shape, mesh, (r // m, r % m))
+            got, want = ranks[r][f"{mname}/{key}/int8/{n}"], want[sl]
+            assert got.shape == want.shape, (n, got.shape)
+            gap = float(np.abs(ranks[0][f"1x1/{key}/int8/{n}"][sl]
+                               - ref[f"whole/{key}/int8/{n}"][sl]).max()
+                        + np.abs(ref[f"whole/{key}/int8/{n}"][sl]
+                                 - want).max())
+            step = 1.0 if n in ("k", "v") else TOL["bfloat16"] * float(
+                np.abs(want).max())
+            assert np.abs(got[0] - want[0]).max() <= step, (r, n, "layer 0")
+            assert np.abs(got - want).max() <= gap + step, (r, n)
+            # tight, against the port's own unsharded int8 step: its
+            # block of the bf16 scales within 1e-5 of their scale, of the
+            # int8 values one rounding step at a few elements at most
+            mine = ranks[0][f"1x1/{key}/int8/{n}"][sl]
+            if n in ("k", "v"):
+                diff = np.abs(got.astype(np.int16) - mine.astype(np.int16))
+                assert diff.max() <= 1, (r, n, "unsharded port", diff.max())
+                assert (diff != 0).mean() <= 1e-3, (r, n, (diff != 0).sum())
+            else:
+                _close(got, mine, TOL["float32"],
+                       f"rank {r} {n} against the unsharded port")
 
 
 def _calls(cfg, m: int, step: str) -> int:
@@ -237,8 +308,17 @@ def test_what_is_not_ported_is_refused(what):
         with pytest.raises(ValueError, match="gradients"):
             tpm.check_tp_supported(cfg, mesh, grad=True)
     elif what == "train_step":
-        with pytest.raises(ValueError, match="serve steps only"):
-            tpm.check_tp_supported(cfg, mesh, entry="train_step")
+        # a train step has a program (with gradients); an unknown entry,
+        # FSDP and sequence-parallel KV do not
+        tpm.check_tp_supported(cfg, mesh, entry="train_step", grad=True)
+        with pytest.raises(ValueError, match="no tensor-parallel program"):
+            tpm.check_tp_supported(cfg, mesh, entry="serve_step_paged_spliced")
+        with pytest.raises(ValueError, match="FSDP"):
+            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP,
+                                   entry="train_step", grad=True)
+        with pytest.raises(ValueError, match="sequence-parallel"):
+            tpm.check_tp_supported(cfg, mesh, sh.RULES_LONG_CONTEXT,
+                                   entry="train_step", grad=True)
     else:
         model = tf.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu", dtype=torch.float32)

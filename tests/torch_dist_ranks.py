@@ -21,11 +21,17 @@ results.  Jobs:
   and ``prefill`` of each case (``torch_tp_cases``) on each mesh
   ("data", "model") of the meta, each rank's model from
   ``tensor_parallel.shard_model`` of the case's weights, its dense cache
-  and slab from ``shard_cache``: each rank's logits (its batch rows),
-  cache and slab blocks, and the collectives a step made.  The meshes
+  (and, for an fp32 case, its int8 cache with the scales) and slab from
+  ``shard_cache``: each rank's logits (its batch rows), cache and slab
+  blocks, and the collectives a step made.  The meshes
   the size of the world are ``DeviceMesh``es; smaller ones plain groups
   of the first ranks, the layouts by coordinate.  ``meta["device"]``
-  "cuda" runs every rank on card 0 (gloo takes the CUDA tensors).
+  "cuda" runs every rank on card 0 (gloo takes the CUDA tensors);
+* ``tp_train``: ``make_tp_train_step`` of each case (arch, mesh,
+  accum_steps) with ``act_spec`` off and on, each step from the
+  reference's state before it (read from the reference children's
+  files), compared there leaf by leaf (``job_tp_train``);
+  ``meta["device"]`` "cuda" as ``tp_serve``'s.
 """
 
 from __future__ import annotations
@@ -301,6 +307,18 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
                 out.update({f"{at}/dense/logits": logits.float().cpu().numpy(),
                             f"{at}/dense/k": cache["k"].float().cpu().numpy(),
                             f"{at}/dense/v": cache["v"].float().cpu().numpy()})
+                if dname == "float32":      # the int8 cache, its scales split
+                    qc = {n: t(x[f"{n}_q"]) for n in "kv"}
+                    qc.update({f"{n}_scale": t(x[f"{n}_scale"], torch.bfloat16)
+                               for n in "kv"})
+                    qc = tpm.shard_cache(qc, cfg, mesh, coord=coord)
+                    logits, qc = tf.serve_step(
+                        model, qc, {"token": t(x["token"][rows]),
+                                    "pos": t(x["pos"][rows])}, kv_quant=True,
+                        tp=tp)
+                    out[f"{at}/int8/logits"] = logits.float().cpu().numpy()
+                    out.update({f"{at}/int8/{n}": v.float().cpu().numpy()
+                                for n, v in qc.items()})
                 slab = tpm.shard_cache(KVPageSlab(
                     k=t(x["k_slab"], dtype), v=t(x["v_slab"], dtype),
                     page_size=cases.PS), cfg, mesh, coord=coord)
@@ -328,8 +346,175 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
     return out
 
 
+class _Parts:
+    """The arrays of several ``.npz`` files by key, each read when asked
+    for."""
+
+    def __init__(self, paths):
+        self.files = [np.load(p) for p in paths]
+        self.where = {k: f for f in self.files for k in f.files}
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return self.where[key][key]
+
+
+def _groups(rank: int, world: int, data: int, m: int):
+    """This rank's ``TPGroup`` on a ("data", "model") mesh of ``data`` x
+    ``m`` ranks (a ``DeviceMesh`` the size of the world; plain groups of
+    the first ranks otherwise) and its (data, model) coordinate, or
+    (None, None) off the mesh.  Every rank makes every group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tensor_parallel as tpm
+    W = data * m
+    if W == world:
+        dm = init_device_mesh("cpu", (data, m), mesh_dim_names=("data", "model"))
+        return tpm.TPGroup(mesh=dm), (rank // m, rank % m)
+    mg = [dist.new_group([d * m + i for i in range(m)]) for d in range(data)]
+    dg = [dist.new_group([d * m + i for d in range(data)]) for i in range(m)]
+    if rank >= W:
+        return None, None
+    dc, mc = rank // m, rank % m
+    return tpm.TPGroup(mg[dc], data=dg[mc] if data > 1 else None), (dc, mc)
+
+
+def _wait_for(ready: str, failed: str, timeout: float = 900.0) -> None:
+    """Block until the file ``ready`` exists; raise if ``failed`` does
+    first, or after ``timeout`` seconds."""
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(ready):
+        if os.path.exists(failed):
+            raise RuntimeError("the reference failed")
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no {ready} after {timeout} s")
+        time.sleep(0.2)
+
+
+def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
+    """Each case's steps with ``act_spec`` off and on, each from the
+    reference's state before it (its weights and zero moments first).
+    Step 0 of every case runs first: it needs only the weights, so it
+    runs while the reference still computes; then, where
+    ``meta["ready"]`` names a file, the rank waits for it (the
+    reference's parts written; ``meta["failed"]`` if the reference
+    failed) before it compares step 0 and runs the later steps.
+    A rank saves its metrics and, leaf by leaf, the largest difference
+    of its parameter, m and v blocks from the reference's blocks (the
+    parameters' over the elements whose gradient is 0 or at least 1e-4
+    of the leaf's max-abs, and how many are not), and whether the two
+    ``act_spec`` runs agree to the bit."""
+    import torch
+
+    import torch_tp_cases as cases
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_tp_train_step)
+
+    world = torch.distributed.get_world_size()
+    dev = torch.device(meta.get("device", "cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    paths = {**tf._JAX_PATHS, **tf._FAMILY_PATHS}
+    opt = OptConfig(**meta["opt"])
+    groups, todo = {}, []
+    for arch, mname, (data, m), accum, _ in meta["cases"]:
+        if mname not in groups:         # every rank makes every group
+            groups[mname] = _groups(rank, world, data, m)
+        tp, coord = groups[mname]
+        if tp is not None:
+            todo.append((arch, mname, accum, tp, coord, get_arch(arch).reduced(),
+                         sh.MeshAxes(("data", "model"), (data, m))))
+    out = {}
+
+    def run(case, s, ref):
+        """Step ``s`` of ``case`` with ``act_spec`` off and on: {act:
+        (model, state, metrics)}."""
+        arch, mname, accum, tp, coord, cfg, mesh = case
+        pnames = tf.param_shapes(cfg)
+        before = f"{arch}/{mname}/{accum}/{s - 1}"
+        whole = ({n: ref[f"{before}/params/{'/'.join(paths[n])}"]
+                  for n in pnames} if s else
+                 {n: inp[f"w/{arch}/{'/'.join(paths[n])}"] for n in pnames})
+        batch = {k[len(f"batch/{arch}/{s}/"):]: torch.from_numpy(v).to(dev)
+                 for k, v in inp.items() if k.startswith(f"batch/{arch}/{s}/")}
+        runs = {}
+        for act in (False, True):
+            model = tpm.shard_model(cases.tree({"/".join(paths[n]): a
+                                                for n, a in whole.items()}),
+                                    cfg, mesh, rank=coord[1],
+                                    device=dev).set_trainable()
+            if s:
+                state = tpm.shard_opt_state(
+                    {k: {n: ref[f"{before}/{k}/{'/'.join(paths[n])}"]
+                         for n in pnames} for k in ("m", "v")}
+                    | {"step": int(ref[f"{before}/step"])}, model.tp_layout,
+                    device=dev)
+            else:
+                state = init_opt_state(dict(model.named_parameters()), opt)
+            step_fn = make_tp_train_step(cfg, opt, remat=True,
+                                         accum_steps=accum, act_spec=act,
+                                         **meta["kw"])
+            tp.calls = tp.data_calls = 0
+            model, state, met = step_fn(model, state, batch, tp)
+            runs[act] = (model, state, met, [tp.calls, tp.data_calls])
+        return runs
+
+    def compare(case, s, runs, ref):
+        arch, mname, accum, tp, _, cfg, _ = case
+        at = f"{arch}/{mname}/{accum}/{s}"
+        for act, (model, state, met, calls) in runs.items():
+            key = f"{at}/{int(act)}"
+            lay = model.tp_layout
+            for k, v in met.items():
+                out[f"{key}/{k}"] = np.asarray(float(v))
+            out[f"{key}/calls"] = np.asarray(calls)
+            grads = tpm.gather_tree({n: p.grad for n, p in
+                                     model.named_parameters()}, lay, tp)
+            for n, p in model.named_parameters():
+                path = "/".join(paths[n])
+                blk = lay.block(n)
+                gmax = float(grads[n].abs().max())
+                g = p.grad.abs()
+                sure = (g == 0) | (g >= 1e-4 * gmax)
+                want = torch.from_numpy(ref[f"{at}/params/{path}"][blk]).to(dev)
+                err_p = float((p.detach() - want).abs()[sure].max()) \
+                    if sure.any() else 0.0
+                row = [err_p, float((~sure).sum()), float(sure.numel())]
+                for k in ("m", "v"):
+                    full = ref[f"{at}/{k}/{path}"]
+                    w = torch.from_numpy(full[blk]).to(dev)
+                    row += [float((state[k][n] - w).abs().max()),
+                            float(np.abs(full).max())]
+                out[f"{key}/leaf/{n}"] = np.asarray(row)
+        (m0, s0, r0, _), (m1, s1, r1, _) = runs[False], runs[True]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(m0.parameters(), m1.parameters()))
+        same &= all(torch.equal(s0[k][n], s1[k][n]) for k in ("m", "v")
+                    for n in tf.param_shapes(cfg))
+        same &= all(float(r0[k]) == float(r1[k]) for k in r0)
+        out[f"{at}/act_same"] = np.asarray(same)
+
+    first = [run(case, 0, None) for case in todo]
+    if meta.get("ready"):
+        _wait_for(meta["ready"], meta["failed"])
+    ref = _Parts(meta["reference"])
+    for case, runs in zip(todo, first):
+        compare(case, 0, runs, ref)
+    del first
+    for s in range(1, meta["steps"]):
+        for case in todo:
+            compare(case, s, run(case, s, ref), ref)
+    return out
+
+
 JOBS = {"distributed": job_distributed, "dp_train": job_dp_train,
-        "search": job_search, "tp_serve": job_tp_serve}
+        "search": job_search, "tp_serve": job_tp_serve,
+        "tp_train": job_tp_train}
 
 
 def main(job: str, rank: int, world: int, init: str, inputs: str,

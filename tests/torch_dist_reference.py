@@ -21,8 +21,15 @@ part, all at once, under ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` 
   ``cache_shardings`` (batch inputs and logits over ``data``) on each
   ("data", "model") mesh of the meta, as the reference's
   ``launch/dryrun.py`` jits its serve cells, so GSPMD partitions them;
-  for an MoE config also the unsharded steps on each ``data`` shard's
-  rows alone (each replica's own dispatch groups).
+  for an fp32 case also ``serve_step(kv_quant=True)`` over the int8
+  cache, jitted under the shardings of ``cache_axes(kv_quant=True)``
+  as the dry run's ``kv_quant`` cells jit it;
+* ``tp_train``: each case (arch, mesh, accum_steps, act_spec) of the
+  part's arch: ``make_train_step`` jitted under ``param_shardings`` and
+  the moments' (``opt_shardings``: the parameters'), the batch over
+  ``data``, ``act_spec`` P("data", None, "model") or None, as the
+  dry run lowers a train cell; the steps from the case's weights and
+  zero moments, each step's metrics and its state after.
 """
 
 from __future__ import annotations
@@ -52,9 +59,11 @@ def start(job: str, inputs: Path, out: Path, parts=("all",)) -> tuple:
     return job, out, runs
 
 
-def wait(handle: tuple, timeout: float = 300.0) -> dict:
+def wait(handle: tuple, timeout: float = 300.0, merge: bool = True):
     """The outputs of every part of a started job, also saved to its
-    ``out``.  A child that fails raises with its output."""
+    ``out``; with ``merge`` False, the parts' file paths instead (each
+    part's outputs stay in its own file, read lazily by whoever needs
+    them).  A child that fails raises with its output."""
     job, out, runs = handle
     try:
         for p, _, log in runs:
@@ -66,6 +75,8 @@ def wait(handle: tuple, timeout: float = 300.0) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    if not merge:
+        return [str(o) for _, o, _ in runs]
     merged = {}
     for _, o, _ in runs:
         with np.load(o) as f:
@@ -194,6 +205,10 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
         def dense(p, c, tok, pos):
             return tf.serve_step(p, c, {"token": tok, "pos": pos}, cfg)
 
+        def int8(p, c, tok, pos):
+            return tf.serve_step(p, c, {"token": tok, "pos": pos}, cfg,
+                                 kv_quant=True)
+
         def pf(p, tokens, img):
             pin = {"tokens": tokens}
             if img is not None:
@@ -203,13 +218,25 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
         img = cast(x["image_embeds"]) if "image_embeds" in x else None
         at = f"{key}/{dname}"
 
-        def run(name, rows, fd, fp):
+        quant = dname == "float32"
+
+        def run(name, rows, fd, fp, fq=None):
             cache = {"k": cast(x["k"][:, rows]), "v": cast(x["v"][:, rows])}
             lg, c = fd(params, cache, jnp.asarray(x["token"][rows]),
                        jnp.asarray(x["pos"][rows]))
             out.update({f"{name}/dense/logits": np.asarray(lg, np.float32),
                         f"{name}/dense/k": np.asarray(c["k"], np.float32),
                         f"{name}/dense/v": np.asarray(c["v"], np.float32)})
+            if fq is not None:
+                cache = {n: jnp.asarray(x[f"{n}_q"][:, rows]) for n in "kv"}
+                cache.update({f"{n}_scale": jnp.asarray(
+                    x[f"{n}_scale"][:, rows]).astype(jnp.bfloat16)
+                    for n in "kv"})
+                lg, c = fq(params, cache, jnp.asarray(x["token"][rows]),
+                           jnp.asarray(x["pos"][rows]))
+                out[f"{name}/int8/logits"] = np.asarray(lg, np.float32)
+                out.update({f"{name}/int8/{n}": np.asarray(c[n]).astype(
+                    np.float32) for n in c})
             lg, c = fp(params, jnp.asarray(x["tokens"][rows]),
                        None if img is None else img[rows])
             out.update({f"{name}/prefill/logits": np.asarray(lg, np.float32),
@@ -217,7 +244,8 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
                         f"{name}/prefill/v": np.asarray(c["v"], np.float32)})
 
         whole = slice(None)
-        run(f"whole/{at}", whole, jax.jit(dense), jax.jit(pf))
+        run(f"whole/{at}", whole, jax.jit(dense), jax.jit(pf),
+            jax.jit(int8) if quant else None)
         lg, ks, vs = jax.jit(tf.serve_step_paged, static_argnums=(6,))(
             params, cast(x["k_slab"]), cast(x["v_slab"]),
             jnp.asarray(x["block_table"]), jnp.asarray(x["lengths"]),
@@ -227,12 +255,6 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
                     f"whole/{at}/paged/v": np.asarray(vs, np.float32)})
         for mname, (data, m) in meta["meshes"]:
             if data * m == 1:
-                continue
-            if data > 1 and cfg.moe is not None:    # each replica's rows alone
-                n = cases.B // data
-                for d in range(data):
-                    run(f"{mname}/{d}/{at}", slice(d * n, (d + 1) * n),
-                        jax.jit(dense), jax.jit(pf))
                 continue
             if data * m != len(jax.devices()):
                 continue
@@ -250,13 +272,75 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
             fp = jax.jit(pf, in_shardings=(psh, bsh, None if img is None
                                            else bsh),
                          out_shardings=(bsh, pcsh))
+            fq = None
+            if quant:           # the dry run's kv_quant cache shardings
+                qsh = shd.tree_shardings(
+                    tf.cache_axes(cfg, kv_quant=True), jax.eval_shape(
+                        lambda: tf.init_cache(cfg, cases.B, cases.S_MAX,
+                                              kv_quant=True)), mesh, rules)
+                fq = jax.jit(int8, in_shardings=(psh, qsh, bsh, bsh),
+                             out_shardings=(bsh, qsh))
             with mesh:
-                run(f"{mname}/{at}", whole, fd, fp)
+                run(f"{mname}/{at}", whole, fd, fp, fq)
+    return out
+
+
+def job_tp_train(inp: dict, meta: dict, part: str) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    import torch_tp_cases as cases
+    from repro.configs import get_arch
+    from repro.distributed import sharding as shd
+    from repro.launch.mesh import _axis_type_kwargs
+    from repro.training import OptConfig, init_opt_state
+    from repro.training.train_loop import make_train_step
+
+    out = {}
+    opt = OptConfig(**meta["opt"])
+    for arch, mname, (data, m), accum, act in meta["cases"]:
+        if part not in ("all", arch):
+            continue
+        cfg = get_arch(arch).reduced()
+        params = jax.tree.map(jnp.asarray, cases.tree(
+            {k[len(f"w/{arch}/"):]: v for k, v in inp.items()
+             if k.startswith(f"w/{arch}/")}))
+        state = init_opt_state(params, opt)
+        mesh = jax.make_mesh((data, m), ("data", "model"),
+                             devices=jax.devices()[:data * m],
+                             **_axis_type_kwargs(2))
+        psh = shd.param_shardings(cfg, mesh, shd.RULES_DEFAULT)
+        repl = NamedSharding(mesh, P())
+        osh = {"m": psh, "v": psh, "step": repl}
+        bsh = NamedSharding(mesh, P("data"))
+        step = make_train_step(cfg, opt, remat=True, accum_steps=accum,
+                               act_spec=P("data", None, "model") if act
+                               else None, **meta["kw"])
+        keys = sorted(k.split("/")[-1] for k in inp
+                      if k.startswith(f"batch/{arch}/0/"))
+        fn = jax.jit(step, in_shardings=(psh, osh, {k: bsh for k in keys}),
+                     out_shardings=(psh, osh, repl))
+        # placed as the step returns them, so its second call hits the cache
+        params, state = jax.device_put(params, psh), jax.device_put(state, osh)
+        for s in range(meta["steps"]):
+            batch = {k: jax.device_put(jnp.asarray(inp[f"batch/{arch}/{s}/{k}"]),
+                                       bsh) for k in keys}
+            with mesh:
+                params, state, metrics = fn(params, state, batch)
+            at = f"{arch}/{mname}/{accum}/{s}"
+            out.update({f"{at}/{k}": np.asarray(v) for k, v in metrics.items()})
+            out[f"{at}/step"] = np.asarray(state["step"])
+            for name, tree in (("params", params), ("m", state["m"]),
+                               ("v", state["v"])):
+                out.update({k: np.asarray(v) for k, v in
+                            _flat(tree, f"{at}/{name}").items()})
     return out
 
 
 JOBS = {"dp_train": job_dp_train, "search": job_search,
-        "tp_serve": job_tp_serve}
+        "tp_serve": job_tp_serve, "tp_train": job_tp_train}
 
 
 if __name__ == "__main__":

@@ -5,11 +5,15 @@ configs, weights and inputs from the same seeds.
 ``config(arch, tweak)`` is the reduced config of ``arch`` with a tweak
 that moves the layout: ``"v514"`` a vocabulary of 514 (splits over 2
 ranks, replicated over 4), ``"e6"`` 6 experts (replicated over 4, so
-``mlp`` takes ``model``).  ``weights`` are the port's ``init_params``
-(a seeded CPU generator) as the reference's numpy tree; ``inputs`` the
-steps' tokens, positions, a random dense cache and page slab, a shuffled
-block table and a prefill prompt (an image prefix for a vision model),
-all from ``np.random.default_rng``.
+``mlp`` takes ``model``), ``"c05"`` a capacity factor of 0.5 (one slot
+an expert for a decode step's 4 tokens, so a dispatch group cut along
+the data shards drops other tokens than the whole batch's group).
+``weights`` are the port's ``init_params`` (a seeded CPU generator) as
+the reference's numpy tree; ``inputs`` the steps' tokens, positions, a
+random dense cache, its int8 form (values and bf16-exact scales) and
+page slab, a shuffled block table and a prefill prompt (an image prefix
+for a vision model), all from ``np.random.default_rng``;
+``train_batch`` a train step's global batch.
 
 ``digests`` runs the three steps unsharded (``tp`` left out, so it runs
 on any version of the port) and gives the SHA-256 of every output's
@@ -29,7 +33,8 @@ import numpy as np
 DIGESTS = Path(__file__).resolve().parent / "data" / "tp_none_digests.json"
 ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "arctic-480b", "granite-20b",
          "nemotron-4-15b", "internvl2-1b", "musicgen-large")
-TWEAKS = {"": {}, "v514": {"vocab_size": 514}, "e6": {"num_experts": 6}}
+TWEAKS = {"": {}, "v514": {"vocab_size": 514}, "e6": {"num_experts": 6},
+          "c05": {"capacity_factor": 0.5}}
 B, S_MAX, PS, MB, S_PROMPT = 4, 16, 4, 4, 8
 POS = (3, 9, 15, 0)
 LENGTHS = (0, 3, 6, 13)
@@ -39,9 +44,9 @@ def tweak(cfg, name: str):
     """``cfg`` with the tweak ``name`` (``TWEAKS``); works on either
     package's ``ArchConfig``."""
     kw = dict(TWEAKS[name])
-    if "num_experts" in kw:
-        return dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=kw.pop("num_experts")))
+    moe = {k: kw.pop(k) for k in ("num_experts", "capacity_factor") if k in kw}
+    if moe:
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     return dataclasses.replace(cfg, **kw)
 
 
@@ -88,9 +93,10 @@ def inputs(cfg, seed: int = 1) -> Dict[str, np.ndarray]:
     tok = lambda shape: rng.integers(0, cfg.vocab_size, shape + (
         (nc,) if nc else ())).astype(np.int32)
     NP = B * MB + 2
+    kv = (L, B, S_MAX, KVH, Dh)
     out = {"token": tok((B,)), "pos": np.array(POS, np.int32),
-           "k": rng.standard_normal((L, B, S_MAX, KVH, Dh)).astype(np.float32),
-           "v": rng.standard_normal((L, B, S_MAX, KVH, Dh)).astype(np.float32),
+           "k": rng.standard_normal(kv).astype(np.float32),
+           "v": rng.standard_normal(kv).astype(np.float32),
            "k_slab": rng.standard_normal((L, NP, PS, KVH, Dh)).astype(np.float32),
            "v_slab": rng.standard_normal((L, NP, PS, KVH, Dh)).astype(np.float32),
            "block_table": rng.permutation(NP)[:B * MB].reshape(B, MB)
@@ -101,6 +107,37 @@ def inputs(cfg, seed: int = 1) -> Dict[str, np.ndarray]:
     if fe is not None and fe.kind == "vit_stub":
         out["image_embeds"] = rng.standard_normal(
             (B, fe.num_prefix_embeddings, fe.embed_dim)).astype(np.float32)
+    for n in ("k", "v"):        # an int8 cache: drawn after the rest
+        out[f"{n}_q"] = rng.integers(-127, 128, kv).astype(np.int8)
+        out[f"{n}_scale"] = _bf16(rng.uniform(0.005, 0.03, kv[:-1]))
+    return out
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """fp32 ``a`` rounded to the nearest bf16 value (so a bf16 scale
+    holds it exactly)."""
+    import torch
+    return torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+TRAIN_B, TRAIN_S = 4, 16
+
+
+def train_batch(cfg, step: int, seed: int = 7) -> Dict[str, np.ndarray]:
+    """Step ``step``'s global batch: "tokens" and "labels" [TRAIN_B,
+    TRAIN_S] (an audio model's [..., codebooks]) uniform over the
+    vocabulary, and a vision model's "image_embeds"."""
+    from repro_torch.models import transformer as tf
+    rng = np.random.default_rng((seed, step))
+    nc = tf.codebooks(cfg)
+    shape = (TRAIN_B, TRAIN_S) + ((nc,) if nc else ())
+    out = {k: rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+           for k in ("tokens", "labels")}
+    fe = cfg.frontend
+    if fe is not None and fe.kind == "vit_stub":
+        out["image_embeds"] = rng.standard_normal(
+            (TRAIN_B, fe.num_prefix_embeddings, fe.embed_dim)).astype(np.float32)
     return out
 
 
