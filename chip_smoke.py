@@ -10,6 +10,7 @@ builds, is right and serves on one NVIDIA card.
     python3 chip_smoke.py --distributed        # phase 9 alone
     python3 chip_smoke.py --tensor-parallel    # phase 11 alone
     python3 chip_smoke.py --tp-train           # phase 12 alone
+    python3 chip_smoke.py --fsdp               # phase 13 alone
 
 Phases, one line each, every one fatal on failure:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -100,12 +101,12 @@ Phases, one line each, every one fatal on failure:
      retrieval round fused against unfused, in alternating pairs, and
      each path's kernel alone on that buffer state.  Then, Llama-3-8B's
      weights freed, the other families on the same datastore and index,
-     one model at a time: granite-moe-3b (MoE, 16 of 32 layers),
-     granite-20b (MQA G=48, 16 of 52 layers; paged, then dense),
-     nemotron-4-15b (16 of 32), internvl2-1b (full depth) and
+     one model at a time: granite-moe-3b (MoE, 8 of 32 layers),
+     granite-20b (MQA G=48, 8 of 52 layers; paged, then dense),
+     nemotron-4-15b (8 of 32), internvl2-1b (12 of 24) and
      arctic-480b (full width, 2 of 35 layers), each fused with paged
-     decode, and gemma2-27b (16 of 46 layers), minicpm3-4b (20 of 62),
-     rwkv6-3b (16 of 32) and zamba2-2.7b (24 of 54), fused with dense
+     decode, and gemma2-27b (8 of 46 layers), minicpm3-4b (10 of 62),
+     rwkv6-3b (8 of 32) and zamba2-2.7b (12 of 54), fused with dense
      decode (the arch cannot page): one decode grid per layer per step
      (flash_decode_paged, flash_decode over gemma2's rings and global
      layers, half each, mla_decode for MLA; zamba2's shared attention
@@ -155,10 +156,11 @@ Phases, one line each, every one fatal on failure:
      every other family, one model at a time (each freed before the
      next), through init_training and make_train_step at main's chunks
      (remat), 3 steps on one repeated 2 x 512 batch, all at full width:
-     granite-moe-3b-a800m, rwkv6-3b, musicgen-large (codebooks) and
-     internvl2-1b (its 256-embedding image prefix) at full depth,
-     minicpm3-4b at 20 of 62 layers, zamba2-2.7b at 24 of 54,
-     gemma2-27b at 4 of 46 (2 local, 2 global); one line each (ms/step, tokens/s, peak
+     granite-moe-3b-a800m and rwkv6-3b at 16 of 32 layers,
+     musicgen-large (codebooks) at 24 of 48, internvl2-1b (its
+     256-embedding image prefix) at 12 of 24, minicpm3-4b at 10 of 62,
+     zamba2-2.7b at 12 of 54, gemma2-27b at 4 of 46 (2 local, 2
+     global); one line each (ms/step, tokens/s, peak
      memory, moments, first and last loss; every loss finite, the last
      below the first; granite-moe's recompute routing every layer as
      its forward did).  Then the "100m" preset of llama3-8b and of
@@ -245,12 +247,28 @@ Phases, one line each, every one fatal on failure:
      through gloo: a layout test) and each rank's max_memory_allocated
      over a step, which phase 10's check then sets beside dry_run_cell's
      rank-0 tensor-parallel train peak at the same shape (a finding).
-     Training runs no hand-written kernel.
+     Training runs no hand-written kernel;
+ 13. FSDP (``--fsdp`` runs it alone; RULES_FSDP: every parameter's
+     embed dim split over ``data`` as well as ``model``, gathered a
+     layer at a time): the dry run's rank-0 peak of each training case
+     printed first; then phase 12's training at 4 x 128 tokens (the
+     (4, 1) mesh splits the batch four ways), fp32 llama3-8b (4 of 32
+     layers) and granite-moe-3b (8 of 32) over 2 gloo ranks on (2, 1)
+     and 4 on (2, 2) with act_spec, llama3-8b also on (4, 1)
+     (--fsdp-rank), with phase 12's tolerances after every step and each
+     rank's parameter and moment elements; then fp32 llama3-8b and
+     granite-moe-3b (8 layers each) served on (2, 2) (serve_step_paged
+     over every row, serve_step and prefill over the rank's data shard's
+     rows), each rank held to a one-rank fp32 run within 1e-3 of the
+     scale (an MoE near tie as in phase 11), one kernel-1 grid a layer a
+     paged step and one kernel-4 grid a dense step on every rank; then
+     each rank's max_memory_allocated beside the dry run's rank 0 (aim:
+     within 5%, met or NOT met, a finding).
 centroid_scores is on no serve path (the engine's probe is a GEMM and
 torch.topk, as the reference's is an einsum and lax.top_k), so its
 launches come from the check phase alone; the kernels JSON lists each
 kernel's launches by path (fused, unfused, dense, chunk, the families,
-tp2 and tp4 summed over the ranks) and in the checks.
+tp2, tp4 and fsdp4 summed over the ranks) and in the checks.
 The last three lines are the card line, the kernels JSON and
 {"ok": true, "device": {...}}.  Exits non-zero without a card, and
 outside the repository (it imports the port from ./src).
@@ -378,12 +396,15 @@ CKPT_ARCHS = ("llama3-8b", "zamba2-2.7b")
 # make_train_step at main's chunks, FAMILY_TRAIN_STEPS steps on one
 # repeated TokenStream batch of TRAIN_BATCH x TRAIN_SEQ tokens; gemma2-27b
 # (27.2 B) does not fit one card with its moments: 4 of 46 layers (2
-# local, 2 global; 3.45 B) do; minicpm3-4b (62 layers) and zamba2-2.7b
-# (54), the two slowest a step, train 20 and 24 since phase 11 (their
-# serves' depths), so that the script stays within its time
-FAMILY_TRAINS = [("minicpm3-4b", 20), ("granite-moe-3b-a800m", None),
-                 ("rwkv6-3b", None), ("musicgen-large", None),
-                 ("zamba2-2.7b", 24), ("internvl2-1b", None),
+# local, 2 global; 3.45 B) do; the others at half the depth they trained
+# at before phase 13 (minicpm3-4b 10 of 62, granite-moe-3b and rwkv6-3b
+# 16 of 32, musicgen-large 24 of 48, zamba2-2.7b 12 of 54, internvl2-1b
+# 12 of 24), so that the script stays within its time: each took 25-43 s
+# at the old depths, most of it outside the steps (the profiled step's
+# events)
+FAMILY_TRAINS = [("minicpm3-4b", 10), ("granite-moe-3b-a800m", 16),
+                 ("rwkv6-3b", 16), ("musicgen-large", 24),
+                 ("zamba2-2.7b", 12), ("internvl2-1b", 12),
                  ("gemma2-27b", 4)]
 FAMILY_TRAIN_STEPS = 3
 
@@ -399,14 +420,15 @@ G_CASES = [("granite-moe G=3", 8, 3, 64, 1.0), ("nemotron G=6", 8, 6, 128, 0.5),
 G48 = (1, 48, 128)
 
 # the depth of phase 6's family serves, cut so that the script, with
-# phases 10 and 11, stays within its time: granite-20b, gemma2-27b and
+# phases 10-13, stays within its time: granite-20b, gemma2-27b and
 # minicpm3-4b from 52, 46 and 62 layers (the full-depth serves took
 # 20-37 s each, host-bound a layer a step); granite-moe-3b,
-# nemotron-4-15b, rwkv6-3b (32 layers each) and zamba2-2.7b (54: 4 of
-# its 9 groups) since phase 11 (11-24 s each at full depth)
-FAMILY_SERVE_CUT = {"granite-20b": 16, "gemma2-27b": 16, "minicpm3-4b": 20,
-                    "granite-moe-3b-a800m": 16, "nemotron-4-15b": 16,
-                    "rwkv6-3b": 16, "zamba2-2.7b": 24}
+# nemotron-4-15b, rwkv6-3b (32 layers each) and zamba2-2.7b (54) since
+# phase 11 (11-24 s each at full depth); each halved again, and
+# internvl2-1b cut from 24, since phase 13 (the nine took 70 s)
+FAMILY_SERVE_CUT = {"granite-20b": 8, "gemma2-27b": 8, "minicpm3-4b": 10,
+                    "granite-moe-3b-a800m": 8, "nemotron-4-15b": 8,
+                    "rwkv6-3b": 8, "zamba2-2.7b": 12, "internvl2-1b": 12}
 
 # the other families' serves in phase 6, on the same datastore and index,
 # each model built after the one before is freed: (arch, --layers cut or
@@ -416,7 +438,7 @@ FAMILY_SERVES = [
     ("granite-moe-3b-a800m", FAMILY_SERVE_CUT["granite-moe-3b-a800m"], [{}]),
     ("granite-20b", FAMILY_SERVE_CUT["granite-20b"], [{}, {"paged_decode": False}]),
     ("nemotron-4-15b", FAMILY_SERVE_CUT["nemotron-4-15b"], [{}]),
-    ("internvl2-1b", None, [{}]),
+    ("internvl2-1b", FAMILY_SERVE_CUT["internvl2-1b"], [{}]),
     ("arctic-480b", 2, [{}]),
     # dense decode whatever the engine asks (supports_paged_decode):
     # gemma2's rings and global layers through flash_decode, MLA's latent
@@ -521,6 +543,22 @@ TPT_MESH = {("llama3-8b", 2): ((1, 2), False), ("llama3-8b", 4): ((1, 4), True),
 TPT_B, TPT_S, TPT_STEPS, TPT_SEED = 2, 128, 2, 0
 TPT_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TPT_KW = dict(attn_chunk=128, loss_chunk=64, remat=True, remat_group=2)
+
+# phase 13, FSDP (RULES_FSDP: every embed dim split over data as well as
+# model): phase 12's training (TPT_STEPS steps, TPT_S tokens a row, each
+# step from the one-rank run's parameters before it) at FST_B rows, as
+# the (4, 1) mesh splits the batch four ways: {world: [(arch, layers,
+# (data, model) mesh, act_spec, first rank)]}, the two (2, 1) cases at
+# once on ranks 0-1 and 2-3; then FSS_CASES' serve steps in fp32 on
+# FSS_MESH (phase 11's inputs), against the one-rank fp32 run
+FST_B = 4
+FST_CASES = {4: [("llama3-8b", 4, (2, 1), False, 0),
+                 ("granite-moe-3b-a800m", 8, (2, 1), False, 2),
+                 ("llama3-8b", 4, (2, 2), True, 0),
+                 ("granite-moe-3b-a800m", 8, (2, 2), True, 0),
+                 ("llama3-8b", 4, (4, 1), False, 0)]}
+FSS_CASES = [("llama3-8b", 8), ("granite-moe-3b-a800m", 8)]
+FSS_MESH = (2, 2)
 
 # serving configuration driven in phase 6 (full Llama-3-8B width; built
 # once, served fused, unfused and with dense decode)
@@ -3678,7 +3716,9 @@ def tp_steps(ttf, model, inp: dict, counted: dict, tp=None,
     to the model's dtype), the launch counts set to 0 just before each
     and read just after; then, where ``timed``, ``TP_TIMED`` paged steps
     timed on the host clock, with the collectives' host seconds
-    (``tp.timed``).  Returns the logits, caches and slabs on the host,
+    (``tp.timed``).  ``inp["dense_token"]``, where given, are the dense
+    step's tokens (a data shard's rows; ``pos`` and the cache its rows
+    too).  Returns the logits, caches and slabs on the host,
     an MoE model's routing in each step (every layer's picks and router
     probabilities), the launches and the ms a step."""
     import torch.distributed as dist
@@ -3723,8 +3763,9 @@ def tp_steps(ttf, model, inp: dict, counted: dict, tp=None,
         out.update({"paged/logits": logits.cpu(), "paged/k": ks.cpu(),
                     "paged/v": vs.cpu()})
         cache = {"k": cuda(inp["k"]), "v": cuda(inp["v"])}
+        dtok = cuda(inp.get("dense_token", inp["token"]))
         logits, cache = counted_run("dense", lambda: ttf.serve_step(
-            model, cache, {"token": tok, "pos": cuda(inp["pos"])}, **kw))
+            model, cache, {"token": dtok, "pos": cuda(inp["pos"])}, **kw))
         out.update({"dense/logits": logits.cpu(), "dense/k": cache["k"].cpu(),
                     "dense/v": cache["v"].cpu()})
         logits, cache = counted_run("prefill", lambda: ttf.prefill(
@@ -3828,21 +3869,27 @@ def tp_rank_main(rank: int, world: int, init: str, work: Path) -> None:
     (work / f"tp{world}_{rank}.json").write_text(json.dumps(summary))
 
 
-def _near_tie(got: dict, one: dict, step: str):
+def _near_tie(got: dict, one: dict, step: str, tokens: slice = None):
     """None where an MoE step routed every token as the one-rank model
     did; else, in the first layer whose picks differ, the largest gap
     between the one-rank model's router probabilities of the expert it
     took and the one the rank took (a near tie if tiny; later layers
-    follow from the first difference)."""
+    follow from the first difference).  ``tokens``: the rank's tokens
+    among the one-rank model's (a data shard's), each layer's picks
+    taken flat."""
     key = f"{step}/experts"
     if key not in got:
         return None
-    mine, theirs = one[key].sort(-1).values, got[key].sort(-1).values
+    mine, theirs, probs = one[key], got[key], one[f"{step}/probs"]
+    if tokens is not None:
+        mine, theirs = mine.flatten(1, -2)[:, tokens], theirs.flatten(1, -2)
+        probs = probs.flatten(1, -2)[:, tokens]
+    mine, theirs = mine.sort(-1).values, theirs.sort(-1).values
     if torch.equal(mine, theirs):
         return None
     first = int((mine != theirs).flatten(1).any(1).nonzero()[0])
     mine, theirs = mine[first], theirs[first]
-    probs = one[f"{step}/probs"][first]
+    probs = probs[first]
     gap = 0.0
     for idx in (mine != theirs).any(-1).nonzero().tolist():
         a, b = set(mine[tuple(idx)].tolist()), set(theirs[tuple(idx)].tolist())
@@ -4065,19 +4112,34 @@ def tp_main() -> None:
     print(json.dumps({"tensor_parallel": out}))
 
 
-def tpt_batch(cfg) -> dict:
-    """Phase 12's global batch on the host, from TPT_SEED: tokens and
-    labels [TPT_B, TPT_S] uniform over the vocabulary."""
+def tpt_batch(cfg, rows: int = TPT_B) -> dict:
+    """Phase 12's (and 13's) global batch on the host, from TPT_SEED:
+    tokens and labels [rows, TPT_S] uniform over the vocabulary."""
     g = torch.Generator().manual_seed(TPT_SEED)
-    return {k: torch.randint(0, cfg.vocab_size, (TPT_B, TPT_S), generator=g,
+    return {k: torch.randint(0, cfg.vocab_size, (rows, TPT_S), generator=g,
                              dtype=torch.int32) for k in ("tokens", "labels")}
 
 
+def tpt_cases(world: int, fsdp: bool) -> list:
+    """(arch, layers, (data, model) mesh, act_spec, first rank) of each
+    training case that ``world`` ranks run, in turn: phase 12's TPT_MESH,
+    or phase 13's FST_CASES.  A case runs on ranks [first, first + data
+    x model), so cases in a row on other ranks run at once."""
+    if fsdp:
+        return FST_CASES[world]
+    return [(a, layers) + TPT_MESH[(a, world)] + (0,)
+            for a, layers in TPT_CASES]
+
+
+def _case_key(arch: str, mesh) -> str:
+    return f"{arch}@{mesh[0]}x{mesh[1]}"
+
+
 def _forward_picks(moe, picks: list, layers: int):
-    """A stand-in for ``moe.route`` that keeps the picks and router
-    probabilities (detached: a kept graph would hold the recompute's
-    activations) of the first ``layers`` calls (a step's forward; the
-    recompute in backward routes the same tokens again)."""
+    """(the real ``moe.route``, a wrapper of it that records each layer's
+    picks [T, K] and router probabilities [T, E] of the step's forward
+    into ``picks``: the first ``layers`` calls, so not the recompute;
+    the recompute in backward routes the same tokens again)."""
     route = moe.route
 
     def recorded(router, x, cfg, *tp):
@@ -4089,19 +4151,27 @@ def _forward_picks(moe, picks: list, layers: int):
     return route, recorded
 
 
-def _tpt_groups(world: int, rank: int) -> dict:
-    """{(data, model): (TPGroup, this rank's model coordinate)} for each
-    mesh phase 12 runs over ``world`` ranks: plain groups of the
-    ``model`` and ``data`` axes, every rank making every group."""
+def _tpt_groups(meshes, rank: int) -> dict:
+    """{((data, model), first): (TPGroup, this rank's (data, model)
+    coordinate, the group of the mesh's ranks)} for each mesh of
+    ``meshes`` on ranks [first, first + data x model), every rank making
+    every group: plain groups of the ``model`` and ``data`` axes; (None,
+    None, None) for a rank off the mesh."""
     import torch.distributed as dist
 
     from repro_torch.distributed import tensor_parallel as tpm
     out = {}
-    for data, m in sorted({TPT_MESH[(a, world)][0] for a, _ in TPT_CASES}):
-        mg = [dist.new_group([d * m + i for i in range(m)]) for d in range(data)]
-        dg = [dist.new_group([d * m + i for d in range(data)]) for i in range(m)]
-        out[(data, m)] = (tpm.TPGroup(mg[rank // m], data=dg[rank % m]
-                                      if data > 1 else None), rank % m)
+    for (data, m), f in sorted(set(meshes)):
+        mg = [dist.new_group([f + d * m + i for i in range(m)])
+              for d in range(data)]
+        dg = [dist.new_group([f + d * m + i for d in range(data)])
+              for i in range(m)]
+        every = dist.new_group(list(range(f, f + data * m)))
+        r = rank - f
+        out[((data, m), f)] = ((tpm.TPGroup(mg[r // m], data=dg[r % m]
+                                            if data > 1 else None),
+                                (r // m, r % m), every)
+                               if 0 <= r < data * m else (None, None, None))
     return out
 
 
@@ -4137,16 +4207,20 @@ def _tpt_gaps(params: dict, path: Path, block, leaf_max) -> tuple:
     return gaps, out
 
 
-def tpt_rank_main(rank: int, world: int, init: str, work: Path) -> None:
-    """One rank of phase 12 over gloo on the card: for each of TPT_CASES,
-    its blocks of the seeded fp32 model (the full model built one rank at
-    a time) and zero moments, TPT_STEPS of ``make_tp_train_step`` on the
-    mesh and ``act_spec`` of TPT_MESH[(arch, world)] with its
-    ``TPGroup``, step s > 0 from its blocks of the one-rank run's
-    parameters after step s - 1 (``work``/tpt_p<s-1>_<arch>.pt) and its
-    own moments; each step timed (collectives' host seconds beside), its
-    loss, grad norm and ``max_memory_allocated`` from its start, then
-    ``_tpt_gaps`` against ``work``/tpt_p<s>_<arch>.pt.  Writes
+def tpt_rank_main(rank: int, world: int, init: str, work: Path,
+                  fsdp: bool = False) -> None:
+    """One rank of phase 12 (or, ``fsdp``, phase 13) over gloo on the
+    card: for each of ``tpt_cases(world, fsdp)``, its blocks (under
+    RULES_DEFAULT, or RULES_FSDP: split over ``data`` too) of the seeded
+    fp32 model (every rank's full model built at once) and zero
+    moments, TPT_STEPS of ``make_tp_train_step`` on the case's mesh with
+    ``act_spec`` as it says and the mesh's ``TPGroup``, step s > 0 from
+    its blocks of the one-rank run's parameters after step s - 1
+    (``work``/tpt_p<s-1>_<arch>.pt) and its own moments; each step timed
+    (collectives' host seconds beside), its loss, grad norm and
+    ``max_memory_allocated`` from its start, then ``_tpt_gaps`` against
+    ``work``/tpt_p<s>_<arch>.pt.  Phase 13's ranks on FSS_MESH then run
+    ``fss_rank`` (the FSDP serve steps).  Writes
     ``work``/tpt<world>_<rank>.json and its MoE picks."""
     need_card()
     sys.path.insert(0, str(ROOT / "src"))
@@ -4162,25 +4236,30 @@ def tpt_rank_main(rank: int, world: int, init: str, work: Path) -> None:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world)
-    groups = _tpt_groups(world, rank)
+    cases = tpt_cases(world, fsdp)
+    serve = fsdp and world == math.prod(FSS_MESH)
+    groups = _tpt_groups([c[2::2] for c in cases] + ([(FSS_MESH, 0)]
+                                                      if serve else []), rank)
+    rules = sh.RULES_FSDP if fsdp else sh.RULES_DEFAULT
     opt = OptConfig(**TPT_OPT)
     summary = {"rank": rank, "cases": {}}
-    for arch, layers in TPT_CASES:
+    for arch, layers, (data, m), act, first in cases:
+        tp, coord, every = groups[((data, m), first)]
+        if tp is None:          # another case runs on this rank's ranks
+            continue
+        key = _case_key(arch, (data, m))
         cfg = tp_config(arch, layers)
-        (data, m), act = TPT_MESH[(arch, world)]
-        tp, coord = groups[(data, m)]
         mesh = sh.MeshAxes(("data", "model"), (data, m))
         batch = {k: v.cuda() for k, v in
                  torch.load(work / f"tpt_in_{arch}.pt").items()}
-        for r in range(world):              # one full model on the card at once
-            if r == rank:
-                full = ttf.init_params(cfg, torch.Generator(
-                    device="cuda").manual_seed(TPT_SEED), device="cuda",
-                    dtype=torch.float32)
-                model = tpm.shard_model(full, cfg, mesh, rank=coord)
-                del full
-                _free()
-            dist.barrier()
+        # every rank's full model on the card at once (a fp32 llama3-8b at
+        # 4 layers is 7.7 GB), then its blocks
+        full = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            TPT_SEED), device="cuda", dtype=torch.float32)
+        model = tpm.shard_model(full, cfg, mesh, rules, coord=coord)
+        del full
+        _free()
+        dist.barrier(group=every)
         model.set_trainable()
         lay = model.tp_layout
         params = dict(model.named_parameters())
@@ -4194,7 +4273,7 @@ def tpt_rank_main(rank: int, world: int, init: str, work: Path) -> None:
             picks_s = []
             route, recorded = _forward_picks(moe, picks_s, cfg.num_layers)
             torch.cuda.synchronize()
-            dist.barrier()
+            dist.barrier(group=every)
             torch.cuda.reset_peak_memory_stats()
             tp.timed, tp.seconds, tp.calls, tp.data_calls = True, 0.0, 0, 0
             moe.route = recorded
@@ -4218,13 +4297,18 @@ def tpt_rank_main(rank: int, world: int, init: str, work: Path) -> None:
                 picks.append([torch.stack([e for e, _ in picks_s]).cpu(),
                               torch.stack([p for _, p in picks_s]).cpu()])
         if picks:
-            torch.save(picks, work / f"tpt{world}_{rank}_{arch}_picks.pt")
-        T = TPT_B * TPT_S // data           # the rank's tokens of the batch
-        summary["cases"][arch] = {
+            torch.save(picks, work / f"tpt{world}_{rank}_{key}_picks.pt")
+        T = batch["tokens"].numel() // data     # the rank's tokens
+        summary["cases"][key] = {
             "steps": rows, "elements": sum(p.numel() for p in params.values()),
+            "moment_elements": sum(v.numel() for k in ("m", "v")
+                                   for v in state[k].values()),
             "tokens": [tp.data_rank * T, (tp.data_rank + 1) * T]}
         del model, state, params, step
         _free()
+    if serve:
+        summary["serve"] = fss_rank(rank, world, work,
+                                    groups[(FSS_MESH, 0)][:2])
     dist.destroy_process_group()
     (work / f"tpt{world}_{rank}.json").write_text(json.dumps(summary))
 
@@ -4249,8 +4333,8 @@ def _tpt_tie(picks, one, tokens) -> float | None:
 
 
 def _tpt_one(cfg, opt, batch: dict, work: Path, arch: str) -> tuple:
-    """The one-rank run of phase 12: the seeded fp32 model and zero
-    moments, TPT_STEPS steps of ``make_train_step``, the parameters
+    """The one-rank run of phase 12 (or 13): the seeded fp32 model and
+    zero moments, TPT_STEPS steps of ``make_train_step``, the parameters
     after step s saved to ``work``/tpt_p<s>_<arch>.pt.  Returns (each
     step's metrics, timing and peak; each step's MoE picks)."""
     from repro_torch.models import moe
@@ -4287,80 +4371,99 @@ def _tpt_one(cfg, opt, batch: dict, work: Path, arch: str) -> tuple:
     return rows, picks
 
 
-def tp_train_phase(smi: str, work: Path) -> dict:
-    """Phase 12: for each of TPT_CASES the one-rank model on the card (the
-    seeded fp32 weights, ``make_train_step``, TPT_STEPS steps on the
-    global batch), its parameters after each step saved for the ranks.
-    Then 2 and 4 gloo ranks sharing the card (``tpt_rank_main``, one
-    process each; TPT_MESH), each step from the one-rank run's parameters
-    before it: in every step each rank's loss within 1e-5 and grad norm
-    within 1e-4 of the one-rank model's (relative), and each of its
-    parameter blocks after the step within 2e-4 of the one-rank model's
-    but for the elements whose gradient was within 1e-4 of its leaf's
-    max-abs of 0 (their share printed).  An MoE step whose forward routed
-    a token otherwise than the one-rank model's on some rank is allowed
-    only at a near tie (TP_TIE of router probability, as in phase 11),
-    and that step's numbers are then not compared on any rank (the
-    gradients' all-reduce carries the flip to every rank); the other
-    steps are.  Times are host milliseconds of ranks sharing one card
-    through gloo: a layout test, not a multi-card figure."""
+def _spawn_ranks(flag: str, world: int, work: Path, label: str) -> float:
+    """Start ``world`` processes of ``chip_smoke.py flag RANK WORLD INIT
+    WORK`` and wait for them; fail with a rank's log where one fails.
+    Returns the wall seconds."""
+    init = work / f"{flag.strip('-')}{world}.pg"
+    logs = [work / f"{flag.strip('-')}{world}_{r}.log" for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                     str(r), str(world), str(init), str(work)],
+                    stdout=log, stderr=subprocess.STDOUT))
+        for r, p in enumerate(procs):
+            if p.wait(timeout=TP_RANK_TIMEOUT) != 0:
+                fail(f"{label}: rank {r} of {world} exited {p.returncode}:\n"
+                     + logs[r].read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def tp_train_phase(smi: str, work: Path, fsdp: bool = False) -> dict:
+    """Phase 12 (or, ``fsdp``, phase 13's training): for each arch of
+    the phase's cases the one-rank model on the card (the seeded fp32
+    weights, ``make_train_step``, TPT_STEPS steps on the global batch of
+    TPT_B, or FST_B, rows), its parameters after each step saved for the
+    ranks, the model freed before they start.  Then the ranks of each
+    world sharing the card (``tpt_rank_main``, one process each;
+    ``tpt_cases``), each step from the one-rank run's parameters before
+    it: in every step each rank's loss within 1e-5 and grad norm within
+    1e-4 of the one-rank model's (relative), and each of its parameter
+    blocks after the step within 2e-4 of the one-rank model's but for
+    the elements whose gradient was within 1e-4 of its leaf's max-abs of
+    0 (their share printed).  An MoE step whose forward routed a token
+    otherwise than the one-rank model's on some rank is allowed only at
+    a near tie (TP_TIE of router probability, as in phase 11), and that
+    step's numbers are then not compared on any rank (the gradients'
+    all-reduce carries the flip to every rank); the other steps are.
+    Phase 13's world of FSS_MESH's size also serves (``fss_rank``,
+    checked by ``fss_check``).  Times are host milliseconds of ranks
+    sharing one card through gloo: a layout test, not a multi-card
+    figure."""
     from repro_torch.training import OptConfig
     t_phase = time.perf_counter()
+    n = "13" if fsdp else "12"
+    rows_b = FST_B if fsdp else TPT_B
+    worlds = sorted(FST_CASES) if fsdp else TPT_WORLDS
     opt = OptConfig(**TPT_OPT)
     one, failures = {}, []
-    for arch, layers in TPT_CASES:
+    for arch, layers in dict.fromkeys(c[:2] for w in worlds
+                                      for c in tpt_cases(w, fsdp)):
         cfg = tp_config(arch, layers)
-        batch = tpt_batch(cfg)
+        batch = tpt_batch(cfg, rows_b)
         torch.save(batch, work / f"tpt_in_{arch}.pt")
         rows, picks = _tpt_one(cfg, opt, {k: v.cuda() for k, v in
                                           batch.items()}, work, arch)
         one[arch] = {"steps": rows, "picks": picks}
     result = {"one_rank": {a: one[a]["steps"] for a in one}}
+    if fsdp:
+        result["serve_one_rank"] = fss_one(work)
     tol = {"loss": 1e-5, "grad_norm": 1e-4, "param": 2e-4}
-    for world in TPT_WORLDS:
-        init = work / f"tpt{world}.pg"
-        logs = [work / f"tpt{world}_{r}.log" for r in range(world)]
-        procs = []
-        t0 = time.perf_counter()
-        try:
-            for r in range(world):
-                with open(logs[r], "w") as log:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, str(ROOT / "chip_smoke.py"),
-                         "--tpt-rank", str(r), str(world), str(init),
-                         str(work)], stdout=log, stderr=subprocess.STDOUT))
-            for r, p in enumerate(procs):
-                if p.wait(timeout=TP_RANK_TIMEOUT) != 0:
-                    fail(f"12: rank {r} of {world} exited {p.returncode}:\n"
-                         + logs[r].read_text()[-3000:])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        ranks = [json.loads((work / f"tpt{world}_{r}.json").read_text())
+    for world in worlds:
+        wall = _spawn_ranks("--fsdp-rank" if fsdp else "--tpt-rank", world,
+                            work, n)
+        every = [json.loads((work / f"tpt{world}_{r}.json").read_text())
                  for r in range(world)]
-        by_arch = {}
-        for arch, layers in TPT_CASES:
+        by_case = {}
+        for arch, layers, (data, m), act, first in tpt_cases(world, fsdp):
+            key = _case_key(arch, (data, m))
             cfg = tp_config(arch, layers)
-            (data, m), act = TPT_MESH[(arch, world)]
             ref = one[arch]
+            ranks = every[first:first + data * m]
             flips, skip = [], set()
-            for r, rk in enumerate(ranks):
+            for r, rk in enumerate(ranks, start=first):
                 if not ref["picks"]:
                     break
-                got = torch.load(work / f"tpt{world}_{r}_{arch}_picks.pt")
+                got = torch.load(work / f"tpt{world}_{r}_{key}_picks.pt")
                 for s in range(TPT_STEPS):
                     gap = _tpt_tie(got[s], ref["picks"][s],
-                                   rk["cases"][arch]["tokens"])
+                                   rk["cases"][key]["tokens"])
                     if gap is None:
                         continue
                     flips.append((r, s, gap))
                     skip.add(s)
                     if gap > TP_TIE:
                         failures.append(
-                            f"{arch} over {world} ranks, rank {r}'s step {s} "
+                            f"{key} over {world} ranks, rank {r}'s step {s} "
                             f"routed otherwise than the one-rank model, "
                             f"{gap:.3e} apart (more than a near tie, "
                             f"{TP_TIE:g})")
@@ -4372,54 +4475,56 @@ def tp_train_phase(smi: str, work: Path) -> dict:
                 want = ref["steps"][s]
                 e = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0,
                      "where": None, "compared": s not in skip}
-                for r, rk in enumerate(ranks):
-                    got = rk["cases"][arch]["steps"][s]
+                for r, rk in enumerate(ranks, start=first):
+                    got = rk["cases"][key]["steps"][s]
                     for k in ("loss", "grad_norm"):
                         e[k] = max(e[k], abs(got[k] - want[k]) / abs(want[k]))
-                    for n, (gap, rel) in got["gaps"].items():
+                    for name, (gap, rel) in got["gaps"].items():
                         if gap > e["param"]:
-                            e["param"], e["where"] = gap, [n, r, rel]
+                            e["param"], e["where"] = gap, [name, r, rel]
                 errs.append(e)
                 if s in skip:
                     continue
                 for k in tol:
                     if not e[k] <= tol[k]:
                         failures.append(
-                            f"{arch} over {world} ranks, step {s}: {k} "
+                            f"{key} over {world} ranks, step {s}: {k} "
                             f"{e[k]:.3e} from the one-rank model's (tolerance "
                             f"{tol[k]:g}{', ' + str(e['where']) if k == 'param' else ''})")
-            left = sum(st["left_out"] for rk in ranks
-                       for st in rk["cases"][arch]["steps"])
-            total = TPT_STEPS * sum(rk["cases"][arch]["elements"]
-                                    for rk in ranks)
-            steady = [[st["ms"] for st in rk["cases"][arch]["steps"][1:]]
-                      for rk in ranks]
-            coll = [[st["coll_ms"] for st in rk["cases"][arch]["steps"][1:]]
-                    for rk in ranks]
+            cases = [rk["cases"][key] for rk in ranks]
+            left = sum(st["left_out"] for c in cases for st in c["steps"])
+            total = TPT_STEPS * sum(c["elements"] for c in cases)
+            steady = [[st["ms"] for st in c["steps"][1:]] for c in cases]
+            coll = [[st["coll_ms"] for st in c["steps"][1:]] for c in cases]
             ms = [sum(x) / len(x) for x in steady]
             cms = [sum(x) / len(x) for x in coll]
-            b = by_arch[arch] = {
+            b = by_case[key] = {
+                "arch": arch, "layers": layers,
                 "mesh": [data, m], "act_spec": act, "errs": errs, "tol": tol,
                 "tie": TP_TIE, "flips": flips, "left_out": left,
                 "elements": total, "ms": ms, "coll_ms": cms,
+                "param_elements": [c["elements"] for c in cases],
+                "moment_elements": [c["moment_elements"] for c in cases],
                 "one_rank_ms": sum(st["ms"] for st in ref["steps"][1:])
                 / max(len(ref["steps"]) - 1, 1),
                 "one_rank_peak_bytes": max(st["peak_bytes"]
                                            for st in ref["steps"]),
-                "peak_bytes": [max(st["peak_bytes"] for st in
-                                   rk["cases"][arch]["steps"]) for rk in ranks],
-                "calls": [rk["cases"][arch]["steps"][0]["calls"] for rk in ranks],
-                "data_calls": [rk["cases"][arch]["steps"][0]["data_calls"]
-                               for rk in ranks]}
+                "peak_bytes": [max(st["peak_bytes"] for st in c["steps"])
+                               for c in cases],
+                "calls": [c["steps"][0]["calls"] for c in cases],
+                "data_calls": [c["steps"][0]["data_calls"] for c in cases]}
             each = "; ".join(
                 f"step {s}: " + (f"loss {e['loss']:.2e}, grad norm "
                                  f"{e['grad_norm']:.2e}, parameters "
                                  f"{e['param']:.2e} ({e['where'][0]})"
                                  if e["compared"] else "not compared (a flip)")
                 for s, e in enumerate(errs))
-            phase("tp", f"12 {arch} ({cfg.num_layers} layers, full width, "
-                  f"fp32) trained {TPT_STEPS} steps of {TPT_B} x {TPT_S} "
-                  f"tokens over {world} gloo ranks on a ({data}, {m}) mesh, "
+            phase("tp", f"{n} {arch} ({cfg.num_layers} layers, full width, "
+                  f"fp32{', RULES_FSDP' if fsdp else ''}) trained "
+                  f"{TPT_STEPS} steps of {rows_b} x {TPT_S} "
+                  f"tokens over {data * m} gloo ranks on a ({data}, {m}) mesh"
+                  + (f" (ranks {first}-{first + data * m - 1} of {world})"
+                     if data * m < world else "") + ", "
                   f"act_spec {'on' if act else 'off'}, each step from the "
                   f"one-rank model's parameters before it, against the "
                   f"one-rank make_train_step on the card: {each} (loss and "
@@ -4432,7 +4537,10 @@ def tp_train_phase(smi: str, work: Path) -> dict:
                      else "; MoE routing as the one-rank model's"
                      if ref["picks"] else "")
                   + f"; {b['calls'][0]} model and {b['data_calls'][0]} data "
-                  f"collectives a step a rank; ms a step "
+                  f"collectives a step a rank; "
+                  + (f"parameter elements a rank {b['param_elements']} "
+                     f"(moments {b['moment_elements']}); " if fsdp else "")
+                  + f"ms a step "
                   f"{[round(x, 1) for x in ms]} against {b['one_rank_ms']:.1f} "
                   f"on one rank, collectives {[round(x, 1) for x in cms]} ms "
                   f"of it ({100 * sum(cms) / max(sum(ms), 1e-9):.0f}%; host "
@@ -4441,53 +4549,287 @@ def tp_train_phase(smi: str, work: Path) -> dict:
                   f"{[round(x / 1e9, 2) for x in b['peak_bytes']]} GB a rank, "
                   f"{b['one_rank_peak_bytes'] / 1e9:.2f} on one rank "
                   f"(max_memory_allocated over a step); on {smi}")
-        result[f"tpt{world}"] = {"wall_s": wall, "archs": by_arch}
+        result[f"tpt{world}"] = {"wall_s": wall, "cases": by_case}
+        if fsdp and world == math.prod(FSS_MESH):
+            result["serve"] = fss_check(smi, work, every,
+                                        result["serve_one_rank"], failures)
     result["s"] = time.perf_counter() - t_phase
-    phase("tp", f"phase 12 in {result['s']:.1f} s")
+    phase("tp", f"phase {n} in {result['s']:.1f} s")
     if failures:
-        fail("12: " + "; ".join(failures))
+        fail(f"{n}: " + "; ".join(failures))
     return result
 
 
-def tp_train_memory(smi: str, tpt: dict) -> list:
-    """Phase 10's check of phase 12's memory, after phase 12:
-    ``dry_run_cell``'s rank-0 tensor-parallel train peak at phase 12's
-    shape (its mesh, ``act_spec``, chunks, fp32 weights and moments)
-    beside each rank's measured ``max_memory_allocated`` over a step;
-    the gap printed (a finding, not a failure)."""
-    from repro_torch.configs.shapes import ShapeSuite
-    from repro_torch.distributed.sharding import MeshAxes
-    from repro_torch.launch import dryrun
+def tp_train_memory(smi: str, tpt: dict, fsdp: bool = False,
+                    predicted: dict = None) -> list:
+    """Phase 10's check of phase 12's (or 13's) memory, after the phase:
+    ``dry_run_cell``'s rank-0 tensor-parallel (FSDP) train peak at the
+    phase's shape (its mesh, ``act_spec``, chunks, fp32 weights and
+    moments; ``predicted``, where it was taken before the run) beside
+    each rank's measured ``max_memory_allocated`` over a step; the gap
+    printed, and phase 13's 5% aim met or NOT met (a finding, not a
+    failure)."""
     rows = []
-    for world in TPT_WORLDS:
-        for arch, layers in TPT_CASES:
-            b = tpt[f"tpt{world}"]["archs"][arch]
-            d = dryrun.dry_run_cell(
-                arch, "phase12", mesh=MeshAxes(("data", "model"), tuple(b["mesh"])),
-                cfg=tp_config(arch, layers),
-                suite=ShapeSuite("phase12", "train_step", TPT_S, TPT_B),
-                attn_chunk=TPT_KW["attn_chunk"], loss_chunk=TPT_KW["loss_chunk"],
-                remat_group=TPT_KW["remat_group"], param_dtype=torch.float32,
-                variant={"accum": 1, "rules": "default",
-                         "act_mode": "model" if b["act_spec"] else "none"},
-                verbose=False)
-            if d["status"] != "ok":
-                fail(f"launch: dry run of phase 12's {arch}: {d.get('error')}")
+    for world in (sorted(FST_CASES) if fsdp else TPT_WORLDS):
+        for arch, layers, mesh, act, _ in tpt_cases(world, fsdp):
+            key = _case_key(arch, mesh)
+            b = tpt[f"tpt{world}"]["cases"][key]
+            d = (predicted or {}).get(key) or _plan_check(
+                tp_train_plan(arch, layers, mesh, act, fsdp)(), arch, mesh)
             pred = d["memory"]["peak_bytes"]
             meas = max(b["peak_bytes"])
-            rows.append({"arch": arch, "world": world, "mesh": b["mesh"],
+            gap = pred / max(meas, 1) - 1
+            rows.append({"case": key, "world": world, "mesh": b["mesh"],
                          "predicted_bytes": pred, "measured_bytes": b["peak_bytes"],
-                         "tp_program": d["tp_program"]})
-            phase("launch", f"memory (phase 12) {arch} over {world} ranks "
-                  f"({tuple(b['mesh'])} mesh, act_spec "
-                  f"{'on' if b['act_spec'] else 'off'}): dry run's rank 0 "
+                         "gap": gap, "tp_program": d["tp_program"],
+                         "rules": d["rules_used"]})
+            aim = ("; aim within 5%: "
+                   + ("met" if abs(gap) <= 0.05 else "NOT met") if fsdp else "")
+            phase("launch", f"memory (phase {13 if fsdp else 12}) {arch} over "
+                  f"{math.prod(mesh)} ranks ({tuple(b['mesh'])} mesh, act_spec "
+                  f"{'on' if b['act_spec'] else 'off'}, {d['rules_used']}): "
+                  f"dry run's rank 0 "
                   f"({d['tp_program']}) {pred / 1e9:.3f} GB (arguments "
                   f"{d['memory']['argument_bytes'] / 1e9:.3f} + temporaries "
                   f"{d['memory']['temp_bytes'] / 1e9:.3f}) against measured "
                   f"{[round(x / 1e9, 3) for x in b['peak_bytes']]} GB a rank: "
-                  f"{100 * (pred / max(meas, 1) - 1):+.1f}% of the largest (a "
-                  f"finding, not a failure); on {smi}")
+                  f"{100 * gap:+.1f}% of the largest{aim} (a finding, not a "
+                  f"failure); on {smi}")
     return rows
+
+
+def tp_train_plan(arch: str, layers: int, mesh, act: bool, fsdp: bool):
+    """``dry_run_cell`` of a phase-12 (or 13) training case at its shape
+    (rank 0's program under RULES_DEFAULT, or RULES_FSDP), as a call to
+    make (``_plan_check`` its result)."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.distributed.sharding import MeshAxes
+    from repro_torch.launch import dryrun
+    rows = FST_B if fsdp else TPT_B
+    return functools.partial(
+        dryrun.dry_run_cell, arch, "phase13" if fsdp else "phase12",
+        mesh=MeshAxes(("data", "model"), tuple(mesh)),
+        cfg=tp_config(arch, layers),
+        suite=ShapeSuite("phase13" if fsdp else "phase12", "train_step",
+                         TPT_S, rows),
+        attn_chunk=TPT_KW["attn_chunk"], loss_chunk=TPT_KW["loss_chunk"],
+        remat_group=TPT_KW["remat_group"], param_dtype=torch.float32,
+        variant={"accum": 1, "rules": "fsdp" if fsdp else "default",
+                 "act_mode": "model" if act else "none"},
+        verbose=False)
+
+
+def _plan_check(d: dict, arch: str, mesh) -> dict:
+    if d["status"] != "ok":
+        fail(f"launch: dry run of {arch} on {tuple(mesh)}: {d.get('error')}")
+    return d
+
+
+def fss_one(work: Path) -> dict:
+    """Phase 13's serving reference: for each of FSS_CASES the seeded
+    fp32 model on one rank (``tp_steps`` without a group, untimed) on
+    ``tp_inputs``, saved for the check; the model freed."""
+    from repro_torch.models import transformer as ttf
+    counted = counted_kernels()
+    out = {}
+    for arch, layers in FSS_CASES:
+        cfg = tp_config(arch, layers)
+        inp = tp_inputs(cfg, torch.float32)
+        torch.save(inp, work / f"fss_in_{arch}.pt")
+        model = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            TP_SEED), device="cuda", dtype=torch.float32)
+        res = tp_steps(ttf, model, inp, counted, timed=False)
+        torch.save(res, work / f"fss_one_{arch}.pt")
+        out[arch] = {"launches": res["launches"]}
+        del model, res
+        _free()
+    return out
+
+
+def _fss_rows(data: int, dc: int) -> dict:
+    """A data shard's rows of phase 13's serve inputs: the dense step's
+    of TP_B, the prompt's of 2."""
+    return {"dense": slice(dc * TP_B // data, (dc + 1) * TP_B // data),
+            "prefill": slice(dc * 2 // data, (dc + 1) * 2 // data)}
+
+
+def fss_rank(rank: int, world: int, work: Path, group) -> dict:
+    """A rank's FSDP serving in phase 13, on FSS_MESH with its ``TPGroup``
+    and coordinate ``group``: for each of FSS_CASES its RULES_FSDP blocks
+    of the seeded fp32 model (every rank's full model built at once),
+    its data shard's rows and its block of the dense cache and of the
+    slab (``shard_cache``), then ``tp_steps`` (launch counts set to 0
+    just before each step and read after; a paged step runs every row
+    on every data replica).  Saves its outputs to
+    ``work``/fss_<rank>_<arch>.pt."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as ttf
+    from repro_torch.serving.kv_cache import KVPageSlab
+    tp, coord = group
+    mesh = sh.MeshAxes(("data", "model"), FSS_MESH)
+    counted = counted_kernels()
+    out = {}
+    for arch, layers in FSS_CASES:
+        cfg = tp_config(arch, layers)
+        inp = torch.load(work / f"fss_in_{arch}.pt")
+        # every rank's full model at once (11.2 GB at 8 fp32 llama3-8b
+        # layers), then its blocks
+        full = ttf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            TP_SEED), device="cuda", dtype=torch.float32)
+        model = tpm.shard_model(full, cfg, mesh, sh.RULES_FSDP, coord=coord)
+        del full
+        _free()
+        dist.barrier()
+        rows = _fss_rows(FSS_MESH[0], coord[0])
+        dense = tpm.shard_cache({"k": inp["k"], "v": inp["v"]}, cfg, mesh,
+                                sh.RULES_FSDP, coord=coord)
+        slab = tpm.shard_cache(KVPageSlab(k=inp["k_slab"], v=inp["v_slab"],
+                                          page_size=TP_PS), cfg, mesh,
+                               sh.RULES_FSDP, coord=coord)
+        mine = dict(inp, k=dense["k"], v=dense["v"], k_slab=slab.k,
+                    v_slab=slab.v, dense_token=inp["token"][rows["dense"]],
+                    pos=inp["pos"][rows["dense"]],
+                    tokens=inp["tokens"][rows["prefill"]])
+        tp.calls = tp.data_calls = 0
+        res = tp_steps(ttf, model, mine, counted, tp, timed=False)
+        torch.save({k: v for k, v in res.items() if isinstance(v, torch.Tensor)},
+                   work / f"fss_{rank}_{arch}.pt")
+        out[arch] = {"launches": res["launches"], "calls": tp.calls,
+                     "data_calls": tp.data_calls,
+                     "elements": sum(p.numel() for p in model.parameters())}
+        del model, dense, slab, mine, res
+        _free()
+    return out
+
+
+def fss_check(smi: str, work: Path, ranks: list, one: dict,
+              failures: list) -> dict:
+    """Phase 13's serve check: each rank's logits (its rows; a paged
+    step's every row), cache and slab blocks (``local_block`` under
+    RULES_FSDP) against the fp32 one-rank run of the same weights and
+    inputs, within TP_TOL[fp32] of the scale, an MoE step whose routing
+    differs only at a near tie (TP_TIE, in its first differing layer)
+    not compared; one kernel-1 grid a layer a paged step and one kernel-4
+    grid a dense step on every rank."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as ttf
+    mesh = sh.MeshAxes(("data", "model"), FSS_MESH)
+    data, m = FSS_MESH
+    tol = TP_TOL[torch.float32]
+    out = {}
+    for arch, layers in FSS_CASES:
+        cfg = tp_config(arch, layers)
+        want_all = torch.load(work / f"fss_one_{arch}.pt")
+        errs, flips = {"logits": 0.0, "cache": 0.0}, []
+        for r, rk in enumerate(ranks):
+            dc = r // m
+            rows = _fss_rows(data, dc)
+            got = torch.load(work / f"fss_{r}_{arch}.pt")
+            flipped = set()
+            for step in ("paged", "dense", "prefill"):
+                # the rank's tokens: every row's (paged), its rows' one
+                # token (dense) or TP_PROMPT (prefill)
+                per = {"paged": 0, "dense": 1, "prefill": TP_PROMPT}[step]
+                sl = (slice(None) if not per else slice(
+                    rows[step].start * per, rows[step].stop * per))
+                gap = _near_tie(got, want_all, step, sl)
+                if gap is None:
+                    continue
+                flips.append((r, step, gap))
+                if gap <= TP_TIE:
+                    flipped.add(step)
+                else:
+                    failures.append(
+                        f"FSDP {arch} rank {r}'s {step} routing differs from "
+                        f"the one-rank model's, {gap:.3e} apart (more than "
+                        f"{TP_TIE})")
+            for key in got:
+                step, what = key.split("/")
+                if what in ("experts", "probs") or step in flipped:
+                    continue
+                want = want_all[key]
+                if what == "logits":
+                    if step != "paged":
+                        want = want[rows[step]]
+                else:
+                    axes = (tpm.SLAB_AXES if step == "paged"
+                            else ttf.cache_axes(cfg)[what])
+                    want = want[sh.local_block(sh.spec_for(
+                        axes, want.shape, mesh, sh.RULES_FSDP), want.shape,
+                        mesh, (dc, r % m))]
+                e = _scale_err(got[key], want)
+                kind = "logits" if what == "logits" else "cache"
+                errs[kind] = max(errs[kind], e)
+                if not e <= tol:
+                    failures.append(f"FSDP {arch} rank {r}'s {key}: {e:.3e} "
+                                    f"of the scale from the one-rank run "
+                                    f"(tolerance {tol})")
+            case = rk["serve"][arch]
+            for step, name in (("paged", "flash_decode_paged"),
+                               ("dense", "flash_decode")):
+                if case["launches"][step][name] != cfg.num_layers:
+                    failures.append(
+                        f"FSDP {arch} rank {r}: {step} step launched {name} "
+                        f"{case['launches'][step][name]} times, want one a "
+                        f"layer ({cfg.num_layers})")
+        cases = [rk["serve"][arch] for rk in ranks]
+        b = out[arch] = {
+            "errs": errs, "tol": tol, "flips": flips,
+            "calls": [c["calls"] for c in cases],
+            "data_calls": [c["data_calls"] for c in cases],
+            "elements": [c["elements"] for c in cases],
+            "launches": {s: {n: sum(c["launches"][s][n] for c in cases)
+                             for n in cases[0]["launches"][s]}
+                         for s in ("paged", "dense", "prefill")}}
+        phase("tp", f"13 {arch} ({cfg.num_layers} layers, full width, fp32, "
+              f"RULES_FSDP) served over {data * m} gloo ranks on a {FSS_MESH} "
+              f"mesh: logits of the paged, dense and prefill steps "
+              f"{errs['logits']:.3e} of the scale from the one-rank fp32 run, "
+              f"cache and slab blocks {errs['cache']:.3e} (tolerance {tol})"
+              + (f", MoE routing as the one-rank model's but at near ties "
+                 f"(rank, step, gap) {flips}, those steps not compared"
+                 if flips else "")
+              + f"; one kernel-1 grid a layer a paged step and one kernel-4 "
+              f"grid a dense step on every rank (summed: "
+              f"{b['launches']['paged']['flash_decode_paged']} and "
+              f"{b['launches']['dense']['flash_decode']}); parameter "
+              f"elements a rank {b['elements']}; {b['calls'][0]} model and "
+              f"{b['data_calls'][0]} data collectives a rank over the three "
+              f"steps (untimed: each step gathers the whole model through "
+              f"gloo's host path); on {smi}")
+    return out
+
+
+def fsdp_phase(smi: str, work: Path) -> dict:
+    """Phase 13: the dry run's rank-0 peak of each training case first
+    (``tp_train_plan``, printed before the run), then
+    ``tp_train_phase(fsdp=True)`` (training, and FSDP serving on
+    FSS_MESH), then the ranks' measured peaks beside the predictions
+    (``tp_train_memory``)."""
+    cases = [c[:4] for w in sorted(FST_CASES) for c in FST_CASES[w]]
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(cases), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cells = list(pool.map(_call, [tp_train_plan(*c, True) for c in cases]))
+    phase("launch", f"13: {len(cases)} dry runs in "
+          f"{time.perf_counter() - t0:.1f} s (one process each)")
+    predicted = {}
+    for (arch, layers, mesh, act), d in zip(cases, cells):
+        d = predicted[_case_key(arch, mesh)] = _plan_check(d, arch, mesh)
+        phase("launch", f"13 prediction: {arch} ({layers} layers, fp32) on "
+              f"a {tuple(mesh)} mesh, act_spec {'on' if act else 'off'}: dry "
+              f"run's rank 0 ({d['tp_program']}, {d['rules_used']}) "
+              f"{d['memory']['peak_bytes'] / 1e9:.3f} GB a rank (arguments "
+              f"{d['memory']['argument_bytes'] / 1e9:.3f} + temporaries "
+              f"{d['memory']['temp_bytes'] / 1e9:.3f})")
+    out = tp_train_phase(smi, work, fsdp=True)
+    out["memory"] = tp_train_memory(smi, out, fsdp=True, predicted=predicted)
+    return out
 
 
 def tpt_main() -> None:
@@ -4504,6 +4846,23 @@ def tpt_main() -> None:
     out["memory"] = tp_train_memory(smi, out)
     print(smi)
     print(json.dumps({"tp_train": out}))
+
+
+def fsdp_main() -> None:
+    """Phase 13 alone, the kernels built first (its serve steps launch
+    kernels 1 and 4)."""
+    need_card()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = card_line()
+    phase("card", f"{smi} | torch: {torch.cuda.get_device_name(0)}")
+    _build.build_all(_build.SOURCES)
+    with tempfile.TemporaryDirectory() as d:
+        out = fsdp_phase(smi, Path(d))
+    print(smi)
+    print(json.dumps({"fsdp": out}))
 
 
 def _call(fn):
@@ -5348,6 +5707,19 @@ def main() -> None:
         tpt_out = tp_train_phase(smi, Path(d))
     tpt_out["memory"] = tp_train_memory(smi, tpt_out)
     phase("tp", json.dumps({"tp_train": tpt_out}))
+
+    # 13) FSDP: the dry run's rank-0 peaks first, then training over 2 and
+    #     4 gloo ranks sharing the card, and the serve steps over 4, each
+    #     rank's launch counts set to 0 just before each step and read after
+    with tempfile.TemporaryDirectory() as d:
+        fs_out = fsdp_phase(smi, Path(d))
+    world = math.prod(FSS_MESH)
+    launches[f"fsdp{world}"] = {
+        n: sum(a["launches"][s].get(n, 0) for a in fs_out["serve"].values()
+               for s in ("paged", "dense", "prefill")) for n in counted}
+    phase("kernels", json.dumps({"path": f"fsdp{world}",
+                                 **launches[f"fsdp{world}"]}))
+    phase("tp", json.dumps({"fsdp": fs_out}))
     phase("done", f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
@@ -5465,6 +5837,11 @@ if __name__ == "__main__":
     elif len(sys.argv) == 6 and sys.argv[1] == "--tpt-rank":
         tpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                       Path(sys.argv[5]))
+    elif len(sys.argv) == 2 and sys.argv[1] == "--fsdp":
+        fsdp_main()
+    elif len(sys.argv) == 6 and sys.argv[1] == "--fsdp-rank":
+        tpt_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                      Path(sys.argv[5]), fsdp=True)
     elif len(sys.argv) == 1:
         main()
     else:
@@ -5472,4 +5849,4 @@ if __name__ == "__main__":
              "PARENT | --attn-timing DIR BITS | --attn-ab PARENT | "
              "--retrieval-timing DIR | --retrieval-ab PARENT | "
              "--centroid-timing DIR | --centroid-ab PARENT | --distributed | "
-             "--tensor-parallel | --tp-train]")
+             "--tensor-parallel | --tp-train | --fsdp]")

@@ -58,15 +58,37 @@ is vocabulary-parallel (``TPRank.nll``: the max and the exp-sum
 all-reduced, the target's logit from the rank that holds it).
 
 A group may also carry the mesh's ``data`` axis (``TPGroup(data=...)``,
-or a ``DeviceMesh`` with a ``data`` dim): an MoE layer then routes its
-dispatch groups as the reference's global program does across data
-shards (``models/moe.py``), and a train step sums its token counts,
-loss and gradients over ``data``.
+or a ``DeviceMesh`` with a ``data`` dim; on a ("pod", "data", "model")
+mesh the ranks of both, pod-major, as the batch splits over them): an
+MoE layer then routes its dispatch groups as the reference's global
+program does across data shards (``models/moe.py``), and a train step
+sums its token counts, loss and gradients over ``data``.
+
+FSDP (``RULES_FSDP``: ``embed`` over ``("data", "pod")`` on top of the
+``model`` split) is the same program over blocks split twice: a rank
+holds ``local_block`` of every parameter over the whole mesh (the
+``embed`` dim data-major over ``data`` x ``pod``, where it divides;
+whole where it does not, as the reference's divisibility pass keeps
+it), and ``TPRank.whole`` all-gathers a parameter's ``data`` blocks
+into its ``model`` block where the layers use it: a layer (or a remat
+group, whose backward's recompute gathers again) at a time, the final
+norm, ``vit_proj`` and the unembedding once a step.  The embedding's
+table is not gathered: every data shard's tokens are, and each rank
+looks up its columns of all their rows (``TPRank.embed_lookup``).  The
+gather's backward is a reduce-scatter (``_GatherData``):
+each rank gets its block of the gradient summed over ``data``, so a
+train step all-reduces over ``data`` only the parameters ``data`` does
+not split.  Bytes a gather moves: the whole ``model`` block out of
+every rank (the output's size, the reference's convention); its
+reduce-scatter's: the whole ``model`` block's gradient in
+(``MetaTPGroup`` counts the input's size).  Moments follow the
+parameters' blocks (``shard_opt_state``).
 
 Not here (``check_tp_supported`` raises): gemma2's rings and split
 cache, MLA, RWKV6, zamba2, ``kv_seq`` over ``model`` in a decode or
-train step (sequence-parallel KV), weights split over another axis
-(FSDP), and a decode step with gradients on.
+train step (sequence-parallel KV), weights split over an axis other
+than ``model``, ``data`` and ``pod`` (or one dim split over ``model``
+and another axis at once), and a decode step with gradients on.
 """
 
 from __future__ import annotations
@@ -88,10 +110,17 @@ AXIS = "model"
 SLAB_AXES = ("layers", None, None, "kv_heads", None)
 ENTRIES = ("serve_step", "serve_step_paged", "prefill", "train_step")
 DATA = "data"
+# the mesh axes a parameter may split over besides ``model`` (FSDP)
+DATA_AXES = ("data", "pod")
 
 
 def _model_mesh(size: int) -> shd.MeshAxes:
     return shd.MeshAxes((AXIS,), (size,))
+
+
+def _split(entry, sizes: Mapping[str, int]) -> Tuple[str, ...]:
+    """The axes of a spec entry that really split (size above 1)."""
+    return tuple(a for a in shd._entry_axes(entry) if sizes[a] > 1)
 
 
 def model_size(mesh) -> int:
@@ -104,8 +133,10 @@ def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAU
     """Raise unless ``entry`` of ``cfg`` has a tensor-parallel program
     here under ``rules`` on ``mesh``: a global-causal or plainly windowed
     GQA/MQA decoder (dense MLP or MoE, an image prefix or codebooks),
-    its weights split over ``model`` alone, gradients only in a train
-    step, and for a decode or train step KV not split along the
+    its weights split over ``model`` and, FSDP's, over ``data`` and
+    ``pod`` (a parameter's one dim over every one of those of the mesh
+    above 1, no dim over ``model`` and another axis), gradients only in
+    a train step, and for a decode or train step KV not split along the
     sequence (a prefill returns the rank's block of its cache whatever
     splits it)."""
     from repro_torch.models import transformer as tf
@@ -130,11 +161,22 @@ def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAU
     for axis, rule in rules.items():
         if axis in ("batch", "kv_seq"):
             continue
-        other = [a for a in shd._mesh_axes(sizes, rule) if a != AXIS]
+        other = [a for a in shd._mesh_axes(sizes, rule)
+                 if a != AXIS and a not in DATA_AXES]
         if other:
             raise ValueError(f"rules split {axis!r} over {other}: weights "
-                             "sharded beyond the model axis (FSDP) have no "
-                             "program")
+                             "sharded over an axis other than model, data "
+                             "and pod have no program")
+    data_axes = tuple(a for a in sizes if a != AXIS and sizes[a] > 1)
+    for name, spec in shd.param_shardings(cfg, mesh, rules).items():
+        split = [_split(e, sizes) for e in spec]
+        over = [ax for ax in split if set(ax) - {AXIS}]
+        if (any(AXIS in ax and len(ax) > 1 for ax in split) or len(over) > 1
+                or (over and set(over[0]) != set(data_axes))):
+            raise ValueError(f"parameter {name!r} splits as {spec} on "
+                             f"{dict(sizes)}: a program gathers one dim "
+                             "over every axis but model (FSDP), and no "
+                             "dim over model and another axis")
     m = sizes.get(AXIS, 1)
     if m > 1 and AXIS in shd._mesh_axes(sizes, rules.get("kv_seq")):
         if entry != "prefill":
@@ -148,15 +190,18 @@ def check_tp_supported(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAU
 
 @dataclass(frozen=True)
 class TPLayout:
-    """Which block of each parameter a rank of the ``model`` axis holds:
-    ``specs`` over a mesh of that axis alone (``spec_for``), the rank's
-    coordinate and the axis size, and the ranges the layers read."""
+    """Which block of each parameter a rank holds: ``specs`` over the
+    whole ``mesh`` (``spec_for``), the rank's ``coord`` on every axis,
+    the ``model`` axis's size and the rank's coordinate there (``size``,
+    ``rank``), and the ranges the layers read (its ``model`` block)."""
 
     size: int
     rank: int
     rules: shd.Rules
     specs: Dict[str, shd.Spec]
     shapes: Dict[str, Tuple[int, ...]]      # the whole parameters'
+    mesh: shd.MeshAxes
+    coord: Tuple[int, ...]
 
     def part(self, name: str, dim: int) -> Optional[Tuple[int, int]]:
         """[lo, hi) of parameter ``name``'s dim ``dim`` on this rank, or
@@ -164,8 +209,8 @@ class TPLayout:
         spec = self.specs.get(name)
         if spec is None or dim >= len(spec) or spec[dim] is None:
             return None
-        n = self.shapes[name][dim] // self.size
-        return self.rank * n, (self.rank + 1) * n
+        sl = self.block(name)[dim]
+        return sl.start, sl.stop
 
     def local_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """The shape of each parameter's block on this rank."""
@@ -174,19 +219,56 @@ class TPLayout:
                 for n, shape in self.shapes.items()}
 
     def block(self, name: str) -> Tuple[slice, ...]:
-        return shd.local_block(self.specs[name], self.shapes[name],
-                               _model_mesh(self.size), (self.rank,))
+        """The rank's block of parameter ``name``: both splits."""
+        return shd.local_block(self.specs[name], self.shapes[name], self.mesh,
+                               self.coord)
 
-    def split_dim(self, name: str) -> Optional[int]:
-        """The dim of parameter ``name`` split over the ranks, or None
-        where every rank holds it whole."""
-        dims = [d for d, e in enumerate(self.specs[name]) if e is not None]
-        return dims[0] if dims and self.size > 1 else None
+    def splits(self, name: str) -> Tuple[Tuple[int, Tuple[str, ...]], ...]:
+        """Each dim of parameter ``name`` that splits over the ranks,
+        with the mesh axes (above 1) it splits over, in the entry's
+        order (the first major)."""
+        sizes = shd._sizes(self.mesh)
+        return tuple((d, _split(e, sizes)) for d, e in
+                     enumerate(self.specs[name]) if _split(e, sizes))
+
+    def model_dim(self, name: str) -> Optional[int]:
+        """The dim of ``name`` split over ``model``, or None."""
+        return next((d for d, ax in self.splits(name) if AXIS in ax), None)
+
+    def data_dim(self, name: str) -> Optional[int]:
+        """The dim of ``name`` split over ``data`` (and ``pod``: FSDP),
+        or None where every data shard holds it whole."""
+        return next((d for d, ax in self.splits(name) if AXIS not in ax),
+                    None)
+
+    def _data_block(self, at: Mapping[str, int]) -> int:
+        """The index of the block along a ``data_dim`` at mesh coordinate
+        ``at`` (the FSDP entry's first axis major)."""
+        sizes = shd._sizes(self.mesh)
+        axes = next((ax for n in self.specs for _, ax in self.splits(n)
+                     if AXIS not in ax), ())
+        b = 0
+        for a in axes:
+            b = b * sizes[a] + at[a]
+        return b
 
     @property
-    def split_names(self) -> Tuple[str, ...]:
-        """The parameters split over the ranks (their blocks differ)."""
-        return tuple(n for n in self.shapes if self.split_dim(n) is not None)
+    def data_block(self) -> int:
+        """This rank's block index along a ``data_dim``."""
+        return self._data_block(dict(zip(self.mesh.mesh_dim_names,
+                                         self.coord)))
+
+    @property
+    def data_order(self) -> Tuple[int, ...]:
+        """For each rank of the ``data`` group (the mesh's other axes,
+        row-major in the mesh's order, as the batch splits over them),
+        the index of its block along a ``data_dim``: the identity but on
+        a ("pod", "data", ...) mesh, whose batch splits ``pod`` major and
+        whose ``embed`` ``data`` major."""
+        sizes = shd._sizes(self.mesh)
+        others = [a for a in self.mesh.mesh_dim_names if a != AXIS]
+        return tuple(self._data_block(dict(zip(others, at))) for at in
+                     np.ndindex(*(sizes[a] for a in others)))
 
     # the ranges the layers read (None: whole on every rank)
     @property
@@ -227,21 +309,34 @@ class TPLayout:
         return (self.heads is not None and self.kv_heads is None
                 and self.shapes["wk"][2] > 1)
 
+    @property
+    def fsdp(self) -> bool:
+        """Some parameter is split over ``data``: the steps gather it."""
+        return any(self.data_dim(n) is not None for n in self.shapes)
+
 
 def tp_layout(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT,
-              rank: Optional[int] = None) -> TPLayout:
-    """The layout of rank ``rank`` of ``mesh``'s ``model`` axis (default:
-    this process's coordinate on a ``DeviceMesh``)."""
+              rank: Optional[int] = None,
+              coord: Optional[Sequence[int]] = None) -> TPLayout:
+    """The layout of the rank at ``coord`` on ``mesh`` (one index a mesh
+    dim); without it, of rank ``rank`` of the ``model`` axis at
+    coordinate 0 on the others (default: this process's coordinate on a
+    ``DeviceMesh``)."""
     from repro_torch.models import transformer as tf
-    size = model_size(mesh)
-    if rank is None:
-        rank = (mesh.get_local_rank(AXIS) if AXIS in (mesh.mesh_dim_names or ())
-                else 0)
+    names = tuple(mesh.mesh_dim_names or ())
+    whole = shd.MeshAxes(names, tuple(int(s) for s in mesh.shape))
+    if coord is None:
+        if rank is None and hasattr(mesh, "get_coordinate"):
+            coord = mesh.get_coordinate()
+        else:
+            coord = [int(rank or 0) if n == AXIS else 0 for n in names]
+    coord = tuple(int(c) for c in coord)
     shapes = tf.param_shapes(cfg)
-    specs = shd.tree_shardings(tf.param_axes(cfg), shapes, _model_mesh(size),
-                               rules)
-    return TPLayout(size=size, rank=int(rank), rules=dict(rules), specs=specs,
-                    shapes=shapes)
+    specs = shd.tree_shardings(tf.param_axes(cfg), shapes, whole, rules)
+    return TPLayout(size=model_size(mesh),
+                    rank=coord[names.index(AXIS)] if AXIS in names else 0,
+                    rules=dict(rules), specs=specs, shapes=shapes, mesh=whole,
+                    coord=coord)
 
 
 def local_kv_heads(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT
@@ -256,12 +351,14 @@ def local_kv_heads(cfg: ArchConfig, mesh, rules: shd.Rules = shd.RULES_DEFAULT
 
 class TPGroup:
     """The ``model`` axis's process group: a ``DeviceMesh``'s ``model``
-    dim (``TPGroup(mesh=...)``, its ``data`` dim too where it has one)
-    or a plain group (``TPGroup(group)``, default the world), its rank
-    and size, and the collectives the tensor-parallel steps make.
-    ``data``: the process group of the mesh's ``data`` axis through this
-    rank (None: a ``data`` axis of one), which an MoE layer routes over
-    and a train step reduces over.  A CUDA tensor goes to the backend
+    dim (``TPGroup(mesh=...)``, its other dims' group too where it has
+    them) or a plain group (``TPGroup(group)``, default the world), its
+    rank and size, and the collectives the tensor-parallel steps make.
+    ``data``: the process group through this rank of the ranks that
+    share its ``model`` coordinate (None: a ``data`` axis of one), in
+    the order the batch splits over them (``pod`` major on a ("pod",
+    "data", "model") mesh), which an MoE layer routes over, a train step
+    reduces over and FSDP gathers over.  A CUDA tensor goes to the backend
     as it is (gloo included: no copy through the host here, and none
     when a backend refuses one).  ``timed`` adds each collective's host
     seconds (the device synchronized before it starts and after it
@@ -273,8 +370,7 @@ class TPGroup:
                  timed: bool = False):
         if mesh is not None:
             group = mesh.get_group(AXIS)
-            if DATA in (mesh.mesh_dim_names or ()):
-                data = mesh.get_group(DATA)
+            data = _data_group(mesh)
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
@@ -343,22 +439,110 @@ class TPGroup:
         dim (the ``data`` axis by default): [n * size, ...]."""
         return self._gather(x, axis, 0)
 
+    def all_to_all_first(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunk i of ``x`` [n k, ...] (along its first dim) sent to rank
+        i of ``data``; returns [n k, ...], chunk j from rank j."""
+        t0 = self._begin(x, DATA)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.data)
+        self._end(out, t0)
+        return out
 
-def masked_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
-                  ) -> torch.Tensor:
+    def all_gather_blocks(self, x: torch.Tensor, dim: int,
+                          order: Sequence[int]) -> torch.Tensor:
+        """Every ``data`` rank's block ``x`` joined along ``dim``, rank
+        i's at place ``order[i]``: the whole tensor (``_join``)."""
+        t0 = self._begin(x, DATA)
+        n = self.data_size
+        buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(buf, x.contiguous(), group=self.data)
+        out = _join(buf.view((n,) + tuple(x.shape)), dim, order)
+        self._end(out, t0)
+        return out
+
+    def reduce_scatter_blocks(self, x: torch.Tensor, dim: int,
+                              order: Sequence[int]) -> torch.Tensor:
+        """The sum of every ``data`` rank's ``x``, this rank's block of it
+        along ``dim`` (the one at place ``order[data_rank]``): the
+        inverse of ``all_gather_blocks``, its backward
+        (``_split_blocks``)."""
+        t0 = self._begin(x, DATA)
+        parts = _split_blocks(x, dim, order, self.data_size)
+        out = x.new_empty(parts.shape[1:])
+        dist.reduce_scatter_tensor(out, parts.flatten(0, 1),
+                                   op=dist.ReduceOp.SUM, group=self.data)
+        self._end(out, t0)
+        return out
+
+
+def _join(buf: torch.Tensor, dim: int, order: Sequence[int]) -> torch.Tensor:
+    """The whole tensor from ``buf`` [n, *block] (rank i's block at
+    ``buf[i]``, its place ``order[i]``): a view of ``buf`` where the
+    blocks split dim 0 in rank order, else one copy."""
+    n = buf.shape[0]
+    if list(order) != list(range(n)):
+        at = {b: i for i, b in enumerate(order)}
+        buf = buf[[at[b] for b in range(n)]]
+    shape = list(buf.shape[1:])
+    shape[dim] *= n
+    return buf.movedim(0, dim).reshape(shape)
+
+
+def _split_blocks(x: torch.Tensor, dim: int, order: Sequence[int],
+                  n: int) -> torch.Tensor:
+    """``x``'s ``n`` blocks along ``dim`` stacked [n, *block] in rank
+    order (rank i's the one at place ``order[i]``): a view of ``x``
+    where the blocks split dim 0 in rank order, else one copy."""
+    shape = list(x.shape)
+    shape[dim] //= n
+    parts = x.reshape(shape[:dim] + [n] + shape[dim:]).movedim(dim, 0)
+    if list(order) != list(range(n)):
+        parts = parts[list(order)]
+    return parts.contiguous()
+
+
+def _data_group(mesh) -> Optional[dist.ProcessGroup]:
+    """The group of a ``DeviceMesh``'s ranks that share this rank's
+    ``model`` coordinate (its one other dim's, or, over several, one
+    made by ``new_group`` in the mesh's row-major order; every rank
+    makes each), or None where it has no other dim."""
+    names = list(mesh.mesh_dim_names or ())
+    others = [n for n in names if n != AXIS]
+    if not others:
+        return None
+    if len(others) == 1:
+        return mesh.get_group(others[0])
+    ranks = mesh.mesh
+    if AXIS in names:
+        ranks = ranks.movedim(names.index(AXIS), -1)
+    ranks = ranks.reshape(-1, ranks.shape[-1] if AXIS in names else 1)
+    me, mine = dist.get_rank(), None
+    for col in ranks.T.tolist():
+        g = dist.new_group(col)
+        if me in col:
+            mine = g
+    return mine
+
+
+def masked_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                  lo: Optional[int]) -> torch.Tensor:
     """``table`` [n, d] (or [c, n, d] with ``tokens`` [..., c]: one table a
     codebook, giving [..., c, d]) at the rows of ``tokens`` - lo that
     fall in [0, n), zeros elsewhere (so backward reaches only those
-    rows)."""
+    rows); ``lo`` None: the whole vocabulary, no mask."""
     n = table.shape[-2]
-    local = tokens.long() - lo
-    ok = (local >= 0) & (local < n)
-    local = local.clamp(0, n - 1)
+    local = tokens.long() - (lo or 0)
+    if lo is not None:
+        ok = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
     if table.dim() == 2:
         rows = table[local]
     else:
         rows = torch.stack([table[c][local[..., c]]
                             for c in range(table.shape[0])], dim=-2)
+    if lo is None:
+        return rows
     return torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                         device=rows.device))
 
@@ -408,6 +592,24 @@ class MetaTPGroup:
         self._count("all-gather", out, axis)
         return out
 
+    def all_to_all_first(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(x)
+        self._count("all-to-all", out, DATA)
+        return out
+
+    def all_gather_blocks(self, x: torch.Tensor, dim: int,
+                          order: Sequence[int]) -> torch.Tensor:
+        buf = x.new_empty((self.data_size,) + tuple(x.shape))
+        out = _join(buf, dim, order)        # TPGroup's buffer and copy
+        self._count("all-gather", out, DATA)
+        return out
+
+    def reduce_scatter_blocks(self, x: torch.Tensor, dim: int,
+                              order: Sequence[int]) -> torch.Tensor:
+        self._count("reduce-scatter", x, DATA)
+        parts = _split_blocks(x, dim, order, self.data_size)
+        return x.new_empty(parts.shape[1:])
+
 
 Group = Union[TPGroup, MetaTPGroup]
 
@@ -454,6 +656,49 @@ class _GatherLast(torch.autograd.Function):
     def backward(ctx, g):
         r, n = ctx.group.rank, ctx.n
         return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+class _GatherData(torch.autograd.Function):
+    """FSDP's gather: a parameter's ``data`` blocks all-gathered along
+    ``dim`` into its ``model`` block; backward each rank's block of the
+    gradient summed over ``data`` (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, order):
+        ctx.group, ctx.dim, ctx.order = group, dim, order
+        return group.all_gather_blocks(x, dim, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter_blocks(g, ctx.dim, ctx.order), \
+            None, None, None
+
+
+def _data_rows(x: torch.Tensor, group, order: Sequence[int]) -> torch.Tensor:
+    """[T, ..., d]: this data rank's T tokens' whole rows, from ``x`` [D T,
+    ..., d / D] on every data rank, its column block of every data
+    shard's rows (the shards' tokens in rank order): shard j's T rows
+    sent to rank j (an all-to-all), the blocks received joined."""
+    D = group.data_size
+    mine = group.all_to_all_first(x).view((D, x.shape[0] // D)
+                                          + tuple(x.shape[1:]))
+    return _join(mine, x.dim() - 1, order)
+
+
+class _DataRows(torch.autograd.Function):
+    """FSDP's embedding exchange, ``_data_rows``; backward the other way:
+    each data rank's column block of this shard's row gradients sent to
+    it, every shard's rows of this rank's block received."""
+
+    @staticmethod
+    def forward(ctx, x, group, order):
+        ctx.group, ctx.order = group, order
+        return _data_rows(x, group, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = _split_blocks(g, g.dim() - 1, ctx.order, ctx.group.data_size)
+        return ctx.group.all_to_all_first(parts.flatten(0, 1)), None, None
 
 
 class _SplitLast(torch.autograd.Function):
@@ -562,12 +807,54 @@ class TPRank:
         return x[..., self.group.rank * n:(self.group.rank + 1) * n].clone(
             memory_format=torch.contiguous_format)
 
+    def whole(self, name: str, t: torch.Tensor, stacked: int = 0
+              ) -> torch.Tensor:
+        """Parameter ``name``'s ``model`` block from the rank's block
+        ``t`` (its first ``stacked`` layer dims indexed away): all-gathered
+        over ``data`` where FSDP splits it (``_GatherData`` where it takes
+        a gradient), else ``t``."""
+        d = self.layout.data_dim(name)
+        if d is None:
+            return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _GatherData.apply(t, self.group, d - stacked,
+                                     self.layout.data_order)
+        return self.group.all_gather_blocks(t, d - stacked,
+                                            self.layout.data_order)
+
+    def layer(self, lp: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A layer's parameters (``Transformer.layer``), each ``whole``."""
+        return {n: self.whole(n, t, 1) for n, t in lp.items()}
+
     def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
-                     lo: int) -> torch.Tensor:
-        """Rows ``tokens`` (global ids) of a table whose rank block holds
-        rows [lo, lo + n): ``masked_lookup``, then "g"; each row is one
-        rank's, so the sum is exact."""
-        return self.reduce(masked_lookup(table, tokens, lo), True)
+                     lo: Optional[int]) -> torch.Tensor:
+        """Rows ``tokens`` (global ids) of the embedding's rank block
+        ``table``, which holds rows [lo, lo + n) (``lo`` None: every row):
+        ``masked_lookup``, then "g" where the vocabulary splits (each row
+        is one rank's, so the sum is exact).  Under FSDP, whose block
+        holds d / D columns, the rows are looked up, not the table
+        gathered: every data shard's tokens all-gathered, this rank's
+        columns of all their rows looked up, and each shard's rows sent
+        to it and joined whole (``_DataRows``, an all-to-all each way;
+        the table block's gradient from the lookup's backward): T d
+        elements each way a rank of T tokens, and T d of memory, where
+        the table's gather and reduce-scatter would move and hold V d
+        each."""
+        fsdp = self.layout.data_dim("embed") is not None
+        shape = tokens.shape
+        if fsdp:        # [T] (or [T, c]) tokens of every data shard
+            tokens = self.group.all_gather_first(
+                tokens.reshape((-1,) + tuple(shape[len(shape) - (table.dim()
+                                                                 - 2):])))
+        rows = self.reduce(masked_lookup(table, tokens, lo), lo is not None)
+        if not fsdp:
+            return rows
+        order = self.layout.data_order
+        if torch.is_grad_enabled() and rows.requires_grad:
+            rows = _DataRows.apply(rows, self.group, order)
+        else:
+            rows = _data_rows(rows, self.group, order)
+        return rows.reshape(tuple(shape) + (rows.shape[-1],))
 
     def nll(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """fp32 per-token NLL of the rank's logit columns (its block of
@@ -594,8 +881,12 @@ def bind(model, tp: Optional[Group], entry: str) -> Optional[TPRank]:
     if tp.size != layout.size or tp.rank != layout.rank:
         raise ValueError(f"group rank {tp.rank} of {tp.size}, model block "
                          f"{layout.rank} of {layout.size}")
-    check_tp_supported(model.cfg, _model_mesh(layout.size), layout.rules,
-                       entry=entry, grad=torch.is_grad_enabled())
+    if layout.fsdp and (tp.data_size != len(layout.data_order) or
+                        layout.data_block != layout.data_order[tp.data_rank]):
+        raise ValueError(f"data rank {tp.data_rank} of {tp.data_size} does "
+                         "not hold the model's data block")
+    check_tp_supported(model.cfg, layout.mesh, layout.rules, entry=entry,
+                       grad=torch.is_grad_enabled())
     return TPRank(layout, tp, batch_over_data=entry != "serve_step_paged")
 
 
@@ -631,18 +922,22 @@ def _leaf(src, name: str, paths) -> torch.Tensor:
 
 def shard_model(src, cfg: ArchConfig, mesh,
                 rules: shd.Rules = shd.RULES_DEFAULT, *,
-                rank: Optional[int] = None, device: DeviceLike = "cuda",
+                rank: Optional[int] = None,
+                coord: Optional[Sequence[int]] = None,
+                device: DeviceLike = "cuda",
                 dtype: Optional[torch.dtype] = None):
-    """The ``Transformer`` of rank ``rank`` of ``mesh``'s ``model`` axis
-    (default: this process's coordinate on a ``DeviceMesh``): each
-    parameter's ``local_block`` of ``spec_for`` over that axis, copied
-    from ``src`` (a ``Transformer``, or the reference's ``init_params``
-    tree of numpy arrays as ``from_jax_params`` takes it) to ``device``
-    in ``dtype`` (None: the source's).  Raises where
-    ``check_tp_supported`` does for a prefill."""
+    """The ``Transformer`` of the rank at ``coord`` on ``mesh`` (or of
+    rank ``rank`` of its ``model`` axis, ``tp_layout``; default: this
+    process's coordinate on a ``DeviceMesh``): each parameter's
+    ``local_block`` of ``spec_for`` over the whole mesh (under FSDP
+    rules split over ``data`` too), copied from ``src`` (a
+    ``Transformer``, or the reference's ``init_params`` tree of numpy
+    arrays as ``from_jax_params`` takes it) to ``device`` in ``dtype``
+    (None: the source's).  Raises where ``check_tp_supported`` does for
+    a prefill."""
     from repro_torch.models import transformer as tf
     check_tp_supported(cfg, mesh, rules, entry="prefill")
-    layout = tp_layout(cfg, mesh, rules, rank)
+    layout = tp_layout(cfg, mesh, rules, rank, coord)
     dev = resolve_device(device)
     paths = {**tf._JAX_PATHS, **tf._FAMILY_PATHS}
     tensors = {}
@@ -730,13 +1025,17 @@ def shard_opt_state(state: Mapping[str, object], layout: TPLayout, *,
 
 def gather_tree(blocks: Mapping[str, torch.Tensor], layout: TPLayout,
                 tp: "TPGroup") -> Dict[str, torch.Tensor]:
-    """``shard_tree``'s inverse over the ``model`` axis: each split
-    block all-gathered along its split dim (whole ones as they are), for
-    tests and checkpoints."""
+    """``shard_tree``'s inverse: each block all-gathered along its dim
+    split over ``data`` (and ``pod``), then along its dim split over
+    ``model`` (whole ones as they are), for tests and checkpoints."""
     out = {}
     for name, t in blocks.items():
-        d = layout.split_dim(name)
         t = t.detach()
-        out[name] = t if d is None else tp.all_gather_last(
-            t.movedim(d, -1)).movedim(-1, d).contiguous()
+        d = layout.data_dim(name)
+        if d is not None:
+            t = tp.all_gather_blocks(t, d, layout.data_order)
+        d = layout.model_dim(name)
+        if d is not None:
+            t = tp.all_gather_last(t.movedim(d, -1)).movedim(-1, d)
+        out[name] = t.contiguous()
     return out

@@ -13,16 +13,18 @@ each cell is planned from shapes and traced on meta tensors
     cell's rules, as the reference's ``input_specs`` shards them;
   * a cell whose program ``tensor_parallel`` has
     (``check_tp_supported``: the GQA/MQA/MoE decoders, weights over
-    ``model`` alone, no sequence-parallel KV; a train cell under
-    ``RULES_DEFAULT``, as the hillclimb's ``"rules": "default"``
-    variants ask) traces ONE RANK's program at the cell's ``model``
-    size: ``shard_model`` of a meta model (rank 0's blocks), its cache
-    block or its moments' blocks, and a ``MetaTPGroup`` that counts
-    each collective's bytes (its output's size, the reference's
-    convention), forward and backward; the card's temporaries are that
-    trace's peak less its arguments, and its collectives go to the
-    ``model`` axis and, for a train step (the loss's sums, an MoE
-    layer's routing, the gradients' all-reduce), the batch's axes;
+    ``model`` and, under ``RULES_FSDP``, over ``data`` and ``pod``, no
+    sequence-parallel KV; every train cell, and a serve cell whose TP
+    weights do not fit) traces ONE RANK's program: ``shard_model`` of a
+    meta model (rank 0's blocks over the whole mesh), its cache block
+    or its moments' blocks, and a ``MetaTPGroup`` that counts each
+    collective's bytes (an all-gather's output, a reduce-scatter's
+    input, the reference's convention), forward and backward; the
+    card's temporaries are that trace's peak less its arguments (FSDP's
+    gathered layer among them), and its collectives go to the ``model``
+    axis and, for a train step (the loss's sums, an MoE layer's
+    routing, the gradients' all-reduce, FSDP's gathers and their
+    reduce-scatters) or an FSDP serve step, the batch's axes;
   * elsewhere temporaries a card are an ESTIMATE: the ``op_cost`` peak,
     less the arguments, of one card's batch shard (the global batch over
     ``data`` x ``pod``), traced at ``model`` = 1 and divided by the
@@ -38,8 +40,9 @@ A training cell runs the reference's step: ``make_loss_fn`` (remat in
 groups of ``remat_group`` = 1, attention chunks of 1024) over ``accum``
 microbatches (16 past 100e9 parameters, else 4; a card runs min(accum,
 its rows) microbatches), then ``adamw_update``; a tensor-parallel one
-runs ``train_loop.tp_microbatch`` and ``tp_update`` instead, with the
-reference's ``act_spec`` unless the variant's ``act_mode`` is "none".
+(FSDP's too) runs ``train_loop.tp_microbatch`` and ``tp_update``
+instead, with the reference's ``act_spec`` unless the variant's
+``act_mode`` is "none".
 Every microbatch does the same work, so a trace runs one (from live
 gradients when there are more) and counts it, and its collectives,
 that many times.  A prefill cell halves its batch
@@ -101,9 +104,6 @@ TEMP_NOTE = ("estimate: the op_cost peak less the arguments of one card's "
 TP_TEMP_NOTE = ("the op_cost peak less the arguments of one rank's "
                 "tensor-parallel program (tensor_parallel) on its batch "
                 "shard, traced at the cell's model size")
-ACT_SKIP = ("act_mode sets or drops act_spec under FSDP rules, which have "
-            "no program here (weights sharded beyond the model axis wait "
-            "for FSDP)")
 
 # (shape, dtype, spec) of one argument tensor
 Leaf = Tuple[Tuple[int, ...], torch.dtype, shd.Spec]
@@ -316,14 +316,8 @@ def _tp_train_trace(cfg: ArchConfig, opt_cfg: OptConfig,
     on its ``batch`` rows: min(accum, rows) microbatches of
     ``tp_microbatch``, then ``tp_update``; one microbatch traced and
     counted that many times, as ``_train_trace``, its collectives too."""
-    m = tpm.model_size(mesh)
-    sizes = shd._sizes(mesh)
-    axes = [a for a in shd._entry_axes(rules["batch"]) if sizes.get(a, 1) > 1]
-    group = tpm.MetaTPGroup(m, data_size=math.prod(sizes[a] for a in axes),
-                            data_axis="+".join(axes) or tpm.DATA)
-    model = tpm.shard_model(op_cost.meta_model(cfg, dtype), cfg,
-                            shd.MeshAxes(("model",), (m,)), rules, rank=0,
-                            device="meta").set_trainable()
+    group = _meta_group(mesh, rules)
+    model = _rank0_model(cfg, mesh, rules, dtype).set_trainable()
     params = dict(model.named_parameters())
     state = init_opt_state(params, opt_cfg)
     B = next(iter(batch.values())).shape[0]
@@ -349,11 +343,44 @@ def _tp_train_trace(cfg: ArchConfig, opt_cfg: OptConfig,
             "microbatches": n, "coll": coll}
 
 
+def _batch_axes(mesh, rules: shd.Rules) -> list:
+    sizes = shd._sizes(mesh)
+    return [a for a in shd._entry_axes(rules["batch"]) if sizes.get(a, 1) > 1]
+
+
+def _fsdp(cfg: ArchConfig, mesh, rules: shd.Rules) -> bool:
+    """Some parameter splits over an axis besides ``model``."""
+    sizes = shd._sizes(mesh)
+    return any(sizes[a] > 1 and a != "model"
+               for spec in shd.param_shardings(cfg, mesh, rules).values()
+               for e in spec for a in shd._entry_axes(e))
+
+
+def _meta_group(mesh, rules: shd.Rules, data: bool = True):
+    """Rank 0's ``MetaTPGroup``: the ``model`` axis's size, and (where
+    ``data``) the batch axes' joint size, its collectives counted under
+    those axes ("pod+data")."""
+    axes = _batch_axes(mesh, rules) if data else []
+    sizes = shd._sizes(mesh)
+    return tpm.MetaTPGroup(tpm.model_size(mesh),
+                           data_size=math.prod(sizes[a] for a in axes),
+                           data_axis="+".join(axes) or tpm.DATA)
+
+
+def _rank0_model(cfg: ArchConfig, mesh, rules: shd.Rules,
+                 dtype: torch.dtype):
+    """Rank 0's blocks of a meta model over the whole mesh."""
+    whole = shd.MeshAxes(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    return tpm.shard_model(op_cost.meta_model(cfg, dtype), cfg, whole, rules,
+                           coord=(0,) * len(whole.shape), device="meta")
+
+
 def tp_program(cfg: ArchConfig, suite: ShapeSuite, mesh, rules: shd.Rules
                ) -> Optional[str]:
     """None where the cell has a tensor-parallel program to trace (a cell
-    that ``check_tp_supported`` takes, ``model`` > 1), else why not."""
-    if tpm.model_size(mesh) == 1:
+    that ``check_tp_supported`` takes, ``model`` > 1 or the weights
+    split over ``data``), else why not."""
+    if tpm.model_size(mesh) == 1 and not _fsdp(cfg, mesh, rules):
         return "model = 1"
     try:
         tpm.check_tp_supported(cfg, mesh, rules, entry=suite.entry,
@@ -386,11 +413,11 @@ def trace_cell(cfg: ArchConfig, suite: ShapeSuite, specs, batch: int, *,
     model, kw, kv_heads = op_cost.meta_model(cfg, dtype), {}, None
     if tp is not None:
         mesh, rules = tp
-        m = tpm.model_size(mesh)
-        model = tpm.shard_model(model, cfg, shd.MeshAxes(("model",), (m,)),
-                                rules, rank=0, device="meta")
-        kw, kv_heads = {"tp": tpm.MetaTPGroup(m)}, tpm.local_kv_heads(
-            cfg, mesh, rules)
+        model = _rank0_model(cfg, mesh, rules, dtype)
+        # an FSDP step gathers over the batch's axes (its rows' MoE
+        # routing with them); a TP one's data shards make no collective
+        kw = {"tp": _meta_group(mesh, rules, data=model.tp_layout.fsdp)}
+        kv_heads = tpm.local_kv_heads(cfg, mesh, rules)
     inputs = _meta_inputs(specs["inputs"], batch)
     with torch.no_grad():
         if suite.entry == "prefill":
@@ -452,8 +479,7 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     ``param_dtype`` the weights' bf16 (an fp32 run's); ``variant``
     takes the hillclimb knobs (``accum``, ``moe_group``, ``split_cache``,
     ``kv_quant``, ``rules``, ``moment_bf16``, ``act_mode``: "none" drops
-    a tensor-parallel train step's ``act_spec``; under FSDP rules, which
-    have no program, an ``act_mode`` variant is skipped)."""
+    a tensor-parallel train step's ``act_spec``, FSDP's too)."""
     variant = dict(variant or {})
     cfg = apply_variant(cfg or get_arch(arch), variant)
     suite = suite or get_shape(shape)
@@ -466,11 +492,7 @@ def dry_run_cell(arch: str, shape: str, *, multi_pod: bool = False,
     res: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mname,
                            "rules": rules_override or "auto",
                            "variant": variant}
-    fsdp = any(a != "model" and a in shd._sizes(mesh) for a in
-               shd._entry_axes(rules_for(cfg, suite, mesh, rules_override)
-                               .get("embed")))
-    skip = suite.skip_reason(cfg) or (ACT_SKIP if "act_mode" in variant
-                                      and fsdp else None)
+    skip = suite.skip_reason(cfg)
     if skip:
         res["status"] = "skipped"
         res["skip_reason"] = skip

@@ -7,14 +7,12 @@ Each of the 15 variants of three cells goes through
 The knobs (``accum``, ``moe_group``, ``split_cache``, ``kv_quant``,
 ``rules``, ``moment_bf16``, ``act_mode``) apply as the reference applies
 them.  ``act_mode`` sets or drops ``act_spec``, the saved residual
-stream's split over ``model`` in a tensor-parallel train step: the two
-``v5_tponly_accum4`` variants (``RULES_DEFAULT``) run, granite-moe-3b's
-as rank 0's tensor-parallel train program and gemma2-27b's as the
-``NO_TP`` estimate (no tensor-parallel program for its rings); the
-other ``act_mode`` variants keep the FSDP rules, which have no program,
-and are written as ``status: "skipped"`` with that reason, never
-dropped.  The hypotheses are the reference's, about TPU v5e pods; their
-numbers are not the port's.
+stream's split over ``model`` in a tensor-parallel train step: every
+variant runs, granite-moe-3b's as rank 0's tensor-parallel train
+program (under the cell's FSDP rules, or ``RULES_DEFAULT`` for
+``v5_tponly_accum4``) and gemma2-27b's as the ``NO_TP`` estimate (no
+tensor-parallel program for its rings).  The hypotheses are the
+reference's, about TPU v5e pods; their numbers are not the port's.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb [--cell NAME]
 """

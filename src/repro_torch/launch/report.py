@@ -2,11 +2,12 @@
 ``launch/report.py``), over the two H100 meshes.
 
 The tables model cards the repo does not run: datasheet link
-bandwidths; a serve cell's tensor-parallel collectives and temporaries
-counted from one rank's program where the port has one (the note says
-"TP counted", with the ``model`` axis's bytes a step), elsewhere no
-tensor-parallel collectives and temporaries estimated at ``model`` = 1
-(``dryrun.py``).
+bandwidths; a cell's tensor-parallel (and FSDP) collectives and
+temporaries counted from one rank's program where the port has one
+(the note says "TP counted", with each axis's bytes a step: ``model``,
+and ``data`` or ``pod+data`` for a train step's or FSDP's), elsewhere
+no tensor-parallel collectives and temporaries estimated at ``model`` =
+1 (``dryrun.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.report [--dir experiments/dryrun_h100]
 """
@@ -70,8 +71,9 @@ def roofline_table(cells: Dict[str, dict]) -> str:
             if not d["memory"]["fits_80gb"]:
                 note.append("OVER H100 HBM")
             if r.get("tp_collectives", "").startswith("counted"):
-                note.append(f"TP counted, model "
-                            f"{r['coll_by_axis'].get('model', 0) / 1e6:.1f} MB")
+                note.append("TP counted, " + ", ".join(
+                    f"{a} {b / 1e6:.1f} MB"
+                    for a, b in sorted(r["coll_by_axis"].items())))
             rows.append(
                 f"| {arch} | {shape} | {_fmt_s(r['t_compute_s'])} | "
                 f"{_fmt_s(r['t_memory_s'])} | {_fmt_s(r['t_collective_s'])} | "

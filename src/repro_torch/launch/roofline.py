@@ -7,15 +7,18 @@ Sources:
     batch (the reference takes them from ``hlo_cost.jaxpr_cost``);
   * the collectives the port's programs make, per card and per mesh
     axis: the data-parallel all-reduce of a card's gradient block over
-    ``data`` x ``pod`` once a training step (``dryrun.dp_collectives``,
-    ``compression.payload_bytes``), and a serve cell's tensor-parallel
-    collectives over ``model``, counted from one rank's program traced
-    with ``tensor_parallel.MetaTPGroup`` (the all-reduces after ``wo``
-    and the MLP or MoE, the embedding's all-reduce and the logits'
-    all-gather; ``tp_collectives`` says TP_COUNTED).  A cell with
-    ``model`` > 1 and no such program (training, gemma2, MLA, RWKV6,
-    zamba2, sequence-parallel decode, FSDP rules) counts none and says
-    NO_TP.  The reference's HLO regexes and ``collective_bytes`` have no
+    ``data`` x ``pod`` once a training step of a cell with no
+    tensor-parallel program (``dryrun.dp_collectives``,
+    ``compression.payload_bytes``), and a cell's tensor-parallel (and
+    FSDP) collectives, counted from one rank's program traced with
+    ``tensor_parallel.MetaTPGroup`` (over ``model``: the all-reduces
+    after ``wo`` and the MLP or MoE, the embedding's all-reduce and the
+    logits' all-gather; over the batch's axes: a train step's sums and
+    gradient all-reduce, FSDP's weight all-gathers and their
+    reduce-scatters; ``tp_collectives`` says TP_COUNTED).  A cell with
+    ``model`` > 1 and no such program (gemma2, MLA, RWKV6, zamba2,
+    sequence-parallel KV) counts none and says NO_TP.  The reference's
+    HLO regexes and ``collective_bytes`` have no
     counterpart: there is no HLO to parse.
 
 Terms (seconds):

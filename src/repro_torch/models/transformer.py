@@ -418,13 +418,17 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
     reference sums them; tied embeddings (gemma) scaled by sqrt(d) in
     the embedding's dtype.  On a rank whose block holds part of the
     vocabulary, each row comes from the rank that holds it (one masked
-    lookup and all-reduce, of every codebook at once, before the sum)."""
+    lookup and all-reduce, of every codebook at once, before the sum);
+    under FSDP each row's column blocks come from the data shards that
+    hold them (``TPRank.embed_lookup``), the table never gathered."""
     cfg = model.cfg
     tokens = tokens.long()
     nc = codebooks(cfg)
     vocab = tp.layout.vocab if tp is not None else None
-    if vocab is not None:
-        rows = tp.embed_lookup(model.embed, tokens, vocab[0])
+    if vocab is not None or (tp is not None
+                             and tp.layout.data_dim("embed") is not None):
+        rows = tp.embed_lookup(model.embed, tokens,
+                               None if vocab is None else vocab[0])
         x = rows if not nc else rows[..., 0, :]
         for c in range(1, nc):
             x = x + rows[..., c, :]
@@ -439,22 +443,42 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
     return x
 
 
+def _param(model: Transformer, name: str, tp: Optional[TPRank] = None
+           ) -> torch.Tensor:
+    """Parameter ``name`` (not a layer's) as the layers use it: on a
+    rank, its ``model`` block (gathered over ``data`` under FSDP)."""
+    t = getattr(model, name)
+    return t if tp is None else tp.whole(name, t)
+
+
+def out_table(model: Transformer, tp: Optional[TPRank] = None
+              ) -> torch.Tensor:
+    """The table ``unembed`` multiplies by (the embedding when tied), as
+    ``_param`` gives it."""
+    return _param(model, "embed" if model.cfg.tie_embeddings
+                  and not codebooks(model.cfg) else "unembed", tp)
+
+
 def unembed(model: Transformer, x: torch.Tensor,
-            tp: Optional[TPRank] = None, gather: bool = True) -> torch.Tensor:
+            tp: Optional[TPRank] = None, gather: bool = True,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: [..., d] -> logits [..., V] (an audio model's [..., codebooks,
-    V]); through the embedding when tied; capped at the config's final
-    logit softcap.  On a rank whose block holds part of the vocabulary,
-    its logits' columns are all-gathered from every rank (``gather``;
-    else the rank's columns alone, x entering them through "f")."""
+    V]); through the embedding when tied (``table``: ``out_table``, where
+    the caller gathered it once); capped at the config's final logit
+    softcap.  On a rank whose block holds part of the vocabulary, its
+    logits' columns are all-gathered from every rank (``gather``; else
+    the rank's columns alone, x entering them through "f")."""
     split = tp is not None and tp.layout.unembed_vocab is not None
     if split and not gather:
         x = tp.copy(x)
+    if table is None:
+        table = out_table(model, tp)
     if codebooks(model.cfg):
-        logits = torch.einsum("...d,cdv->...cv", x, model.unembed)
+        logits = torch.einsum("...d,cdv->...cv", x, table)
     elif model.cfg.tie_embeddings:
-        logits = x @ model.embed.T
+        logits = x @ table.T
     else:
-        logits = x @ model.unembed
+        logits = x @ table
     if split and gather:
         logits = tp.gather_last(logits)
     return softcap(logits, model.cfg.final_logit_softcap)
@@ -541,14 +565,17 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     ``act_spec`` over ``model``, the residual stream saved at each remat
     group's boundary the rank's ``d / model`` columns
     (``TPRank.split_last``), all-gathered when the group runs and when
-    backward recomputes it; the values are the same either way."""
+    backward recomputes it; the values are the same either way.  Under
+    FSDP each layer's parameters are gathered over ``data`` where the
+    layer runs (``TPRank.layer``: inside a remat group, so backward's
+    recompute gathers them again), never a whole stacked tensor."""
     cfg = model.cfg
     tp = bind(model, tp, "train_step" if torch.is_grad_enabled()
               else "prefill")
     x = embed_tokens(model, tokens, tp)                  # [B, S, d]
     if image_embeds is not None:
         prefix = torch.einsum("bpe,ed->bpd", image_embeds.to(x.dtype),
-                              model.vit_proj)
+                              _param(model, "vit_proj", tp))
         x = torch.cat([prefix, x], dim=1)
     kind = family_kind(cfg)
     if kind != "attn":
@@ -574,6 +601,8 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             if sliced:
                 h = tp.gather_last(h)
             for lp, w in zip(lps, wins):
+                if tp is not None:
+                    lp = tp.layer(lp)
                 h, a, _ = _block(h, a, lp, cfg, positions, attn_chunk, w, tp)
             return (tp.split_last(h) if sliced else h), a
 
@@ -586,6 +615,8 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             x = tp.gather_last(x)
     else:
         for lp, w in zip(layers, windows):
+            if tp is not None:
+                lp = tp.layer(lp)
             x, aux, (k, v) = _block(x, aux, lp, cfg, positions, attn_chunk, w,
                                     tp)
             if want_cache:
@@ -594,7 +625,8 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     names = ("ckv", "kpe") if cfg.attn_kind == "mla" else ("k", "v")
     cache = ({names[0]: torch.stack(ks), names[1]: torch.stack(vs)}
              if want_cache else None)
-    return rms_norm(x, model.final_norm, cfg.norm_eps), aux, cache
+    return (rms_norm(x, _param(model, "final_norm", tp), cfg.norm_eps), aux,
+            cache)
 
 
 def _rwkv6_layer(cfg: ArchConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
@@ -761,7 +793,9 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
     With a ``data`` axis the batch is this shard's rows of the global
     one: the token count is summed over ``data`` and the NLL sum through
     "g" (all-reduce forward, identity backward), so every shard returns
-    the global batch's loss and backward reaches its own tokens."""
+    the global batch's loss and backward reaches its own tokens.  Under
+    FSDP the unembedding is gathered once for every chunk
+    (``out_table``), its gradient reduce-scattered once."""
     labels, mask = batch["labels"], batch.get("loss_mask")
     image_embeds = batch.get("image_embeds")
     x, aux, _ = forward(model, batch["tokens"], image_embeds=image_embeds,
@@ -774,12 +808,13 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
         x = x[:, image_embeds.shape[1]:]        # the loss on text positions
     S = x.shape[1]
     c = S // largest_divisor(S, max(S // loss_chunk, 1))
+    table = out_table(model, rank)
 
-    def chunk_loss(xc, lc, mc):
+    def chunk_loss(xc, lc, mc, w):
         if vocab_split:
-            nll = rank.nll(unembed(model, xc, rank, gather=False), lc)
+            nll = rank.nll(unembed(model, xc, rank, gather=False, table=w), lc)
         else:
-            nll = token_nll(unembed(model, xc, rank), lc)
+            nll = token_nll(unembed(model, xc, rank, table=w), lc)
         if nll.dim() == 3:                      # audio: [B, c, codebooks]
             nll = nll.mean(-1)
         return torch.sum(nll * mc), torch.sum(mc)
@@ -790,7 +825,7 @@ def loss_fn(model: Transformer, batch: Mapping[str, torch.Tensor], *,
         lc = labels[:, i:i + c]
         mc = (torch.ones(lc.shape[:2], dtype=torch.float32, device=x.device)
               if mask is None else mask[:, i:i + c].float())
-        t, n = checkpoint(chunk_loss, x[:, i:i + c], lc, mc,
+        t, n = checkpoint(chunk_loss, x[:, i:i + c], lc, mc, table,
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     if rank is not None and rank.data_size > 1:
@@ -949,16 +984,20 @@ def _decode(model: Transformer, tokens: torch.Tensor,
     row order, as the reference's step dispatches them), then the final
     norm and the unembedding.  Returns logits [B, V] (audio [B,
     codebooks, V]).  On a rank (``tp``) each of those on its blocks,
-    with their collectives."""
+    with their collectives (under FSDP each layer's parameters gathered
+    over ``data`` before it runs, ``TPRank.layer``)."""
     cfg = model.cfg
     h = embed_tokens(model, tokens, tp)                  # [B, d]
     for l in range(cfg.num_layers):
         lp = model.layer(l)
+        if tp is not None:
+            lp = tp.layer(lp)
         h = h + attend(l, lp, rms_norm(h, lp["attn_norm"], cfg.norm_eps))
         m_out, _ = _mlp(lp, rms_norm(h, lp["mlp_norm"], cfg.norm_eps), cfg,
                         tp, want_aux=False)
         h = h + m_out
-    return unembed(model, rms_norm(h, model.final_norm, cfg.norm_eps), tp)
+    return unembed(model, rms_norm(h, _param(model, "final_norm", tp),
+                                   cfg.norm_eps), tp)
 
 
 def serve_step(model: Transformer, cache: Dict[str, torch.Tensor],

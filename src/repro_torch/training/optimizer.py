@@ -94,20 +94,30 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def sharded_global_norm(grads: Mapping[str, torch.Tensor],
-                        split: Collection[str],
-                        reduce: Callable[[torch.Tensor], torch.Tensor],
+                        axes: Mapping[str, Collection[str]],
+                        reduce: Callable[[torch.Tensor, str], torch.Tensor],
                         ) -> torch.Tensor:
-    """``global_norm`` of the whole tree when each rank of a group holds
-    the blocks ``grads``: the squares of the blocks named in ``split``
-    (parameters split over the group) summed over the ranks by
-    ``reduce`` (an all-reduce), every other tensor (replicated, the same
-    on every rank) counted once."""
+    """``global_norm`` of the whole tree when each rank holds the blocks
+    ``grads``: ``axes[name]`` the group axes ("model", "data") whose
+    ranks hold different blocks of ``name`` (none: the same tensor on
+    every rank); each block's squares are summed over exactly those
+    axes by ``reduce(t, axis)`` (an all-reduce), so a block replicated
+    over an axis is counted once there.  One all-reduce over ``model``,
+    and one over ``data`` where a block splits over it."""
     dev = next(iter(grads.values())).device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    part = _sum_squares(g for n, g in grads.items() if n in split)
-    whole = _sum_squares(g for n, g in grads.items() if n not in split)
-    total = reduce(zero + (part if part is not None else zero))
-    return torch.sqrt(total + (whole if whole is not None else zero))
+    by: Dict[frozenset, list] = {}
+    for n, g in grads.items():
+        by.setdefault(frozenset(axes.get(n, ())), []).append(g)
+    sums = {k: _sum_squares(v) for k, v in by.items()}
+    s = lambda *k: sums.get(frozenset(k), zero)
+    data_only = zero
+    part = s("model")
+    if any("data" in k for k in sums):
+        d = reduce(torch.stack([s("data"), s("model", "data")]), "data")
+        data_only, part = d[0], part + d[1]
+    total = reduce(zero + part, "model")
+    return torch.sqrt(total + s() + data_only)
 
 
 def adamw_update(params: Mapping[str, torch.Tensor],

@@ -7,11 +7,14 @@ in place of ``jax.value_and_grad`` and the update in place:
   the global batch, then an all-reduce of the gradients, averaged or
   int8-compressed with error feedback (``distributed/compression.py``);
 * ``make_tp_train_step``: the program the reference's partitioner makes
-  of ``make_train_step`` under ``RULES_DEFAULT`` on a ("data", "model")
-  mesh: a rank's model blocks (``tensor_parallel.shard_model``) and its
-  moments' blocks (``shard_opt_state``), its rows of each microbatch,
-  the loss and token counts of the global batch, the gradients summed
-  over ``data``, the norm over the whole tree.
+  of ``make_train_step`` under ``RULES_DEFAULT`` or ``RULES_FSDP`` on a
+  ("data", "model") or ("pod", "data", "model") mesh: a rank's model
+  blocks (``tensor_parallel.shard_model``; under FSDP split over
+  ``data`` too, gathered a layer at a time in each microbatch, as the
+  reference re-gathers FSDP weights per microbatch) and its moments'
+  blocks (``shard_opt_state``), its rows of each microbatch, the loss
+  and token counts of the global batch, the gradients summed over
+  ``data``, the norm over the whole tree.
 
 The reference's ``act_spec`` (a GSPMD sharding constraint on the saved
 residual stream) changes nothing on one device; under tensor
@@ -144,11 +147,12 @@ def make_tp_train_step(cfg: ArchConfig, opt_cfg: OptConfig, *,
     layer's groups and aux loss over the whole microbatch), its
     backward the rank's share; the gradients are summed over
     microbatches and scaled by 1/accum_steps as the reference's scan,
-    all-reduced over ``data``, and clipped by the whole tree's norm
-    (``sharded_global_norm``: split blocks' squares summed over
-    ``model``, replicated parameters counted once).  ``act_spec`` as
-    ``forward``'s.  Metrics as ``make_train_step``'s, the same on every
-    rank."""
+    summed over ``data`` (an FSDP block's by its gather's backward, a
+    reduce-scatter; the rest all-reduced), and clipped by the whole
+    tree's norm (``sharded_global_norm``: each block's squares summed
+    over the axes that split it, replicated parameters counted once).
+    ``act_spec`` as ``forward``'s.  Metrics as ``make_train_step``'s,
+    the same on every rank."""
     check_trainable(cfg)
     kw = dict(attn_chunk=attn_chunk, remat=remat, remat_group=remat_group,
               loss_chunk=loss_chunk, act_spec=act_spec)
@@ -189,21 +193,26 @@ def tp_microbatch(model: tf.Transformer, rows: Batch, tp, **kw):
 def tp_update(model: tf.Transformer, opt_state: Dict[str, object],
               opt_cfg: OptConfig, tp, accum_steps: int = 1):
     """The tensor-parallel step's end: the summed gradients scaled by
-    1/accum_steps and all-reduced over ``data``, the whole tree's norm
+    1/accum_steps and all-reduced over ``data`` where ``data`` does not
+    split the parameter (an FSDP block's gradient arrives summed over
+    ``data`` from its gather's backward), the whole tree's norm
     (``sharded_global_norm``) and AdamW on the rank's blocks.  Returns
     (opt_state, {"lr", "grad_norm"})."""
     params = dict(model.named_parameters())
+    lay = model.tp_layout
     with torch.no_grad():
-        for p in params.values():
+        for n, p in params.items():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             if accum_steps > 1:
                 p.grad.mul_(1.0 / accum_steps)
-            if tp.data_size > 1:
+            if tp.data_size > 1 and lay.data_dim(n) is None:
                 tp.all_reduce_sum(p.grad, "data")
     grads = {n: p.grad for n, p in params.items()}
-    norm = sharded_global_norm(grads, model.tp_layout.split_names,
-                               lambda t: tp.all_reduce_sum(t))
+    axes = {n: [a for a, d in (("model", lay.model_dim(n)),
+                               ("data", lay.data_dim(n))) if d is not None]
+            for n in params}
+    norm = sharded_global_norm(grads, axes, tp.all_reduce_sum)
     _, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
                                     grad_norm=norm)
     return opt_state, om

@@ -4,7 +4,8 @@ against the CPU's) and a checkpoint round trip there (training runs no
 hand-written kernel); over an NCCL process group of one rank, the
 data-parallel step against the train step (to the bit) and the sharded
 search against kernel 3; and over gloo ranks sharing the card, the
-tensor-parallel serve steps and train step against the one-rank ones.  Every test is marked ``cuda`` and skips inside its body when
+tensor-parallel serve steps and train step, and the FSDP ones, against
+the one-rank ones.  Every test is marked ``cuda`` and skips inside its body when
 ``torch.cuda.is_available()`` is False.  The file imports neither JAX nor
 the JAX package, so it runs on a card host that has neither:
 
@@ -1643,3 +1644,98 @@ def test_tensor_parallel_train_over_gloo_ranks_on_the_card(arch, tmp_path):
                         e_p, _, _, e_m, s_m, e_v, s_v = got[f"{at}/{act}/leaf/{n}"]
                         assert e_p <= 2e-4 and e_m <= 1e-4 * s_m + 1e-12 \
                             and e_v <= 1e-4 * s_v + 1e-12, (mname, r, s, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-moe-3b-a800m"])
+def test_fsdp_over_gloo_ranks_on_the_card(arch, tmp_path):
+    """The reduced ``arch`` (fp32) under ``RULES_FSDP`` over a (2, 1)
+    rank pair of gloo ranks on card 0 (``torch_dist_ranks``' ``fsdp``:
+    the weights split over ``data`` and gathered a layer at a time):
+    ``serve_step_paged`` (every row), ``serve_step`` and ``prefill``
+    (the rank's rows) within 1e-4 of the scale of the one-rank model's
+    on the card, and 2 train steps against the one-rank
+    ``make_train_step`` in the reference's place, to the tolerances of
+    the tensor-parallel card test above."""
+    import json
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_dist_ranks
+    import torch_tp_cases as cases
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_train_step)
+    dev = _card()
+    _build.build_all(_build.SOURCES)
+    cfg = cases.config(arch)
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    kw = dict(attn_chunk=8, remat_group=2, loss_chunk=8)
+    paths = {**ttf._JAX_PATHS, **ttf._FAMILY_PATHS}
+    flat, inp = cases.weights(cfg), cases.inputs(cfg)
+    batches = [cases.train_batch(cfg, s) for s in range(2)]
+    ref = {}
+    model = ttf.from_jax_params(cases.tree(flat), cfg,
+                                device=dev).set_trainable()
+    params = dict(model.named_parameters())
+    state = init_opt_state(params, opt)
+    step = make_train_step(cfg, opt, remat=True, **kw)
+    for s, b in enumerate(batches):
+        model, state, m = step(model, state, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        at = f"{arch}/f2x1/1/{s}"
+        ref.update({f"{at}/{k}": np.asarray(float(v)) for k, v in m.items()})
+        ref[f"{at}/step"] = np.asarray(int(state["step"]))
+        for n, p in params.items():
+            path = "/".join(paths[n])
+            ref[f"{at}/params/{path}"] = p.detach().cpu().numpy().copy()
+            for k in ("m", "v"):
+                ref[f"{at}/{k}/{path}"] = state[k][n].cpu().numpy().copy()
+    np.savez(tmp_path / "ref.0.npz", **ref)
+    meta = {"train": {"cases": [[arch, "f2x1", [2, 1], 1, False, "FSDP"]],
+                      "steps": 2, "opt": dict(lr=1e-3, warmup_steps=1,
+                                              total_steps=10),
+                      "kw": kw, "device": "cuda",
+                      "reference": [str(tmp_path / "ref.0.npz")]},
+            "serve": {"cases": [[arch, "", "float32"]], "device": "cuda",
+                      "meshes": [["f2x1", [2, 1]]], "rules": "FSDP",
+                      "int8": False}}
+    np.savez(tmp_path / "in.npz", meta=np.array(json.dumps(meta)),
+             **{f"w/{arch}/{k}": v for k, v in flat.items()},
+             **{f"in/{arch}/{k}": v for k, v in inp.items()},
+             **{f"batch/{arch}/{s}/{k}": v for s, b in enumerate(batches)
+                for k, v in b.items()})
+    ranks = torch_dist_ranks.run("fsdp", 2, tmp_path / "in.npz", tmp_path)
+    want = cases.run_steps(ttf.from_jax_params(cases.tree(flat), cfg,
+                                               device=dev),
+                           inp, torch.float32, device=dev)
+    mesh = sh.MeshAxes(("data", "model"), (2, 1))
+    for r in range(2):
+        rows = slice(r * cases.B // 2, (r + 1) * cases.B // 2)
+        for key, w in want.items():
+            step_name, out = key.split("/")
+            if out != "logits":
+                axes = (tpm.SLAB_AXES if step_name == "paged"
+                        else ttf.cache_axes(cfg)[out])
+                w = w[sh.local_block(sh.spec_for(axes, w.shape, mesh,
+                                                 sh.RULES_FSDP),
+                                     w.shape, mesh, (r, 0))]
+            elif step_name != "paged":
+                w = w[rows]
+            got = ranks[r][f"f2x1/{arch}/float32/{key}"]
+            assert got.shape == w.shape, (r, key)
+            err = np.abs(got - w).max()
+            assert err <= 1e-4 * np.abs(w).max(), (r, key, err)
+        for s in range(2):
+            at = f"{arch}/f2x1/1/{s}"
+            assert bool(ranks[r][f"{at}/act_same"]), (r, s)
+            for act in (0, 1):
+                got = ranks[r]
+                for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+                    np.testing.assert_allclose(got[f"{at}/{act}/{k}"],
+                                               ref[f"{at}/{k}"], rtol=rtol)
+                for n in ttf.param_shapes(cfg):
+                    e_p, _, _, e_m, s_m, e_v, s_v = got[f"{at}/{act}/leaf/{n}"]
+                    assert e_p <= 2e-4 and e_m <= 1e-4 * s_m + 1e-12 \
+                        and e_v <= 1e-4 * s_v + 1e-12, (r, s, n)

@@ -18,11 +18,10 @@ the reference's, on the CPU.
   ``status: "ok"`` with the reference's cell keys, and
   ``report.roofline_table`` renders it.
 * The hillclimb plan is the reference's.  Its ``act_mode`` variants
-  under FSDP rules are skipped with their reason; the two
-  ``v5_tponly_accum4`` variants (``RULES_DEFAULT``) run, on a reduced
-  config and a 2 x 2 mesh: granite-moe-3b traces rank 0's
-  tensor-parallel train program, gemma2-27b stays ``NO_TP`` with its
-  reason.
+  run, on a reduced config and a 2 x 2 mesh, under their rules (FSDP,
+  or ``RULES_DEFAULT`` for the two ``v5_tponly_accum4``): granite-moe-3b
+  traces rank 0's tensor-parallel (FSDP) train program, gemma2-27b
+  stays ``NO_TP`` with its reason (its rings).
 * The production meshes' names and sizes, and ``make_host_mesh`` over a
   gloo world of one.
 """
@@ -207,9 +206,9 @@ def test_dry_run_cell_of_each_entry_on_a_small_mesh(arch):
         mem = d["memory"]
         assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
         assert mem["temp_bytes"] > 0 and mem["fits_80gb"]
-        # a serve cell of a GQA/MoE decoder counts one rank's
-        # tensor-parallel program; training and gemma2 have none
-        tp = name != "train_4k" and arch != "gemma2-27b"
+        # a cell of a GQA/MoE decoder counts one rank's tensor-parallel
+        # program (a train cell's under FSDP); gemma2 has none
+        tp = arch != "gemma2-27b"
         assert d["roofline"]["tp_collectives"] == (trl.TP_COUNTED if tp
                                                    else trl.NO_TP)
         assert ("model" in d["roofline"]["coll_by_axis"]) == tp
@@ -241,12 +240,8 @@ def test_hillclimb_plan_is_the_reference_one():
     for cell, arch, shape, vname, variant, _ in thc.PLAN:
         if "act_mode" not in variant:
             continue
-        if variant.get("rules") != "default":
-            d = tdr.dry_run_cell(arch, shape, variant=variant, verbose=False)
-            assert d["status"] == "skipped" and "FSDP" in \
-                d["skip_reason"], (cell, vname)
-            continue
-        # a TP-only variant runs; reduced, so the test stays quick
+        # every variant runs, under FSDP or (v5) TP-only rules; reduced,
+        # so the test stays quick
         d = tdr.dry_run_cell(arch, shape, variant=variant, verbose=False,
                              cfg=tget_arch(arch).reduced(),
                              mesh=tsh.MeshAxes(("data", "model"), (2, 2)),
@@ -258,7 +253,10 @@ def test_hillclimb_plan_is_the_reference_one():
         assert d["roofline"]["tp_collectives"] == (trl.TP_COUNTED if tp
                                                    else trl.NO_TP)
         assert ("model" in d["roofline"]["coll_by_axis"]) == tp
+        assert d["rules_used"] == ("DEFAULT" if variant.get("rules")
+                                   else "FSDP")
         ran.append(vname)
-    assert ran == ["v5_tponly_accum4", "v5_tponly_accum4"]
+    assert ran == [p[3] for p in thc.PLAN if "act_mode" in p[4]]
+    assert ran.count("v5_tponly_accum4") == 2 and len(ran) == 12
     kept = [p for p in thc.PLAN if "act_mode" not in p[4]]
     assert [p[3] for p in kept] == ["v0_unsplit", "v1_split", "v2_split_int8"]

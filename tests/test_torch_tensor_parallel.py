@@ -302,19 +302,25 @@ def test_what_is_not_ported_is_refused(what):
             tpm.check_tp_supported(cfg, mesh, sh.RULES_LONG_CONTEXT,
                                    entry="prefill")
     elif what == "fsdp":
-        with pytest.raises(ValueError, match="FSDP"):
-            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP)
+        # FSDP's serve entries have a program; with sequence-parallel KV
+        # (RULES_FSDP_LONG) a decode step has none
+        for entry in ("serve_step", "serve_step_paged", "prefill"):
+            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP, entry=entry)
+        with pytest.raises(ValueError, match="sequence-parallel"):
+            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP_LONG)
     elif what == "grad":
         with pytest.raises(ValueError, match="gradients"):
             tpm.check_tp_supported(cfg, mesh, grad=True)
     elif what == "train_step":
-        # a train step has a program (with gradients); an unknown entry,
-        # FSDP and sequence-parallel KV do not
+        # a train step has a program (with gradients), FSDP's too; an
+        # unknown entry and sequence-parallel KV do not
         tpm.check_tp_supported(cfg, mesh, entry="train_step", grad=True)
         with pytest.raises(ValueError, match="no tensor-parallel program"):
             tpm.check_tp_supported(cfg, mesh, entry="serve_step_paged_spliced")
-        with pytest.raises(ValueError, match="FSDP"):
-            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP,
+        tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP, entry="train_step",
+                               grad=True)
+        with pytest.raises(ValueError, match="sequence-parallel"):
+            tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP_LONG,
                                    entry="train_step", grad=True)
         with pytest.raises(ValueError, match="sequence-parallel"):
             tpm.check_tp_supported(cfg, mesh, sh.RULES_LONG_CONTEXT,

@@ -200,8 +200,10 @@ def test_meta_group_counts_the_ranks_collectives(runs, arch, mname, shape,
 def test_tp_train_refuses_what_has_no_program(what):
     mesh = sh.MeshAxes(("data", "model"), (2, 2))
     cfg, rules = cases.config("llama3-8b"), sh.RULES_DEFAULT
-    if what == "fsdp":
-        rules, match = sh.RULES_FSDP, "FSDP"
+    if what == "fsdp":  # FSDP has a program; with sequence-parallel KV not
+        tpm.check_tp_supported(cfg, mesh, sh.RULES_FSDP, entry="train_step",
+                               grad=True)
+        rules, match = sh.RULES_FSDP_LONG, "sequence-parallel"
     elif what == "kv_seq":
         rules, match = sh.RULES_LONG_CONTEXT, "sequence-parallel"
     else:

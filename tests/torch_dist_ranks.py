@@ -28,10 +28,18 @@ results.  Jobs:
   of the first ranks, the layouts by coordinate.  ``meta["device"]``
   "cuda" runs every rank on card 0 (gloo takes the CUDA tensors);
 * ``tp_train``: ``make_tp_train_step`` of each case (arch, mesh,
-  accum_steps) with ``act_spec`` off and on, each step from the
-  reference's state before it (read from the reference children's
-  files), compared there leaf by leaf (``job_tp_train``);
-  ``meta["device"]`` "cuda" as ``tp_serve``'s.
+  accum_steps; optionally the rule set and a ``torch_tp_cases`` tweak)
+  with ``act_spec`` off and on, each step from the reference's state
+  before it (read from the reference children's files), compared there
+  leaf by leaf (``job_tp_train``); ``meta["device"]`` "cuda" as
+  ``tp_serve``'s;
+* ``fsdp``: ``tp_serve`` of ``meta["serve"]`` then ``tp_train`` of
+  ``meta["train"]`` in one spawn, both under the rule set their meta
+  names (``RULES_FSDP``: the weights split over ``data`` too).
+
+A mesh is ("data", "model") or, of three sizes, ("pod", "data",
+"model"); ``meta["rules"]`` (or a train case's sixth entry) names the
+rule set, ``RULES_DEFAULT`` where it names none.
 """
 
 from __future__ import annotations
@@ -252,7 +260,6 @@ def job_search(rank: int, inp: dict, meta: dict) -> dict:
 def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
     import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     import torch_tp_cases as cases
     from repro_torch.distributed import sharding as sh
@@ -264,22 +271,15 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
     dev = torch.device(meta.get("device", "cpu"))
     if dev.type == "cuda":
         torch.cuda.set_device(0)
+    rules = getattr(sh, f"RULES_{meta.get('rules', 'DEFAULT')}")
     out = {}
     for mname, (data, m) in meta["meshes"]:
         W = data * m
-        if W == world:
-            dm = init_device_mesh("cpu", (data, m),
-                                  mesh_dim_names=("data", "model"))
-            tp, mesh, mc, coord = tpm.TPGroup(mesh=dm), dm, None, None
-        else:
-            groups = [dist.new_group([d * m + i for i in range(m)])
-                      for d in range(data)]
-            mesh = sh.MeshAxes(("data", "model"), (data, m))
-        if rank >= W:
+        tp, coord = _groups(rank, world, (data, m))
+        if tp is None:
             continue
-        dc = rank // m
-        if W != world:
-            tp, mc, coord = tpm.TPGroup(groups[dc]), rank % m, (dc, rank % m)
+        mesh = sh.MeshAxes(("data", "model"), (data, m))
+        dc = coord[0]
         for arch, tw, dname in meta["cases"]:
             cfg = cases.config(arch, tw)
             dtype = getattr(torch, dname)
@@ -288,8 +288,8 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
                     if k.startswith(f"w/{key}/")}
             x = {k[len(f"in/{key}/"):]: v for k, v in inp.items()
                  if k.startswith(f"in/{key}/")}
-            model = tpm.shard_model(cases.tree(flat), cfg, mesh, rank=mc,
-                                    device=dev, dtype=dtype)
+            model = tpm.shard_model(cases.tree(flat), cfg, mesh, rules,
+                                    coord=coord, device=dev, dtype=dtype)
             t = lambda a, dt=None: torch.from_numpy(np.array(a)).to(
                 device=dev, dtype=dt)
             n = cases.B // data
@@ -298,20 +298,22 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
             with torch.no_grad():
                 cache = tpm.shard_cache({"k": t(x["k"], dtype),
                                          "v": t(x["v"], dtype)}, cfg, mesh,
-                                        coord=coord)
-                tp.calls = 0
+                                        rules, coord=coord)
+                tp.calls = tp.data_calls = 0
                 logits, cache = tf.serve_step(
                     model, cache, {"token": t(x["token"][rows]),
                                    "pos": t(x["pos"][rows])}, tp=tp)
                 out[f"{at}/dense/calls"] = np.asarray(tp.calls)
+                out[f"{at}/dense/data_calls"] = np.asarray(tp.data_calls)
                 out.update({f"{at}/dense/logits": logits.float().cpu().numpy(),
                             f"{at}/dense/k": cache["k"].float().cpu().numpy(),
                             f"{at}/dense/v": cache["v"].float().cpu().numpy()})
-                if dname == "float32":      # the int8 cache, its scales split
+                if dname == "float32" and meta.get("int8", True):
+                    # the int8 cache, its scales split
                     qc = {n: t(x[f"{n}_q"]) for n in "kv"}
                     qc.update({f"{n}_scale": t(x[f"{n}_scale"], torch.bfloat16)
                                for n in "kv"})
-                    qc = tpm.shard_cache(qc, cfg, mesh, coord=coord)
+                    qc = tpm.shard_cache(qc, cfg, mesh, rules, coord=coord)
                     logits, qc = tf.serve_step(
                         model, qc, {"token": t(x["token"][rows]),
                                     "pos": t(x["pos"][rows])}, kv_quant=True,
@@ -321,7 +323,7 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
                                 for n, v in qc.items()})
                 slab = tpm.shard_cache(KVPageSlab(
                     k=t(x["k_slab"], dtype), v=t(x["v_slab"], dtype),
-                    page_size=cases.PS), cfg, mesh, coord=coord)
+                    page_size=cases.PS), cfg, mesh, rules, coord=coord)
                 logits, ks, vs = tf.serve_step_paged(
                     model, slab.k, slab.v, t(x["block_table"]),
                     t(x["lengths"]), {"token": t(x["token"])}, tp=tp)
@@ -331,9 +333,10 @@ def job_tp_serve(rank: int, inp: dict, meta: dict) -> dict:
                 pin = {"tokens": t(x["tokens"][rows])}
                 if "image_embeds" in x:
                     pin["image_embeds"] = t(x["image_embeds"][rows], dtype)
-                tp.calls = 0
+                tp.calls = tp.data_calls = 0
                 logits, cache = tf.prefill(model, pin, attn_chunk=4, tp=tp)
                 out[f"{at}/prefill/calls"] = np.asarray(tp.calls)
+                out[f"{at}/prefill/data_calls"] = np.asarray(tp.data_calls)
                 out.update({f"{at}/prefill/logits": logits.float().cpu().numpy(),
                             f"{at}/prefill/k": cache["k"].float().cpu().numpy(),
                             f"{at}/prefill/v": cache["v"].float().cpu().numpy()})
@@ -358,19 +361,28 @@ class _Parts:
         return self.where[key][key]
 
 
-def _groups(rank: int, world: int, data: int, m: int):
-    """This rank's ``TPGroup`` on a ("data", "model") mesh of ``data`` x
-    ``m`` ranks (a ``DeviceMesh`` the size of the world; plain groups of
-    the first ranks otherwise) and its (data, model) coordinate, or
-    (None, None) off the mesh.  Every rank makes every group."""
+def _names(shape) -> tuple:
+    """A mesh's axis names: ("data", "model"), or ("pod", "data",
+    "model") for three sizes."""
+    return ("pod", "data", "model")[3 - len(shape):]
+
+
+def _groups(rank: int, world: int, shape):
+    """This rank's ``TPGroup`` on a mesh of ``shape`` (``_names``; a
+    ``DeviceMesh`` the size of the world; plain groups of the first
+    ranks of a ("data", "model") mesh otherwise) and its coordinate,
+    or (None, None) off the mesh.  Every rank makes every group."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed import tensor_parallel as tpm
-    W = data * m
+    W = math.prod(shape)
     if W == world:
-        dm = init_device_mesh("cpu", (data, m), mesh_dim_names=("data", "model"))
-        return tpm.TPGroup(mesh=dm), (rank // m, rank % m)
+        dm = init_device_mesh("cpu", tuple(shape),
+                              mesh_dim_names=_names(shape))
+        return tpm.TPGroup(mesh=dm), tuple(
+            int(c) for c in np.unravel_index(rank, tuple(shape)))
+    data, m = shape
     mg = [dist.new_group([d * m + i for i in range(m)]) for d in range(data)]
     dg = [dist.new_group([d * m + i for d in range(data)]) for i in range(m)]
     if rank >= W:
@@ -404,11 +416,11 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
     of its parameter, m and v blocks from the reference's blocks (the
     parameters' over the elements whose gradient is 0 or at least 1e-4
     of the leaf's max-abs, and how many are not), and whether the two
-    ``act_spec`` runs agree to the bit."""
+    ``act_spec`` runs agree to the bit, and the elements of its
+    parameter and moment blocks."""
     import torch
 
     import torch_tp_cases as cases
-    from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import tensor_parallel as tpm
     from repro_torch.models import transformer as tf
@@ -422,19 +434,22 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
     paths = {**tf._JAX_PATHS, **tf._FAMILY_PATHS}
     opt = OptConfig(**meta["opt"])
     groups, todo = {}, []
-    for arch, mname, (data, m), accum, _ in meta["cases"]:
+    for arch, mname, shape, accum, _, *more in meta["cases"]:
+        rname, tw = more + ["DEFAULT", ""][len(more):]
         if mname not in groups:         # every rank makes every group
-            groups[mname] = _groups(rank, world, data, m)
+            groups[mname] = _groups(rank, world, shape)
         tp, coord = groups[mname]
         if tp is not None:
-            todo.append((arch, mname, accum, tp, coord, get_arch(arch).reduced(),
-                         sh.MeshAxes(("data", "model"), (data, m))))
+            todo.append((arch + tw, mname, accum, tp, coord,
+                         cases.config(arch, tw),
+                         sh.MeshAxes(_names(shape), tuple(shape)),
+                         getattr(sh, f"RULES_{rname}")))
     out = {}
 
     def run(case, s, ref):
         """Step ``s`` of ``case`` with ``act_spec`` off and on: {act:
         (model, state, metrics)}."""
-        arch, mname, accum, tp, coord, cfg, mesh = case
+        arch, mname, accum, tp, coord, cfg, mesh, rules = case
         pnames = tf.param_shapes(cfg)
         before = f"{arch}/{mname}/{accum}/{s - 1}"
         whole = ({n: ref[f"{before}/params/{'/'.join(paths[n])}"]
@@ -446,7 +461,7 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
         for act in (False, True):
             model = tpm.shard_model(cases.tree({"/".join(paths[n]): a
                                                 for n, a in whole.items()}),
-                                    cfg, mesh, rank=coord[1],
+                                    cfg, mesh, rules, coord=coord,
                                     device=dev).set_trainable()
             if s:
                 state = tpm.shard_opt_state(
@@ -465,7 +480,7 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
         return runs
 
     def compare(case, s, runs, ref):
-        arch, mname, accum, tp, _, cfg, _ = case
+        arch, mname, accum, tp, _, cfg, _, _ = case
         at = f"{arch}/{mname}/{accum}/{s}"
         for act, (model, state, met, calls) in runs.items():
             key = f"{at}/{int(act)}"
@@ -498,6 +513,9 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
                     for n in tf.param_shapes(cfg))
         same &= all(float(r0[k]) == float(r1[k]) for k in r0)
         out[f"{at}/act_same"] = np.asarray(same)
+        out[f"{at}/numel"] = np.asarray(
+            [[p.numel(), s0["m"][n].numel(), s0["v"][n].numel()]
+             for n, p in m0.named_parameters()])
 
     first = [run(case, 0, None) for case in todo]
     if meta.get("ready"):
@@ -512,9 +530,17 @@ def job_tp_train(rank: int, inp: dict, meta: dict) -> dict:
     return out
 
 
+def job_fsdp(rank: int, inp: dict, meta: dict) -> dict:
+    """``tp_serve`` of ``meta["serve"]`` (it needs no reference), then
+    ``tp_train`` of ``meta["train"]``."""
+    out = job_tp_serve(rank, inp, meta["serve"])
+    out.update(job_tp_train(rank, inp, meta["train"]))
+    return out
+
+
 JOBS = {"distributed": job_distributed, "dp_train": job_dp_train,
         "search": job_search, "tp_serve": job_tp_serve,
-        "tp_train": job_tp_train}
+        "tp_train": job_tp_train, "fsdp": job_fsdp}
 
 
 def main(job: str, rank: int, world: int, init: str, inputs: str,

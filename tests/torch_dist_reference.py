@@ -24,12 +24,25 @@ part, all at once, under ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` 
   for an fp32 case also ``serve_step(kv_quant=True)`` over the int8
   cache, jitted under the shardings of ``cache_axes(kv_quant=True)``
   as the dry run's ``kv_quant`` cells jit it;
-* ``tp_train``: each case (arch, mesh, accum_steps, act_spec) of the
-  part's arch: ``make_train_step`` jitted under ``param_shardings`` and
-  the moments' (``opt_shardings``: the parameters'), the batch over
-  ``data``, ``act_spec`` P("data", None, "model") or None, as the
-  dry run lowers a train cell; the steps from the case's weights and
-  zero moments, each step's metrics and its state after.
+* ``tp_train``: each case (arch, mesh, accum_steps, act_spec, and
+  optionally the rule set and a ``torch_tp_cases`` tweak) of the part's
+  arch: ``make_train_step`` jitted under ``param_shardings`` and the
+  moments' (``opt_shardings``: the parameters'), the batch over
+  ``data`` (``("pod", "data")`` on a three-axis mesh), ``act_spec``
+  P(batch axes, None, "model") or None, as the dry run lowers a train
+  cell; the steps from the case's weights and zero moments, each step's
+  metrics and its state after;
+* ``fsdp``: ``tp_serve`` of ``meta["serve"]`` and ``tp_train`` of
+  ``meta["train"]`` in one child an arch, so the part's arch compiles
+  its serve and train programs in one process.
+
+A mesh is ("data", "model") or, of three sizes, ("pod", "data",
+"model"), on its size's first devices.  ``meta["rules"]`` (or a train
+case's sixth entry) names the rule set, ``RULES_DEFAULT`` where it
+names none.  Under a named rule set ``tp_serve`` partitions every mesh
+above one device (without one, only those of all four), and
+``serve_step_paged`` too (the slab's K/V heads over ``model``); its
+int8 step runs unless ``meta["int8"]`` is false.
 """
 
 from __future__ import annotations
@@ -97,6 +110,12 @@ def _mesh(n: int, axis: str):
 
     from repro.launch.mesh import _axis_type_kwargs
     return Mesh(np.array(jax.devices()[:n]), (axis,), **_axis_type_kwargs(1))
+
+
+def _names(shape) -> tuple:
+    """A mesh's axis names: ("data", "model"), or ("pod", "data",
+    "model") for three sizes."""
+    return ("pod", "data", "model")[3 - len(shape):]
 
 
 def _flat(tree, prefix: str) -> dict:
@@ -188,6 +207,8 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
     from repro.launch.mesh import _axis_type_kwargs
     from repro.models import transformer as tf
 
+    named = "rules" in meta
+    rules = getattr(shd, f"RULES_{meta.get('rules', 'DEFAULT')}")
     out = {}
     for arch, tw, dname in meta["cases"]:
         if part not in ("all", arch):
@@ -218,7 +239,7 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
         img = cast(x["image_embeds"]) if "image_embeds" in x else None
         at = f"{key}/{dname}"
 
-        quant = dname == "float32"
+        quant = dname == "float32" and meta.get("int8", True)
 
         def run(name, rows, fd, fp, fq=None):
             cache = {"k": cast(x["k"][:, rows]), "v": cast(x["v"][:, rows])}
@@ -256,11 +277,11 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
         for mname, (data, m) in meta["meshes"]:
             if data * m == 1:
                 continue
-            if data * m != len(jax.devices()):
+            if data * m != len(jax.devices()) and not named:
                 continue
             mesh = jax.make_mesh((data, m), ("data", "model"),
+                                 devices=jax.devices()[:data * m],
                                  **_axis_type_kwargs(2))
-            rules = shd.RULES_DEFAULT
             psh = shd.param_shardings(cfg, mesh, rules)
             csh = shd.cache_shardings(cfg, mesh, cases.B, cases.S_MAX, rules)
             bsh = NamedSharding(mesh, P("data"))
@@ -282,6 +303,23 @@ def job_tp_serve(inp: dict, meta: dict, part: str) -> dict:
                              out_shardings=(bsh, qsh))
             with mesh:
                 run(f"{mname}/{at}", whole, fd, fp, fq)
+            if not named:
+                continue
+            ssh = NamedSharding(mesh, shd.spec_for(
+                ("layers", None, None, "kv_heads", None), x["k_slab"].shape,
+                mesh, rules))
+            repl = NamedSharding(mesh, P())
+            fpg = jax.jit(lambda p, k, v, bt, ln, tok: tf.serve_step_paged(
+                p, k, v, bt, ln, {"token": tok}, cfg),
+                in_shardings=(psh, ssh, ssh, repl, repl, repl),
+                out_shardings=(repl, ssh, ssh))
+            with mesh:
+                lg, ks, vs = fpg(params, cast(x["k_slab"]), cast(x["v_slab"]),
+                                 jnp.asarray(x["block_table"]),
+                                 jnp.asarray(x["lengths"]),
+                                 jnp.asarray(x["token"]))
+            out.update({f"{mname}/{at}/paged/{n}": np.asarray(a, np.float32)
+                        for n, a in (("logits", lg), ("k", ks), ("v", vs))})
     return out
 
 
@@ -300,23 +338,27 @@ def job_tp_train(inp: dict, meta: dict, part: str) -> dict:
 
     out = {}
     opt = OptConfig(**meta["opt"])
-    for arch, mname, (data, m), accum, act in meta["cases"]:
+    for arch, mname, shape, accum, act, *more in meta["cases"]:
         if part not in ("all", arch):
             continue
-        cfg = get_arch(arch).reduced()
+        rname, tw = more + ["DEFAULT", ""][len(more):]
+        cfg = cases.tweak(get_arch(arch).reduced(), tw)
+        arch = arch + tw
         params = jax.tree.map(jnp.asarray, cases.tree(
             {k[len(f"w/{arch}/"):]: v for k, v in inp.items()
              if k.startswith(f"w/{arch}/")}))
         state = init_opt_state(params, opt)
-        mesh = jax.make_mesh((data, m), ("data", "model"),
-                             devices=jax.devices()[:data * m],
-                             **_axis_type_kwargs(2))
-        psh = shd.param_shardings(cfg, mesh, shd.RULES_DEFAULT)
+        names = _names(shape)
+        mesh = jax.make_mesh(tuple(shape), names,
+                             devices=jax.devices()[:int(np.prod(shape))],
+                             **_axis_type_kwargs(len(shape)))
+        psh = shd.param_shardings(cfg, mesh, getattr(shd, f"RULES_{rname}"))
         repl = NamedSharding(mesh, P())
         osh = {"m": psh, "v": psh, "step": repl}
-        bsh = NamedSharding(mesh, P("data"))
+        batch_axes = names[:-1] if len(names) > 2 else "data"
+        bsh = NamedSharding(mesh, P(batch_axes))
         step = make_train_step(cfg, opt, remat=True, accum_steps=accum,
-                               act_spec=P("data", None, "model") if act
+                               act_spec=P(batch_axes, None, "model") if act
                                else None, **meta["kw"])
         keys = sorted(k.split("/")[-1] for k in inp
                       if k.startswith(f"batch/{arch}/0/"))
@@ -339,8 +381,17 @@ def job_tp_train(inp: dict, meta: dict, part: str) -> dict:
     return out
 
 
+def job_fsdp(inp: dict, meta: dict, part: str) -> dict:
+    """``tp_train`` of ``meta["train"]``, then ``tp_serve`` of
+    ``meta["serve"]``, for the part's arch."""
+    out = job_tp_train(inp, meta["train"], part)
+    out.update(job_tp_serve(inp, meta["serve"], part))
+    return out
+
+
 JOBS = {"dp_train": job_dp_train, "search": job_search,
-        "tp_serve": job_tp_serve, "tp_train": job_tp_train}
+        "tp_serve": job_tp_serve, "tp_train": job_tp_train,
+        "fsdp": job_fsdp}
 
 
 if __name__ == "__main__":

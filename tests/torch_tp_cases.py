@@ -7,7 +7,9 @@ that moves the layout: ``"v514"`` a vocabulary of 514 (splits over 2
 ranks, replicated over 4), ``"e6"`` 6 experts (replicated over 4, so
 ``mlp`` takes ``model``), ``"c05"`` a capacity factor of 0.5 (one slot
 an expert for a decode step's 4 tokens, so a dispatch group cut along
-the data shards drops other tokens than the whole batch's group).
+the data shards drops other tokens than the whole batch's group),
+``"d130"`` a width of 130 (``embed`` splits over 2 data shards, and the
+divisibility pass keeps it whole over 4).
 ``weights`` are the port's ``init_params`` (a seeded CPU generator) as
 the reference's numpy tree; ``inputs`` the steps' tokens, positions, a
 random dense cache, its int8 form (values and bf16-exact scales) and
@@ -34,7 +36,7 @@ DIGESTS = Path(__file__).resolve().parent / "data" / "tp_none_digests.json"
 ARCHS = ("llama3-8b", "granite-moe-3b-a800m", "arctic-480b", "granite-20b",
          "nemotron-4-15b", "internvl2-1b", "musicgen-large")
 TWEAKS = {"": {}, "v514": {"vocab_size": 514}, "e6": {"num_experts": 6},
-          "c05": {"capacity_factor": 0.5}}
+          "c05": {"capacity_factor": 0.5}, "d130": {"d_model": 130}}
 B, S_MAX, PS, MB, S_PROMPT = 4, 16, 4, 4, 8
 POS = (3, 9, 15, 0)
 LENGTHS = (0, 3, 6, 13)
